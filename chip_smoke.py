@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # needs one CUDA device; exit 0 = all phases passed
+    python3 chip_smoke.py --cpu-rehearsal # tiny sizes on the CPU, no kernels: checks this
+                                          # script's control flow only, always exits 3
+    python3 chip_smoke.py --kernels-only  # phases 1-3 only, exits 3
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. device   — a CUDA device must be present; prints its name and power limit.
+2. build    — compiles the CUDA kernels from the sources in this checkout.
+3. kernels  — every kernel against its plain PyTorch version on the card, at
+              the reference's test shapes and at the main path's shapes
+              (tolerance: f32 atol 1e-5, bf16 atol 5e-2), and times it there.
+4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
+              full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
+              B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
+              once per contact format, through the CUDA kernels; checks the
+              launch counters, the traces and the state matrix, the agreement
+              of the two formats, of the kernel path with the plain-torch mix,
+              and of the card with the CPU on a small input.
+5. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+   and as the last line ``{"ok": true, "device": {...}}``.
+
+Times are CUDA-event times on the card the script ran on; the bound of a
+kernel is the larger of its bytes over 3.35 TB/s and its f32 operations over
+67 TFLOP/s (published peaks of one H100 SXM at its full power limit).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import aggregation, contacts as contacts_lib, dfl_dds  # noqa: E402
+from repro_torch.data import datasets as data_lib  # noqa: E402
+from repro_torch.data.synthetic import synthetic_mnist  # noqa: E402
+from repro_torch.fed import engine, topology  # noqa: E402
+from repro_torch.fed.simulator import SimulationConfig, run_simulation  # noqa: E402
+from repro_torch.kernels import build as build_lib  # noqa: E402
+from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
+from repro_torch.profiling import PhaseTimer  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores, published
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+EPOCHS = 4                    # depth of the main-path runs: two evals at eval_every=2
+# the MNIST CNN's eight leaves, flattened: conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b
+LEAF_WIDTHS = [250, 10, 5000, 20, 16000, 50, 500, 10]
+
+KERNELS = {
+    "gossip_mix_gather": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix_gather.cu",
+        "replaces": "src/repro/kernels/gossip_mix/kernel.py:92",
+    },
+    "gossip_mix_matmul": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix_matmul.cu",
+        "replaces": "src/repro/kernels/gossip_mix/kernel.py:39",
+    },
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"FAILED: {what}")
+    log(f"  ok: {what}")
+
+
+# ------------------------------------------------------------------ timing ----
+
+def _hold_device(ms: float = 8.0) -> None:
+    """Keep the device busy for a few ms so that the launches timed next are
+    all queued before the first of them runs: the events then bracket device
+    time, not the host's launch rate."""
+    torch.cuda._sleep(int(ms * 1.5e6))
+
+
+def time_ms(fn, inner: int = 10, reps: int = 15, warm: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of one call of ``fn``,
+    each rep averaging ``inner`` back-to-back calls (inputs warm in L2, as
+    the round finds the parameters it has just updated)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _hold_device()
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return statistics.median(samples)
+
+
+# ----------------------------------------------------------- kernel checks ----
+
+def _dense_case(k_out, k_in, p, dtype, seed, device):
+    r = np.random.default_rng(seed)
+    w = torch.as_tensor(r.dirichlet(np.ones(k_in), size=k_out).astype(np.float32))
+    x = torch.as_tensor(r.normal(size=(k_in, p)).astype(np.float32)).to(dtype)
+    return w.to(device), x.to(device)
+
+
+def _sparse_case(k_out, k_in, d, p, dtype, seed, device):
+    r = np.random.default_rng(seed)
+    idx = torch.as_tensor(r.integers(0, k_in, size=(k_out, d)).astype(np.int32))
+    w = r.random((k_out, d)).astype(np.float32)
+    w[:, -1] = 0.0                                  # a zero-weight padding slot
+    x = torch.as_tensor(r.normal(size=(k_in, p)).astype(np.float32)).to(dtype)
+    return idx.to(device), torch.as_tensor(w).to(device), x.to(device)
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
+    """Both kernels against their plain versions on the card. Returns the
+    largest absolute error seen per kernel; fails past the tolerance."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    sweep = [(7, 7, 33, f32), (16, 16, 512, f32), (64, 64, 2048, f32),
+             (100, 100, 700, f32), (12, 12, 257, bf16), (8, 8, 128, bf16),
+             (3, 8, 130, f32), (8, 4, 257, f32),          # rectangular
+             (5, 11, 136, bf16), (33, 240, 1000, f32)]    # ... and a wide W
+    main = [(k, k, p, f32) for p in LEAF_WIDTHS + [sum(LEAF_WIDTHS)]]
+    main += [(k, k, sum(LEAF_WIDTHS), bf16)]
+    worst = {name: 0.0 for name in KERNELS}
+    for k_out, k_in, p, dtype in sweep + main:
+        w, x = _dense_case(k_out, k_in, p, dtype, k_out * 1000 + p, device)
+        got = kernel.gossip_mix_matmul(w, x)
+        torch.cuda.synchronize()
+        err = _max_err(got, ref.gossip_mix_matmul_ref(w, x))
+        check(got.shape == (k_out, p) and got.dtype == dtype and err <= ATOL[dtype],
+              f"gossip_mix_matmul [{k_out},{k_in}]x[{k_in},{p}] {dtype} max err {err:.2e}")
+        worst["gossip_mix_matmul"] = max(worst["gossip_mix_matmul"], err)
+    sparse_sweep = [(k_out, k_in, 5, p, dt) for k_out, k_in, p, dt in sweep]
+    sparse_sweep.append((8, 8, 5, 260, f32))
+    sparse_main = [(k, k, d_max, p, dt) for _, _, p, dt in main]
+    for k_out, k_in, d, p, dtype in sparse_sweep + sparse_main:
+        idx, w, x = _sparse_case(k_out, k_in, d, p, dtype, 9 + k_out + p, device)
+        got = kernel.gossip_mix_gather(idx, w, x)
+        torch.cuda.synchronize()
+        err = _max_err(got, ref.gossip_mix_gather_ref(idx, w, x))
+        check(got.shape == (k_out, p) and got.dtype == dtype and err <= ATOL[dtype],
+              f"gossip_mix_gather K_out={k_out} K_in={k_in} D={d} P={p} {dtype} "
+              f"max err {err:.2e}")
+        worst["gossip_mix_gather"] = max(worst["gossip_mix_gather"], err)
+    # an unaligned view start forces the element-wise instantiation
+    idx, w, x = _sparse_case(9, 9, 4, 64, f32, 1, device)
+    base = torch.zeros(9 * 64 + 1, device=device)
+    shifted = base[1:].view(9, 64)
+    shifted.copy_(x)
+    err = _max_err(kernel.gossip_mix_gather(idx, w, shifted),
+                   ref.gossip_mix_gather_ref(idx, w, x))
+    check(err <= 1e-5, f"gossip_mix_gather on a 4-byte-aligned X max err {err:.2e}")
+    # what the wrappers must refuse
+    for bad in (lambda: kernel.gossip_mix_matmul(w, x),                     # shapes
+                lambda: kernel.gossip_mix_matmul(torch.eye(9, device=device), x.double()),
+                lambda: kernel.gossip_mix_gather(idx.long(), w, x),
+                lambda: kernel.gossip_mix_gather(idx, w, x.t()),
+                lambda: kernel.gossip_mix_matmul(torch.eye(300, device=device),
+                                                 torch.ones(300, 8, device=device))):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise SystemExit("FAILED: a wrapper accepted an input its kernel does not take")
+    log("  ok: wrappers raise on wrong shape / dtype / layout / oversize W")
+    return worst
+
+
+def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
+    """Times at the main path's shapes: one round's mix is one launch per
+    leaf of the model (8 launches). Also one launch over the whole flattened
+    model, for scale. Returns the timing keys of the kernels line."""
+    k = mixing_dense.shape[0]
+    r = np.random.default_rng(0)
+    leaves = [torch.as_tensor(r.normal(size=(k, p)).astype(np.float32)).to(device)
+              for p in LEAF_WIDTHS]
+    whole = torch.cat(leaves, dim=1).contiguous()
+    idx = mixing_sparse.idx.to(torch.int32).contiguous()
+    w = mixing_sparse.w.contiguous()
+    nnz = int((w != 0).sum())
+    d = idx.shape[1]
+    csr = torch.as_tensor(contacts_lib.mixing_to_dense(mixing_sparse)).to(device).to_sparse_csr()
+    esize = 4
+    out = {}
+
+    def per_round(fn):
+        return lambda: [fn(x) for x in leaves]
+
+    # bytes: every input read once, every output written once, per launch
+    model_bytes = sum(2 * k * p * esize for p in LEAF_WIDTHS)
+    gather_bytes = model_bytes + len(leaves) * k * d * 8
+    gather_flops = 2 * nnz * sum(LEAF_WIDTHS)        # real slots only
+    matmul_bytes = model_bytes + len(leaves) * k * k * 4
+    matmul_flops = 2 * k * k * sum(LEAF_WIDTHS)
+    specs = {
+        "gossip_mix_gather": dict(
+            fn=lambda x: kernel.gossip_mix_gather(idx, w, x),
+            plain=lambda x: ref.gossip_mix_gather_ref(idx, w, x),
+            library=lambda x: torch.sparse.mm(csr, x),
+            bytes=gather_bytes, flops=gather_flops),
+        "gossip_mix_matmul": dict(
+            fn=lambda x: kernel.gossip_mix_matmul(mixing_dense, x),
+            plain=lambda x: ref.gossip_mix_matmul_ref(mixing_dense, x),
+            library=lambda x: torch.matmul(mixing_dense, x),
+            bytes=matmul_bytes, flops=matmul_flops),
+    }
+    for name, s in specs.items():
+        t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_flops = s["flops"] / F32_FLOP_PER_S * 1e3
+        # parent, change, change, parent order within one call: plain, kernel, kernel, plain
+        plain_a = time_ms(per_round(s["plain"]))
+        ms_a = time_ms(per_round(s["fn"]))
+        ms_b = time_ms(per_round(s["fn"]))
+        plain_b = time_ms(per_round(s["plain"]))
+        out[name] = {
+            "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": time_ms(per_round(s["library"])),
+            "work": f"one round's mix: {len(leaves)} launches, K={k}, "
+                    f"leaf widths {LEAF_WIDTHS}" + (f", D={d}, {nnz} real slots"
+                                                    if name.endswith("gather") else ""),
+            "ms_repeat": [ms_a, ms_b], "plain_ms_repeat": [plain_a, plain_b],
+            "whole_model_ms": time_ms(lambda: s["fn"](whole)),
+            "whole_model_plain_ms": time_ms(lambda: s["plain"](whole)),
+            "whole_model_library_ms": time_ms(lambda: s["library"](whole)),
+            "whole_model_bound_ms": max(
+                (2 * k * whole.shape[1] * esize
+                 + (k * d * 8 if name.endswith("gather") else k * k * 4))
+                / HBM_BYTES_PER_S * 1e3, t_flops),
+        }
+        log(f"  {name}: {json.dumps(out[name])}")
+    return out
+
+
+# --------------------------------------------------------------- main path ----
+
+def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
+    """One run through the public entry points, counters zeroed just before
+    and read just after. Returns (result, context, launches, report)."""
+    timer = PhaseTimer(cfg.device)
+    ctx = engine.build_context(cfg, dataset=dataset, timer=timer)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = engine.run_with_context(ctx)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernel.launch_counts)
+    phases = timer.totals_ms()
+    report = {
+        "contact_format": cfg.contact_format, "epochs": cfg.epochs,
+        "d_max": ctx.contacts.d_max,
+        "seconds_per_epoch": seconds / cfg.epochs,
+        "device_ms_per_epoch": {n: v / cfg.epochs for n, v in sorted(phases.items())},
+        "peak_device_memory_mb": (torch.cuda.max_memory_allocated() / 2**20
+                                  if torch.cuda.is_available() else None),
+        "launches": launches,
+        "avg_accuracy": result.avg_accuracy, "kl_trace": result.kl_trace,
+    }
+    log(f"  {json.dumps(report)}")
+
+    k = ctx.total_nodes
+    check(len(result.kl_trace) == cfg.epochs and len(result.comm_mb) == cfg.epochs,
+          "one kl_trace / comm_mb entry per epoch")
+    traces = [result.kl_trace, result.comm_mb, result.avg_accuracy,
+              result.consensus_distance, np.stack(result.entropy),
+              np.stack(result.kl_divergence), np.stack(result.vehicle_accuracy)]
+    check(all(np.isfinite(np.asarray(t)).all() for t in traces), "every trace is finite")
+    check(len(result.epochs_evaluated) >= 2 and result.entropy[0].shape == (k,),
+          f"evaluated at epochs {result.epochs_evaluated}, [K]-shaped diagnostics")
+    rows = ctx.final_state.state_matrix.sum(dim=1)
+    check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-5)),
+          "state-matrix rows sum to 1")
+    check(result.kl_trace[-1] < result.kl_trace[0],
+          f"kl_trace falls: {result.kl_trace[0]:.4f} -> {result.kl_trace[-1]:.4f}")
+    check(sum(result.comm_mb) > 0, "vehicles exchanged models")
+    if cfg.device != "cpu":
+        used = "gossip_mix_gather" if cfg.contact_format == "sparse" else "gossip_mix_matmul"
+        other = next(n for n in launches if n != used)
+        want = cfg.epochs * leaves_per_mix
+        check(launches[used] == want and launches[other] == 0,
+              f"{used} launched {launches[used]} times = {cfg.epochs} mixes x "
+              f"{leaves_per_mix} leaves; {other} {launches[other]} times")
+    return result, ctx, launches, report
+
+
+def check_kernel_path_against_torch_mix(ctx) -> None:
+    """One more round from the run's final state, same batches, dropout off,
+    once through the CUDA-kernel mix and twice through the plain-torch mix.
+    The mixed parameters and the state matrix must agree to 1e-5. The
+    parameters AFTER the E local steps are reported beside the difference
+    between the two identical torch rounds: the backward pass sums with
+    atomics in an order that changes from run to run, so that pair is the
+    floor any comparison after training sits on."""
+    cfg = ctx.cfg
+    contacts_t = contacts_lib.epoch_of(
+        contacts_lib.to_device(ctx.contacts.window(1), ctx.device), 0)
+    batch = ctx.sample_fn(ctx.fed_data, ctx.init_rng)
+    outs = []
+    for mix_fn in (ops.mix_params_cuda, aggregation.mix_params, aggregation.mix_params):
+        state, diags = dfl_dds.dds_round(
+            ctx.final_state, contacts_t, ctx.target, batch, None,
+            ctx.setup.local_train_fn, lr=cfg.lr, local_steps=cfg.local_steps,
+            p1_steps=cfg.p1_steps, p1_step_size=cfg.p1_step_size,
+            mix_params_fn=mix_fn, local_mask=ctx.local_mask)
+        outs.append((state, mix_fn(diags["mixing"], ctx.final_state.params)))
+    (a, mixed_a), (b, mixed_b), (c, _) = outs
+    err_mix = max(_max_err(mixed_a[n], mixed_b[n]) for n in mixed_a)
+    err_state = _max_err(a.state_matrix, b.state_matrix)
+    err_par = max(_max_err(a.params[n], b.params[n]) for n in a.params)
+    floor = max(_max_err(b.params[n], c.params[n]) for n in b.params)
+    check(err_mix <= 1e-5 and err_state <= 1e-5,
+          f"{cfg.contact_format}: kernel mix vs torch mix — mixed params {err_mix:.2e}, "
+          f"state matrix {err_state:.2e} (atol 1e-5)")
+    log(f"  note: after the {cfg.local_steps} local steps the two paths' parameters differ "
+        f"by {err_par:.2e}; two identical torch-mix rounds differ by {floor:.2e}")
+
+
+def check_card_against_cpu(device: str) -> None:
+    """The same small federation on the card and on the CPU: the traces that
+    do not depend on SGD noise agree to 1e-5."""
+    ds = synthetic_mnist(n_train=1200, n_test=200)
+    base = dict(num_vehicles=8, epochs=4, eval_every=2, eval_samples=200,
+                local_steps=2, batch_size=16, p1_steps=40, comm_range=250.0,
+                num_rsus=1, p_drop=0.1)
+    for fmt in ("sparse", "dense"):
+        on_cpu = run_simulation(SimulationConfig(**base, contact_format=fmt, device="cpu"),
+                                dataset=ds)
+        on_card = run_simulation(SimulationConfig(**base, contact_format=fmt, device=device),
+                                 dataset=ds)
+        err = max(np.abs(np.asarray(on_cpu.kl_trace) - np.asarray(on_card.kl_trace)).max(),
+                  np.abs(np.stack(on_cpu.entropy) - np.stack(on_card.entropy)).max(),
+                  np.abs(np.asarray(on_cpu.comm_mb) - np.asarray(on_card.comm_mb)).max())
+        check(err <= 1e-5, f"{fmt}: small federation, {device} vs cpu traces max diff {err:.2e}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        raise SystemExit(f"FAILED: nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--cpu-rehearsal", action="store_true",
+                        help="tiny sizes on the CPU, no kernels; exits 3")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after the kernels phase (a first look at a new "
+                             "kernel); exits 3")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    t_start = time.perf_counter()
+
+    # -- 1. device ----------------------------------------------------------
+    rehearsal = args.cpu_rehearsal
+    if not rehearsal and not torch.cuda.is_available():
+        print("FAILED: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    device = "cpu" if rehearsal else "cuda"
+    card = "cpu rehearsal" if rehearsal else nvidia_smi_line()
+    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+
+    # -- 2. build -----------------------------------------------------------
+    if not rehearsal:
+        t0 = time.perf_counter()
+        kernel.build()
+        log(f"[build] {len(kernel.SOURCES)} kernels built into {build_lib.build_dir()} "
+            f"in {time.perf_counter() - t0:.1f} s")
+        for source in kernel.SOURCES.values():
+            for line in build_lib.build_log(source).splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {source.name}: {line.strip()}")
+
+    # the configuration of the main path
+    full = SimulationConfig(
+        algorithm="dds", dataset="mnist", epochs=EPOCHS, eval_every=2,
+        seed=args.seed, mixing_backend="cuda", device=device)
+    if rehearsal:
+        full = replace(full, num_vehicles=8, local_steps=2, batch_size=8, p1_steps=10,
+                       eval_samples=64, comm_range=250.0)
+    net = topology.make_road_network(full.road_net, seed=full.seed)
+    d_max = engine.probe_d_max(full, net)
+    log(f"[config] K={full.num_vehicles} E={full.local_steps} B={full.batch_size} "
+        f"p1_steps={full.p1_steps} epochs={full.epochs} d_max={d_max}")
+
+    # -- 3. kernels ---------------------------------------------------------
+    timings, worst = {}, {name: None for name in KERNELS}
+    if not rehearsal:
+        log("[kernels] against the plain versions on the card")
+        with engine.full_f32_matmul():
+            worst = check_kernels(device, full.num_vehicles, d_max)
+            first = contacts_lib.to_device(engine.ContactStream(full, net).window(1), device)
+            first = contacts_lib.epoch_of(first, 0)
+            mixing_sparse = aggregation.uniform_mixing(first)
+            mixing_dense = torch.as_tensor(
+                contacts_lib.mixing_to_dense(mixing_sparse)).to(device)
+            log("[kernels] times at the main path's shapes (ms, CUDA events, median)")
+            timings = time_kernels(device, mixing_sparse, mixing_dense)
+
+    if args.kernels_only:
+        log("[kernels-only] stopping before the main path")
+        return 3
+
+    # -- 4. main path -------------------------------------------------------
+    if rehearsal:
+        dataset = synthetic_mnist(seed=args.seed, n_train=800, n_test=64)
+    else:
+        t0 = time.perf_counter()
+        dataset = data_lib.load_dataset(full.dataset, seed=full.seed)
+        log(f"[data] {dataset.name}: {dataset.train_x.shape} train, "
+            f"{dataset.test_x.shape} test in {time.perf_counter() - t0:.1f} s")
+    log("[main path] warm-up (one epoch, not counted)")
+    run_simulation(replace(full, epochs=1), dataset=dataset)
+    results, launches, reports = {}, {}, []
+    for fmt in ("sparse", "dense"):
+        log(f"[main path] run_simulation, contact_format={fmt}")
+        res, ctx, counts, report = drive_main_path(
+            replace(full, contact_format=fmt), dataset, len(LEAF_WIDTHS))
+        results[fmt] = res
+        launches.update({n: c for n, c in counts.items() if c})
+        reports.append(report)
+        with engine.full_f32_matmul():
+            check_kernel_path_against_torch_mix(ctx)
+    sparse, dense = results["sparse"], results["dense"]
+    err = max(np.abs(np.asarray(sparse.kl_trace) - np.asarray(dense.kl_trace)).max(),
+              np.abs(np.asarray(sparse.comm_mb) - np.asarray(dense.comm_mb)).max())
+    check(err <= 1e-5, f"dense and sparse give the same kl_trace / comm_mb (max diff {err:.2e})")
+    if not rehearsal:
+        log("[main path] a small federation on the card against the CPU")
+        check_card_against_cpu(device)
+
+    # -- 5. the record ------------------------------------------------------
+    log(f"[main path] {json.dumps({'per_epoch': reports})}")
+    if rehearsal:
+        log(f"[rehearsal] control flow ok in {time.perf_counter() - t_start:.1f} s; "
+            "no kernel ran, nothing was measured")
+        return 3
+    rows = []
+    for name, meta in KERNELS.items():
+        check(launches.get(name, 0) > 0, f"the main path launched {name}")
+        rows.append({"name": name, **meta, "launches": launches[name],
+                     "max_abs_err": worst[name], **timings[name]})
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,52 @@
+"""Carrying weights and federation state between the JAX package and the port.
+
+The port keeps the reference's parameter names and layouts (NHWC inputs, HWIO
+conv weights, ``[in, out]`` dense weights), so conversion is a change of
+container only: numpy arrays in, tensors on a device out, and back. Callers
+export from JAX with ``np.asarray`` on each leaf.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.dfl_dds import FederationState
+from .optim import ScaleState
+
+
+def params_from_numpy(params: dict, device="cpu") -> dict:
+    """Single (``[...]``) or stacked (``[K, ...]``) CNN parameters, as the
+    reference holds them, to a dictionary of tensors on ``device``. Values
+    may be numpy arrays or tensors; names, shapes and dtypes are kept."""
+    return {name: (p.detach() if isinstance(p, torch.Tensor)
+                   else torch.tensor(np.asarray(p))).to(device)
+            for name, p in params.items()}
+
+
+def federation_state_from_numpy(params: dict, opt_count, state_matrix, epoch,
+                                device="cpu") -> FederationState:
+    """A ``FederationState`` from the reference's pieces: stacked ``params``,
+    the SGD step counters (``opt_state.count``, ``[K]``), the ``[K, K]``
+    ``state_matrix`` and the scalar ``epoch``."""
+    return FederationState(
+        params=params_from_numpy(params, device),
+        opt_state=ScaleState(count=torch.as_tensor(
+            np.asarray(opt_count), dtype=torch.int32, device=device)),
+        state_matrix=torch.as_tensor(
+            np.asarray(state_matrix), dtype=torch.float32, device=device),
+        epoch=torch.as_tensor(np.asarray(epoch), dtype=torch.int32,
+                              device=device),
+    )
+
+
+def to_numpy(tree):
+    """Tensors -> numpy arrays through dictionaries and (named) tuples —
+    parameters, optimizer state or a whole ``FederationState``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {name: to_numpy(v) for name, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [to_numpy(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree

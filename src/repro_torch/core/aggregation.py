@@ -1,0 +1,90 @@
+"""Model aggregation for decentralized FL: mixing matrices and the gossip mix.
+
+One synchronized round of decentralized aggregation (Eq. 10 executed on every
+vehicle) is, in stacked form,
+
+    w_{t+1} = W_t @ w_t
+
+with ``W_t`` the ``[K, K]`` row-stochastic matrix of aggregation weights
+(supported on the time-t contact graph).
+
+``mix_params`` applies W to a dictionary of tensors whose leaves carry a
+leading vehicle axis. It is the plain-torch path (``mixing_backend="torch"``);
+the hand-written CUDA kernels of ``repro_torch.kernels.gossip_mix`` serve the
+same function behind ``mixing_backend="cuda"``.
+
+Every mixing constructor (and ``mix_params``) dispatches on the contact
+representation: a dense ``[K, K]`` matrix yields a dense row-stochastic W,
+a ``contacts.SparseContacts`` neighbour list yields a ``SparseMixing`` with
+the same weights on the same edges (see core/contacts.py).
+
+Still to port from ``repro.core.aggregation``: ``metropolis_mixing``,
+``sample_size_mixing`` (with the baselines) and ``mix_params_lowp``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .contacts import SparseContacts, SparseMixing, sparse_mix_array
+
+Tensor = torch.Tensor
+
+
+def _renormalize(idx: Tensor, w: Tensor) -> SparseMixing:
+    return SparseMixing(
+        idx, w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12))
+
+
+def mixing_from_alpha(alpha: Tensor, contacts) -> Tensor | SparseMixing:
+    """Mask + renormalize alpha rows onto the contact set -> row-stochastic W.
+
+    Dense: ``alpha`` [K, K] against the 0/1 contact matrix. Sparse: ``alpha``
+    [K, D] per-slot weights against a ``SparseContacts`` of the same layout.
+    """
+    if isinstance(contacts, SparseContacts):
+        return _renormalize(contacts.idx, alpha * contacts.mask)
+    w = alpha * contacts
+    return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
+
+
+def uniform_mixing(contacts) -> Tensor | SparseMixing:
+    """W[k, k'] = 1/|P_k| on the contact set (incl. self)."""
+    if isinstance(contacts, SparseContacts):
+        return _renormalize(contacts.idx, contacts.mask.to(torch.float32))
+    c = contacts.to(torch.float32)
+    return c / torch.clamp(torch.sum(c, dim=-1, keepdim=True), min=1e-12)
+
+
+def mix_params(mixing, params: dict) -> dict:
+    """Apply the gossip mix to a dictionary of ``[K, ...]`` tensors.
+
+    A ``SparseMixing`` routes through the gather + slot-loop segment sum
+    (``contacts.sparse_mix_array``); a dense W through a full-f32 matrix
+    product over the vehicle axis (the default f32 matmul precision of
+    PyTorch is full f32, not TF32). Mixing is f32, cast back to the leaf
+    dtype.
+    """
+    if isinstance(mixing, SparseMixing):
+        return {name: sparse_mix_array(mixing, x) for name, x in params.items()}
+
+    w = mixing.to(torch.float32)
+
+    def mix_leaf(x: Tensor) -> Tensor:
+        flat = x.reshape(x.shape[0], -1).to(torch.float32)
+        mixed = (w @ flat).reshape((w.shape[0],) + tuple(x.shape[1:]))
+        return mixed.to(x.dtype)
+
+    return {name: mix_leaf(x) for name, x in params.items()}
+
+
+def consensus_distance(params: dict) -> Tensor:
+    """Xi_t^2 = (1/K) sum_k || w_bar - w_k ||^2 over a stacked dictionary
+    (the whole federation on one device)."""
+    leaves = list(params.values())
+    k = leaves[0].shape[0]
+    total = 0.0
+    for leaf in leaves:
+        flat = leaf.reshape(k, -1).to(torch.float32)
+        mean = torch.mean(flat, dim=0, keepdim=True)
+        total = total + torch.sum((flat - mean) ** 2)
+    return total / k

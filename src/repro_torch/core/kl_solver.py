@@ -1,0 +1,162 @@
+"""Solver for the paper's P1 (Eq. 11): per-vehicle aggregation weights.
+
+  min_{alpha}  D_KL( sum_{k' in P_{k,t}} alpha_{k'} * s_{k'}  ||  g )
+  s.t.         alpha on the probability simplex, alpha_{k'} = 0 outside P_{k,t}
+
+P1 is convex over the simplex (KL is convex in its first argument, the mix is
+linear in alpha). We solve it with *exponentiated gradient* (entropic mirror
+descent): every iterate is strictly feasible, masked coordinates stay exactly
+zero, and the iteration is a few elementwise ops + two small matrix products.
+
+Counterpart of ``repro.core.kl_solver``. The reference vmaps one vehicle's
+solve; here the vehicle axis is written out: ``alpha`` is ``[V, D]`` and the
+neighbour states are either one shared ``[D, K]`` matrix (dense contacts,
+``D = K``) or a gathered ``[V, D, K]`` tensor (neighbour lists), and each EG
+step is two batched contractions.
+
+The objective and gradient are in **nats** (the state-vector diagnostics are
+in bits; the argmin is the same).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import contacts as contacts_lib
+
+Tensor = torch.Tensor
+
+_EPS = 1e-12
+
+
+def _kl_nats(u: Tensor, g: Tensor) -> Tensor:
+    """KL(u || g) in nats; zero-coordinate convention."""
+    uu = torch.clamp(u, _EPS, 1.0)
+    gg = torch.clamp(g, _EPS, 1.0)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    return torch.sum(
+        torch.where(u > _EPS, u * (torch.log(uu) - torch.log(gg)), zero), dim=-1)
+
+
+def mixed_state(alpha: Tensor, states: Tensor) -> Tensor:
+    """u = alpha^T S : the post-aggregation state vector. ``alpha`` [D] with
+    ``states`` [D, K], or batched ``alpha`` [V, D] with ``states`` [D, K]
+    (shared) / [V, D, K] (per row)."""
+    if states.dim() == 3:
+        return torch.bmm(alpha.unsqueeze(1), states).squeeze(1)
+    return alpha @ states
+
+
+def kl_objective(alpha: Tensor, states: Tensor, target: Tensor) -> Tensor:
+    """P1 objective in nats (argmin is identical to the bits version)."""
+    return _kl_nats(mixed_state(alpha, states), target)
+
+
+def _kl_grad(alpha: Tensor, states: Tensor, log_g: Tensor) -> Tensor:
+    """Analytic gradient: d/d alpha_i = sum_j S[i,j] (log(u_j/g_j) + 1)."""
+    u = torch.clamp(mixed_state(alpha, states), min=_EPS)
+    r = torch.log(u) - log_g + 1.0
+    if states.dim() == 3:
+        return torch.bmm(states, r.unsqueeze(-1)).squeeze(-1)
+    return r @ states.T
+
+
+def _eg_solve(states: Tensor, target: Tensor, mask: Tensor, num_steps: int,
+              step_size: float) -> Tensor:
+    """Batched EG: ``mask`` [V, D] 0/1, ``states`` [D, K] or [V, D, K];
+    returns ``alpha`` [V, D] on the simplex, exactly zero off the mask."""
+    mask = mask.to(states.dtype)
+    active = mask > 0
+    n_active = torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1.0)
+    alpha = mask / n_active
+    log_g = torch.log(torch.clamp(target, min=_EPS))
+    neg_inf = torch.full((), float("-inf"), dtype=states.dtype,
+                         device=states.device)
+    for _ in range(num_steps):
+        grad = _kl_grad(alpha, states, log_g)
+        # Center the gradient over active coords: EG is invariant to constant
+        # shifts, centering improves conditioning of the exponent. Normalize
+        # the step by the active gradient range so one EG step never moves
+        # log-weights by more than ``step_size``.
+        gbar = torch.sum(grad * mask, dim=-1, keepdim=True) / n_active
+        centered = (grad - gbar) * mask
+        scale = step_size / torch.clamp(
+            torch.amax(torch.abs(centered), dim=-1, keepdim=True), min=1.0)
+        logits = torch.where(
+            active, torch.log(torch.clamp(alpha, _EPS, 1.0)) - scale * centered,
+            neg_inf)
+        new = torch.softmax(logits, dim=-1) * mask
+        alpha = new / torch.clamp(torch.sum(new, dim=-1, keepdim=True), min=_EPS)
+    return alpha
+
+
+def solve_p1(
+    states: Tensor,
+    target: Tensor,
+    contact_mask: Tensor,
+    num_steps: int = 400,
+    step_size: float = 2.0,
+) -> Tensor:
+    """Solve P1 for ONE vehicle.
+
+    Args:
+      states: ``[D, K]`` — row k' is the (already exchanged) state vector
+        s_{k',t+1/2} of candidate k' (``D = K`` for a dense contact row).
+        Rows outside the contact set are ignored.
+      target: ``[K]`` target vector g.
+      contact_mask: ``[D]`` 0/1 — membership of P_{k,t} (must include self).
+      num_steps: EG iterations.
+      step_size: EG learning rate.
+
+    Returns:
+      ``[D]`` alpha, on the simplex, exactly zero off the contact set.
+    """
+    return _eg_solve(states, target, contact_mask[None], num_steps, step_size)[0]
+
+
+def solve_p1_all(
+    states: Tensor,
+    target: Tensor,
+    contacts,
+    num_steps: int = 400,
+    step_size: float = 2.0,
+) -> Tensor:
+    """Solve P1 for every vehicle simultaneously (batched EG).
+
+    Args:
+      states: ``[K, K]`` state matrix (row k' = s_{k',t+1/2}).
+      target: ``[K]``.
+      contacts: ``[K, K]`` 0/1 dense matrix, row k = P_{k,t} (diag must be
+        1), or a ``contacts.SparseContacts`` neighbour list.
+
+    Returns:
+      Dense contacts: ``[K, K]`` alpha rows supported on the contact set.
+      Sparse contacts: ``[K, D_max]`` per-slot alpha (zero on padding) on the
+      neighbour-list layout — each vehicle's EG runs over its D_max slots
+      against the gathered ``[D_max, K]`` neighbour states (the same solver
+      body as the dense path, so the optima agree).
+    """
+    if isinstance(contacts, contacts_lib.SparseContacts):
+        return _solve_p1_neighbours(states, target, contacts, num_steps,
+                                    step_size)
+    return _eg_solve(states, target, contacts, num_steps, step_size)
+
+
+# vehicles per block of the sparse P1 solve: the batched EG holds the gathered
+# neighbour states for a whole block — [block, D_max, K] floats — so blocking
+# bounds that buffer at large K instead of holding the full [K, D_max, K]
+# gather. Module-level so tests can shrink it to exercise the blocked path at
+# tiny K.
+P1_BLOCK = 256
+
+
+def _solve_p1_neighbours(states, target, contacts, num_steps, step_size) -> Tensor:
+    """Per-vehicle EG over the neighbour slots, in row blocks of ``P1_BLOCK``
+    vehicles. (The last block is simply shorter: rows are independent, so no
+    padding rows are needed.)"""
+    idx, mask = contacts.idx.long(), contacts.mask
+    k = idx.shape[0]
+    block = min(P1_BLOCK, k)
+    out = [_eg_solve(states[idx[s:s + block]], target, mask[s:s + block],
+                     num_steps, step_size)
+           for s in range(0, k, block)]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=0)

@@ -1,0 +1,52 @@
+"""Batching pipeline for federated training.
+
+Everything stays on the run's device: the full train set lives as one tensor;
+each global epoch the pipeline draws per-vehicle (E local steps x B) sample
+indices from the vehicle's partition (dense [K, W] index table with true
+counts, see partition.pad_to_uniform) and gathers there.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+
+class FederatedData(NamedTuple):
+    x: Tensor            # [N, ...] full train inputs (device)
+    y: Tensor            # [N] labels (int64)
+    index_table: Tensor  # [K, W] per-vehicle sample indices (padded, resampled)
+    counts: Tensor       # [K] true per-vehicle sample counts
+
+
+def make_federated_data(train_x: np.ndarray, train_y: np.ndarray,
+                        dense_indices: np.ndarray, counts: np.ndarray,
+                        device="cpu") -> FederatedData:
+    return FederatedData(
+        x=torch.as_tensor(train_x, device=device),
+        y=torch.as_tensor(train_y, device=device).long(),
+        index_table=torch.as_tensor(dense_indices, device=device).long(),
+        counts=torch.as_tensor(counts, device=device),
+    )
+
+
+def sample_batches(data: FederatedData, generator, local_steps: int,
+                   batch_size: int, picks: Tensor | None = None):
+    """Draw per-vehicle minibatches: returns (x, y) of shape [K, E, B, ...].
+
+    The ``[K, E, B]`` pick tensor (positions into each vehicle's row of the
+    index table) is drawn at global K from ``generator`` — a
+    ``torch.Generator`` on the data's device — unless ``picks`` injects it
+    (how a test feeds two stacks the same batches).
+    """
+    k, w = data.index_table.shape
+    if picks is None:
+        picks = torch.randint(0, w, (k, local_steps, batch_size),
+                              generator=generator, device=data.x.device)
+    picks = picks.to(data.x.device).long()
+    rows = torch.arange(k, device=data.x.device)
+    idx = data.index_table[rows[:, None, None], picks]  # [K, E, B]
+    return data.x[idx], data.y[idx]

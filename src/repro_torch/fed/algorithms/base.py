@@ -1,0 +1,104 @@
+"""The Algorithm protocol and the string-keyed algorithm registry.
+
+An *algorithm* is everything the engine needs to run one federation round,
+bundled behind four hooks:
+
+* ``init_state(setup)``   — the stacked federation state;
+* ``round(setup, state, contacts_t, target, batch, generator, fed_data)`` —
+  one synchronized global iteration, returning ``(state, diags)`` with at
+  least ``entropy`` / ``kl_divergence`` / ``loss`` diagnostics;
+* ``sample(setup, fed_data, generator)`` — the per-epoch device-side batch;
+* ``model_of(setup, state)``      — the evaluable parameter stack.
+
+``AlgorithmSetup`` carries the per-run context the engine builds once
+(``engine.build_context``): config, local-train fn, initial stacks and the
+resolved gossip-mix fn. (The reference's ``state_pspec`` hook and ``shard``
+field belong to the vehicle-sharded backend, which is still to port.)
+
+Registering a new algorithm makes it addressable by name from
+``SimulationConfig.algorithm`` with zero engine edits:
+
+    @register_algorithm
+    class MyAlgo(Algorithm):
+        name = "my_algo"
+        ...
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from ...data import pipeline
+from ...profiling import PhaseTimer
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class AlgorithmSetup:
+    """Per-run context shared by every algorithm hook; built once per
+    (config, seed) by ``engine.build_context``."""
+    cfg: Any                        # SimulationConfig (duck-typed; no engine import)
+    total_nodes: int                # vehicles + RSUs
+    loss_fn: Callable               # loss(params, x, y, generator) -> [K] losses
+    local_train_fn: Callable        # E local SGD steps for the whole stack
+    params_stack: dict              # [K, ...] identical-init model stack
+    opt_stack: Any                  # [K, ...] optimizer state stack
+    local_mask: Tensor | None       # [K] 1 = runs local iterations (RSUs 0)
+    mix_params_fn: Callable         # resolved gossip mix (torch | cuda)
+    timer: PhaseTimer | None = None  # per-phase timing, when a caller asks
+
+
+class Algorithm:
+    """Base class for registered algorithms (see module docstring)."""
+
+    name: str = "?"
+
+    def init_state(self, setup: AlgorithmSetup):
+        raise NotImplementedError
+
+    def round(self, setup: AlgorithmSetup, state, contacts_t, target: Tensor,
+              batch, generator, fed_data: pipeline.FederatedData) -> tuple[Any, dict]:
+        raise NotImplementedError
+
+    def sample(self, setup: AlgorithmSetup, fed_data: pipeline.FederatedData,
+               generator):
+        """Default: per-vehicle [E, B] minibatches from the partition table."""
+        cfg = setup.cfg
+        return pipeline.sample_batches(fed_data, generator, cfg.local_steps,
+                                       cfg.batch_size)
+
+    def model_of(self, setup: AlgorithmSetup, state):
+        raise NotImplementedError
+
+
+_ALGORITHMS: dict[str, Algorithm] = {}
+
+# registered in the reference, still to port here (see ROADMAP.md)
+NOT_YET_PORTED = ("dfl", "sp", "d_fedavg", "d_sgd")
+
+
+def register_algorithm(cls: type[Algorithm]) -> type[Algorithm]:
+    """Class decorator: instantiate and register under ``cls.name``."""
+    _ALGORITHMS[cls.name] = cls()
+    return cls
+
+
+def get_algorithm(name: str) -> Algorithm:
+    if name in NOT_YET_PORTED and name not in _ALGORITHMS:
+        raise NotImplementedError(
+            f"algorithm {name!r} is not ported yet: it arrives with the "
+            "baselines slice (core/baselines.py + fed/algorithms); only "
+            f"{'|'.join(available_algorithms())} run in repro_torch today")
+    try:
+        return _ALGORITHMS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown algorithm {name!r} "
+            f"(registered: {'|'.join(available_algorithms())})") from None
+
+
+def available_algorithms() -> list[str]:
+    return sorted(_ALGORITHMS)

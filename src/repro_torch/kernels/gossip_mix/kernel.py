@@ -1,0 +1,189 @@
+"""CUDA kernels for the gossip mix, written by hand for Hopper (sm_90a).
+
+* ``gossip_mix_gather(idx, w, flat)`` — ``out[k, p] = sum_d w[k, d] *
+  flat[idx[k, d], p]`` (``csrc/gossip_mix_gather.cu``), the mix under the
+  sparse contact format;
+* ``gossip_mix_matmul(mixing, flat)`` — ``out = mixing @ flat`` with the
+  product computed in the kernel at full f32 precision
+  (``csrc/gossip_mix_matmul.cu``), the mix under the dense format.
+
+Counterparts of the Pallas kernels of ``repro.kernels.gossip_mix.kernel``.
+The sources carry their design notes. They are compiled by ``nvcc`` at first
+use (``kernels.build``) and bound through ``ctypes``; importing this module
+needs neither a GPU nor a compiler.
+
+Each wrapper takes CUDA tensors only and raises on anything the kernel does
+not take (``ops.mix_params_cuda`` routes CPU tensors to the plain versions in
+``ref``). It allocates the output with ``torch.empty``, launches on PyTorch's
+current stream, does not synchronise, raises if the launch was refused, and
+adds one to ``launch_counts[name]`` per launch. The kernel may still be
+running when the wrapper returns; its operands stay valid because PyTorch's
+caching allocator reuses freed memory in stream order, and the launch is on
+the current stream.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .. import build as build_lib
+
+Tensor = torch.Tensor
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {
+    "gossip_mix_gather": CSRC / "gossip_mix_gather.cu",
+    "gossip_mix_matmul": CSRC / "gossip_mix_matmul.cu",
+}
+
+# shared memory one block may use on an H100 (dynamic, after opting in)
+MAX_SMEM_BYTES = 232_448
+_GATHER_ROWS = 4          # kRows in gossip_mix_gather.cu
+_MAX_GRID_Y = 65_535
+
+# launches per kernel since the last reset_launch_counts()
+launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def build() -> None:
+    """Compile (both sources in parallel) and load the kernels; a no-op once
+    loaded. Called by the wrappers at first launch."""
+    if _LIBS:
+        return
+    names = list(SOURCES)
+    gather, matmul = build_lib.load_libraries([SOURCES[n] for n in names])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    gather.gossip_mix_gather_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                                i32, i32, ptr]
+    gather.gossip_mix_gather_launch.restype = i32
+    gather.gossip_mix_gather_error_string.argtypes = [i32]
+    gather.gossip_mix_gather_error_string.restype = ctypes.c_char_p
+    matmul.gossip_mix_matmul_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                                i32, ptr]
+    matmul.gossip_mix_matmul_launch.restype = i32
+    matmul.gossip_mix_matmul_smem_bytes.argtypes = [i32, i32]
+    matmul.gossip_mix_matmul_smem_bytes.restype = ctypes.c_longlong
+    matmul.gossip_mix_matmul_error_string.argtypes = [i32]
+    matmul.gossip_mix_matmul_error_string.restype = ctypes.c_char_p
+    _LIBS.update(zip(names, (gather, matmul)))
+
+
+def _check_flat(flat: Tensor, what: str) -> None:
+    if not flat.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {flat.device} "
+                         "(CPU tensors go through kernels.gossip_mix.ops)")
+    if flat.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: flat must be float32 or bfloat16, "
+                        f"got {flat.dtype}")
+    if flat.dim() != 2 or not flat.is_contiguous():
+        raise ValueError(f"{what}: flat must be a contiguous [K_in, P] "
+                         f"tensor, got shape {tuple(flat.shape)} "
+                         f"stride {flat.stride()}")
+    if flat.shape[1] >= 2 ** 31:
+        raise ValueError(f"{what}: P = {flat.shape[1]} does not fit an int32")
+
+
+def _check_operand(t: Tensor, dtype, shape_hint: str, flat: Tensor,
+                   what: str) -> None:
+    if t.device != flat.device:
+        raise ValueError(f"{what}: {shape_hint} is on {t.device}, flat on "
+                         f"{flat.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: {shape_hint} must be {dtype}, got {t.dtype}")
+    if t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{what}: {shape_hint} must be contiguous and 2-D, "
+                         f"got shape {tuple(t.shape)} stride {t.stride()}")
+
+
+def _raise_on(code: int, name: str) -> None:
+    if code != 0:
+        text = getattr(_LIBS[name], f"{name}_error_string")(code)
+        raise RuntimeError(f"{name}: launch failed with CUDA error {code} "
+                           f"({text.decode() if text else '?'})")
+
+
+def gossip_mix_gather(idx: Tensor, w: Tensor, flat: Tensor) -> Tensor:
+    """Sparse gossip mix: ``out[k, p] = sum_d w[k, d] * flat[idx[k, d], p]``.
+
+    idx ``[K_out, D]`` int32 (every id in ``[0, K_in)``, padding slots too —
+    not checked here, a check would synchronise), w ``[K_out, D]`` float32 (0
+    on padding), flat ``[K_in, P]`` float32 or bfloat16. f32 accumulation;
+    returns ``[K_out, P]`` in ``flat.dtype``.
+    """
+    name = "gossip_mix_gather"
+    _check_flat(flat, name)
+    _check_operand(idx, torch.int32, "idx", flat, name)
+    _check_operand(w, torch.float32, "w", flat, name)
+    if idx.shape != w.shape:
+        raise ValueError(f"{name}: idx {tuple(idx.shape)} and w "
+                         f"{tuple(w.shape)} differ in shape")
+    k_out, d = idx.shape
+    k_in, p = flat.shape
+    if d == 0 or (k_in == 0 and k_out > 0):
+        raise ValueError(f"{name}: needs at least one slot and one row to "
+                         f"gather from (D={d}, K_in={k_in})")
+    if _GATHER_ROWS * d * 8 > 48 * 1024:
+        raise ValueError(f"{name}: D = {d} slots exceed the block's index "
+                         "buffer (shared memory)")
+    if -(-k_out // _GATHER_ROWS) > _MAX_GRID_Y:
+        raise ValueError(f"{name}: K_out = {k_out} exceeds the grid")
+    out = torch.empty((k_out, p), dtype=flat.dtype, device=flat.device)
+    if k_out == 0 or p == 0:
+        return out
+    build()
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _LIBS[name].gossip_mix_gather_launch(
+            idx.data_ptr(), w.data_ptr(), flat.data_ptr(), out.data_ptr(),
+            k_out, d, p, _DTYPE_CODE[flat.dtype], stream)
+    _raise_on(code, name)
+    launch_counts[name] += 1
+    return out
+
+
+def gossip_mix_matmul(mixing: Tensor, flat: Tensor) -> Tensor:
+    """Dense gossip mix: ``out[k, p] = sum_j mixing[k, j] * flat[j, p]``.
+
+    mixing ``[K_out, K_in]`` float32 (rectangular allowed), flat ``[K_in, P]``
+    float32 or bfloat16. Full-f32 accumulation (no TF32); returns
+    ``[K_out, P]`` in ``flat.dtype``. ``mixing`` is staged whole in a block's
+    shared memory: a matrix too large for it raises.
+    """
+    name = "gossip_mix_matmul"
+    _check_flat(flat, name)
+    _check_operand(mixing, torch.float32, "mixing", flat, name)
+    k_out, k_in = mixing.shape
+    if flat.shape[0] != k_in:
+        raise ValueError(f"{name}: mixing {tuple(mixing.shape)} does not "
+                         f"match flat {tuple(flat.shape)}")
+    p = flat.shape[1]
+    if k_in == 0 and k_out > 0:
+        raise ValueError(f"{name}: K_in = 0")
+    out = torch.empty((k_out, p), dtype=flat.dtype, device=flat.device)
+    if k_out == 0 or p == 0:
+        return out
+    build()
+    lib = _LIBS[name]
+    smem = lib.gossip_mix_matmul_smem_bytes(k_out, k_in)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name}: a [{k_out}, {k_in}] mixing matrix needs {smem} bytes of "
+            f"shared memory, a block has {MAX_SMEM_BYTES}")
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.gossip_mix_matmul_launch(
+            mixing.data_ptr(), flat.data_ptr(), out.data_ptr(),
+            k_out, k_in, p, _DTYPE_CODE[flat.dtype], stream)
+    _raise_on(code, name)
+    launch_counts[name] += 1
+    return out

@@ -1,0 +1,51 @@
+"""Public wrapper: apply the gossip mix to a dictionary of stacked parameters
+through the hand-written CUDA kernels (``mixing_backend="cuda"``).
+
+Counterpart of ``repro.kernels.gossip_mix.ops.mix_params_pallas``. Both
+mixing representations route through here: a dense ``[K_out, K_in]`` matrix
+hits the tiled product kernel, a ``core.contacts.SparseMixing`` neighbour
+list hits the gather kernel.
+
+A leaf that lies on the CPU goes to the plain versions in ``ref`` — for that
+reason only. A CUDA leaf launches the kernel or raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core.contacts import SparseMixing
+from . import kernel, ref
+
+Tensor = torch.Tensor
+
+
+def mix_params_cuda(mixing, params: dict) -> dict:
+    """Drop-in replacement for ``repro_torch.core.aggregation.mix_params``.
+
+    Flattens every leaf to ``[K_in, -1]``, runs the kernel, reshapes to
+    ``(K_out,) + leaf.shape[1:]``. ``mixing`` may be rectangular
+    ``[K_out, K_in]`` or a ``SparseMixing`` whose ids address the leaf rows.
+    """
+    if isinstance(mixing, SparseMixing):
+        idx = mixing.idx.to(torch.int32).contiguous()
+        w = mixing.w.to(torch.float32).contiguous()
+        k_out = idx.shape[0]
+
+        def run(flat: Tensor) -> Tensor:
+            if flat.is_cuda:
+                return kernel.gossip_mix_gather(idx, w, flat)
+            return ref.gossip_mix_gather_ref(idx, w, flat)
+    else:
+        dense = mixing.to(torch.float32).contiguous()
+        k_out = dense.shape[0]
+
+        def run(flat: Tensor) -> Tensor:
+            if flat.is_cuda:
+                return kernel.gossip_mix_matmul(dense, flat)
+            return ref.gossip_mix_matmul_ref(dense, flat)
+
+    def mix_leaf(x: Tensor) -> Tensor:
+        flat = x.reshape(x.shape[0], -1).contiguous()
+        return run(flat).reshape((k_out,) + tuple(x.shape[1:]))
+
+    return {name: mix_leaf(x) for name, x in params.items()}

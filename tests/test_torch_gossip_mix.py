@@ -1,0 +1,146 @@
+"""Port vs reference, the gossip_mix kernels' module: the port's plain
+versions and ``mix_params_cuda`` on CPU tensors against the Pallas kernels
+run in interpret mode, at the reference's sweep shapes.
+
+Tolerances are the reference's own (tests/test_kernels.py): f32 atol 1e-5
+(sums of <= 100 products in another order), bf16 atol 5e-2 (one bf16
+rounding of O(1) values). The CUDA kernels themselves run only on a GPU:
+their tests are in tests/test_torch_cuda.py (marker ``cuda``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import contacts as ref_contacts
+from repro.kernels.gossip_mix import (gossip_mix_gather, gossip_mix_matmul,
+                                      mix_params_pallas)
+from repro_torch.core import aggregation, contacts
+from repro_torch.kernels.gossip_mix import (gossip_mix_gather_ref,
+                                            gossip_mix_matmul_ref, kernel,
+                                            mix_params_cuda)
+
+T = torch.as_tensor
+TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+SWEEP = [(7, 33, jnp.float32), (16, 512, jnp.float32), (64, 2048, jnp.float32),
+         (100, 700, jnp.float32), (12, 257, jnp.bfloat16), (8, 128, jnp.bfloat16)]
+
+
+def _tol(dtype):
+    return 1e-5 if dtype == jnp.float32 else 5e-2
+
+
+def _f32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def _dense_case(k_out, k_in, p, dtype, seed):
+    r = np.random.default_rng(seed)
+    w = r.dirichlet(np.ones(k_in), size=k_out).astype(np.float32)
+    x = r.normal(size=(k_in, p)).astype(np.float32)
+    return w, jnp.asarray(x, dtype), T(x).to(TORCH_DTYPE[dtype])
+
+
+def _sparse_case(k_out, k_in, d, p, dtype, seed):
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, k_in, size=(k_out, d)).astype(np.int32)
+    w = r.random((k_out, d)).astype(np.float32)
+    w[:, -1] = 0.0                                   # a zero-weight padding slot
+    x = r.normal(size=(k_in, p)).astype(np.float32)
+    return idx, w, jnp.asarray(x, dtype), T(x).to(TORCH_DTYPE[dtype])
+
+
+@pytest.mark.parametrize("k,p,dtype", SWEEP)
+def test_matmul_ref_matches_pallas_interpret(k, p, dtype):
+    w, xj, xt = _dense_case(k, k, p, dtype, k * 1000 + p)
+    want = gossip_mix_matmul(jnp.asarray(w), xj, interpret=True)
+    got = gossip_mix_matmul_ref(T(w), xt)
+    assert got.dtype == xt.dtype and got.shape == (k, p)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("k_out,k_in,p", [(3, 8, 130), (8, 4, 257)])
+def test_matmul_ref_rectangular(k_out, k_in, p):
+    w, xj, xt = _dense_case(k_out, k_in, p, jnp.float32, 5)
+    want = gossip_mix_matmul(jnp.asarray(w), xj, interpret=True)
+    got = gossip_mix_matmul_ref(T(w), xt)
+    assert got.shape == (k_out, p)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("k,p,dtype", SWEEP + [(8, 260, jnp.float32)])
+def test_gather_ref_matches_pallas_interpret(k, p, dtype):
+    d = 5
+    idx, w, xj, xt = _sparse_case(k, k, d, p, dtype, 9 + k)
+    want = gossip_mix_gather(jnp.asarray(idx), jnp.asarray(w), xj, interpret=True)
+    got = gossip_mix_gather_ref(T(idx), T(w), xt)
+    assert got.dtype == xt.dtype and got.shape == (k, p)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_tol(dtype))
+    # the slot loop of core.contacts is the same function
+    loop = contacts.sparse_mix_array(contacts.SparseMixing(T(idx), T(w)), xt)
+    np.testing.assert_allclose(_f32(loop), _f32(want), atol=_tol(dtype))
+
+
+def test_gather_ref_rectangular():
+    idx, w, xj, xt = _sparse_case(5, 11, 4, 140, jnp.float32, 3)
+    want = gossip_mix_gather(jnp.asarray(idx), jnp.asarray(w), xj, interpret=True)
+    got = gossip_mix_gather_ref(T(idx), T(w), xt)
+    assert got.shape == (5, 140)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_mix_params_cuda_on_cpu_matches_mix_params_pallas(sparse, dtype):
+    r = np.random.default_rng(0)
+    k = 6
+    tree = {"a": r.normal(size=(k, 3, 5)).astype(np.float32),
+            "b": r.normal(size=(k, 11)).astype(np.float32)}
+    tree_j = {n: jnp.asarray(v, dtype) for n, v in tree.items()}
+    tree_t = {n: T(v).to(TORCH_DTYPE[dtype]) for n, v in tree.items()}
+    if sparse:
+        idx, w, _, _ = _sparse_case(k, k, 4, 1, jnp.float32, 1)
+        mix_j = ref_contacts.SparseMixing(jnp.asarray(idx), jnp.asarray(w))
+        mix_t = contacts.SparseMixing(T(idx), T(w))
+    else:
+        w = r.dirichlet(np.ones(k), size=k).astype(np.float32)
+        mix_j, mix_t = jnp.asarray(w), T(w)
+    want = mix_params_pallas(mix_j, tree_j, interpret=True)
+    got = mix_params_cuda(mix_t, tree_t)
+    plain = aggregation.mix_params(mix_t, tree_t)
+    for n in tree:
+        assert got[n].shape == tree[n].shape and got[n].dtype == tree_t[n].dtype
+        np.testing.assert_allclose(_f32(got[n]), _f32(want[n]), atol=_tol(dtype))
+        np.testing.assert_allclose(_f32(got[n]), _f32(plain[n]), atol=_tol(dtype))
+
+
+def test_mix_params_cuda_rectangular_leaf_shapes():
+    r = np.random.default_rng(2)
+    w = r.dirichlet(np.ones(7), size=3).astype(np.float32)        # [3, 7]
+    tree = {"a": T(r.normal(size=(7, 2, 4)).astype(np.float32))}
+    out = mix_params_cuda(T(w), tree)["a"]
+    assert out.shape == (3, 2, 4)
+    want = mix_params_pallas(jnp.asarray(w), {"a": jnp.asarray(tree["a"].numpy())},
+                             interpret=True)["a"]
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_cpu_calls_launch_no_kernel():
+    kernel.reset_launch_counts()
+    w = T(np.eye(4, dtype=np.float32))
+    mix_params_cuda(w, {"a": torch.ones(4, 3)})
+    assert kernel.launch_counts == {"gossip_mix_gather": 0, "gossip_mix_matmul": 0}
+
+
+@pytest.mark.parametrize("call", ["gather", "matmul"])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    """The wrappers launch or raise: a CPU tensor is not silently routed to
+    the plain version there (only ``ops`` dispatches on the device)."""
+    x = torch.ones(4, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if call == "gather":
+            kernel.gossip_mix_gather(torch.zeros(4, 2, dtype=torch.int32),
+                                     torch.ones(4, 2), x)
+        else:
+            kernel.gossip_mix_matmul(torch.eye(4), x)

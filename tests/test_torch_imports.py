@@ -1,0 +1,104 @@
+"""The port stands alone: importing ``repro_torch`` (every module of it) and
+``chip_smoke.py`` brings in neither ``jax`` nor the ``repro`` package; and
+nothing falls back to the CPU on its own."""
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+import repro_torch
+from repro_torch.fed import backends, engine, simulator
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _module_names():
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    names = _module_names()
+    assert "repro_torch.kernels.gossip_mix.kernel" in names and len(names) >= 25
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def test_chip_smoke_imports_neither_and_fails_without_a_gpu():
+    source = (ROOT / "chip_smoke.py").read_text()
+    import ast
+    imported = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.add(node.module.split(".")[0])
+    assert not imported & {"jax", "jaxlib", "repro"}, imported
+    assert "repro_torch" in imported
+    # importing it as a module (no __main__) loads neither, and runs nothing
+    code = ("import sys, importlib.util\n"
+            f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+            "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PATH": ""})
+    assert out.returncode == 0, out.stderr
+    import torch
+    if not torch.cuda.is_available():
+        run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                             capture_output=True, text=True, cwd=ROOT, env={"PATH": ""})
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout
+
+
+def test_device_cuda_without_a_card_raises():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cfg = simulator.SimulationConfig(num_vehicles=4, epochs=1)
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.resolve_device(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulator.run_simulation(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("algorithm", "dfl"), ("algorithm", "sp"), ("backend", "shard_map"),
+    ("overlap", "delayed"), ("execution", "auto"), ("use_scan_engine", False),
+])
+def test_values_of_later_slices_raise_not_implemented(field, value):
+    cfg = simulator.SimulationConfig(num_vehicles=4, epochs=1, device="cpu",
+                                     **{field: value})
+    with pytest.raises(NotImplementedError):
+        engine.build_context(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("algorithm", "nope"), ("backend", "nope"), ("overlap", "nope"),
+    ("execution", "nope"), ("mixing_backend", "pallas"), ("contact_format", "csr"),
+])
+def test_unknown_values_raise_value_error(field, value):
+    from repro_torch.data.synthetic import synthetic_mnist
+    cfg = simulator.SimulationConfig(num_vehicles=4, epochs=1, device="cpu",
+                                     **{field: value})
+    with pytest.raises(ValueError):
+        engine.build_context(cfg, dataset=synthetic_mnist(n_train=200, n_test=20))
+
+
+def test_registries():
+    from repro_torch.fed import algorithms
+    assert algorithms.available_algorithms() == ["dds"]
+    assert backends.available_backends() == ["vmap"]
+    assert algorithms.get_algorithm("dds").name == "dds"
