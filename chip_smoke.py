@@ -8,24 +8,43 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. device   — a CUDA device must be present; prints its name and power limit.
-2. build    — compiles the CUDA kernels from the sources in this checkout.
-3. kernels  — every kernel against its plain PyTorch version on the card, at
-              the reference's test shapes and at the main path's shapes
-              (tolerance: f32 atol 1e-5, bf16 atol 5e-2), and times it there.
+1. device    — a CUDA device must be present; prints its name and power limit.
+2. build     — compiles every CUDA kernel from the sources in this checkout,
+               one ``nvcc`` per source, all started together.
+3. kernels   — every kernel against its plain PyTorch version on the card, at
+               the reference's test shapes and at the main path's shapes
+               (tolerance: f32 atol 1e-5, bf16 atol 5e-2), the wrappers'
+               refusals, and each kernel's time there (kl_simplex kernels also
+               at K = 1024).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
-              full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
-              B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
-              once per contact format, through the CUDA kernels; checks the
-              launch counters, the traces and the state matrix, the agreement
-              of the two formats, of the kernel path with the plain-torch mix,
-              and of the card with the CPU on a small input.
-5. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+               full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
+               B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
+               once per contact format, through the gossip-mix kernels; checks
+               the launch counters, the traces and the state matrix, the
+               agreement of the two formats and of the kernel path with the
+               plain-torch mix.
+5. P1        — ``kernels.kl_simplex.solve_p1_all_fused`` on the dense run's final
+               state matrix, target and next contact matrix: its per-row
+               objective against the eager ``core.kl_solver.solve_p1_all``, alpha
+               on the simplex and 0 off the contacts, one ``eg_step`` launch per
+               step; wall time and launch count of both solves.
+6. baselines — ``run_simulation`` of ``dfl``, ``d_sgd``, ``d_fedavg`` and ``sp`` at the
+               same full width, 2 epochs, both contact formats, through the
+               gossip-mix kernels (8 launches per epoch: each round mixes the
+               model's 8 leaves once); seconds per epoch of each.
+7. diagnostics — ``kl_rows`` / ``entropy_rows`` through their kernels on every
+               algorithm's final state matrix, held to that run's last
+               ``kl_divergence`` / ``entropy`` diagnostics; then small federations
+               (``dds``, ``sp``, ``d_sgd``; RSU + dropped exchanges) on the card
+               against the CPU.
+8. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-Times are CUDA-event times on the card the script ran on; the bound of a
-kernel is the larger of its bytes over 3.35 TB/s and its f32 operations over
-67 TFLOP/s (published peaks of one H100 SXM at its full power limit).
+Every path is driven with the launch counters set to 0 just before it and
+read just after. Times are CUDA-event times on the card the script ran on;
+the bound of a kernel is the larger of its bytes over 3.35 TB/s and its f32
+operations over 67 TFLOP/s (published peaks of one H100 SXM at its full
+power limit).
 """
 from __future__ import annotations
 
@@ -43,12 +62,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import aggregation, contacts as contacts_lib, dfl_dds  # noqa: E402
+from repro_torch import kernels as kernels_lib  # noqa: E402
+from repro_torch.core import aggregation, contacts as contacts_lib, dfl_dds, kl_solver  # noqa: E402
 from repro_torch.data import datasets as data_lib  # noqa: E402
 from repro_torch.data.synthetic import synthetic_mnist  # noqa: E402
 from repro_torch.fed import engine, topology  # noqa: E402
 from repro_torch.fed.simulator import SimulationConfig, run_simulation  # noqa: E402
 from repro_torch.kernels import build as build_lib  # noqa: E402
+from repro_torch.kernels import kl_simplex  # noqa: E402
 from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
 
@@ -56,6 +77,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores, published
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 EPOCHS = 4                    # depth of the main-path runs: two evals at eval_every=2
+BASELINE_EPOCHS = 2           # depth of each baseline run, evaluated every epoch
+BASELINES = ("dfl", "d_sgd", "d_fedavg", "sp")
+LN2 = float(np.log(2.0))
 # the MNIST CNN's eight leaves, flattened: conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b
 LEAF_WIDTHS = [250, 10, 5000, 20, 16000, 50, 500, 10]
 
@@ -69,6 +93,21 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix_matmul.cu",
         "replaces": "src/repro/kernels/gossip_mix/kernel.py:39",
+    },
+    "eg_step": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/kl_simplex/csrc/eg_step.cu",
+        "replaces": "src/repro/kernels/kl_simplex/kernel.py:112",
+    },
+    "kl_rows": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/kl_simplex/csrc/kl_rows.cu",
+        "replaces": "src/repro/kernels/kl_simplex/kernel.py:51",
+    },
+    "entropy_rows": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/kl_simplex/csrc/entropy_rows.cu",
+        "replaces": "src/repro/kernels/kl_simplex/kernel.py:76",
     },
 }
 
@@ -136,8 +175,9 @@ def _max_err(got, want) -> float:
 
 
 def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
-    """Both kernels against their plain versions on the card. Returns the
-    largest absolute error seen per kernel; fails past the tolerance."""
+    """Both gossip-mix kernels against their plain versions on the card.
+    Returns the largest absolute error seen per kernel; fails past the
+    tolerance."""
     f32, bf16 = torch.float32, torch.bfloat16
     sweep = [(7, 7, 33, f32), (16, 16, 512, f32), (64, 64, 2048, f32),
              (100, 100, 700, f32), (12, 12, 257, bf16), (8, 8, 128, bf16),
@@ -145,7 +185,7 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
              (5, 11, 136, bf16), (33, 240, 1000, f32)]    # ... and a wide W
     main = [(k, k, p, f32) for p in LEAF_WIDTHS + [sum(LEAF_WIDTHS)]]
     main += [(k, k, sum(LEAF_WIDTHS), bf16)]
-    worst = {name: 0.0 for name in KERNELS}
+    worst = {"gossip_mix_gather": 0.0, "gossip_mix_matmul": 0.0}
     for k_out, k_in, p, dtype in sweep + main:
         w, x = _dense_case(k_out, k_in, p, dtype, k_out * 1000 + p, device)
         got = kernel.gossip_mix_matmul(w, x)
@@ -190,6 +230,25 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
     return worst
 
 
+def _timed(fn, plain, library, nbytes: int, flops: int, work: str) -> dict:
+    """The timing keys of one kernels-line row: the kernel and its plain
+    version in turns (plain, kernel, kernel, plain, within this call), the
+    library call where there is one, and the bound — the larger of the bytes
+    the function must move over the memory rate and its f32 operations over
+    the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOP_PER_S * 1e3
+    plain_a = time_ms(plain)
+    ms_a = time_ms(fn)
+    ms_b = time_ms(fn)
+    plain_b = time_ms(plain)
+    return {"ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": None if library is None else time_ms(library),
+            "work": work, "ms_repeat": [ms_a, ms_b], "plain_ms_repeat": [plain_a, plain_b]}
+
+
 def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
     """Times at the main path's shapes: one round's mix is one launch per
     leaf of the model (8 launches). Also one launch over the whole flattened
@@ -229,22 +288,13 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
             bytes=matmul_bytes, flops=matmul_flops),
     }
     for name, s in specs.items():
-        t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
+        out[name] = _timed(
+            per_round(s["fn"]), per_round(s["plain"]), per_round(s["library"]),
+            s["bytes"], s["flops"],
+            f"one round's mix: {len(leaves)} launches, K={k}, leaf widths {LEAF_WIDTHS}"
+            + (f", D={d}, {nnz} real slots" if name.endswith("gather") else ""))
         t_flops = s["flops"] / F32_FLOP_PER_S * 1e3
-        # parent, change, change, parent order within one call: plain, kernel, kernel, plain
-        plain_a = time_ms(per_round(s["plain"]))
-        ms_a = time_ms(per_round(s["fn"]))
-        ms_b = time_ms(per_round(s["fn"]))
-        plain_b = time_ms(per_round(s["plain"]))
-        out[name] = {
-            "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "library_ms": time_ms(per_round(s["library"])),
-            "work": f"one round's mix: {len(leaves)} launches, K={k}, "
-                    f"leaf widths {LEAF_WIDTHS}" + (f", D={d}, {nnz} real slots"
-                                                    if name.endswith("gather") else ""),
-            "ms_repeat": [ms_a, ms_b], "plain_ms_repeat": [plain_a, plain_b],
+        out[name].update({
             "whole_model_ms": time_ms(lambda: s["fn"](whole)),
             "whole_model_plain_ms": time_ms(lambda: s["plain"](whole)),
             "whole_model_library_ms": time_ms(lambda: s["library"](whole)),
@@ -252,22 +302,162 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
                 (2 * k * whole.shape[1] * esize
                  + (k * d * 8 if name.endswith("gather") else k * k * 4))
                 / HBM_BYTES_PER_S * 1e3, t_flops),
-        }
+        })
         log(f"  {name}: {json.dumps(out[name])}")
+    return out
+
+
+# the reference's kernel-test shapes (tests/test_kernels.py: V 1-40 x K 2-50,
+# and the eg_step cases), then the main path's and the scale sweep's
+KL_REF_SHAPES = [(1, 2), (40, 50), (7, 13), (23, 2), (1, 50), (16, 31), (4, 8),
+                 (33, 100), (128, 16)]
+
+
+def _state_case(v, k, dtype, seed, device, rsu_row: bool = False):
+    """State vectors on the simplex with a column under the 1e-12 cut, and a
+    target. ``rsu_row``: the last participant is a data-less relay — a zero
+    target entry, a zero column, and (before it met anyone) a zero row."""
+    r = np.random.default_rng(seed)
+    s = r.dirichlet(np.ones(k), size=v).astype(np.float32)
+    s[:, r.integers(0, k)] = 0.0
+    g = r.dirichlet(np.ones(k) * 2).astype(np.float32)
+    if rsu_row:
+        s[:, -1] = 0.0
+        s[-1] = 0.0
+        g[-1] = 0.0
+        g = g / g.sum()
+    s = s / np.maximum(s.sum(1, keepdims=True), 1e-12)
+    return (torch.as_tensor(s).to(dtype).to(device),
+            torch.as_tensor(g.astype(np.float32)).to(device))
+
+
+def _eg_case(v, k, dtype, seed, device):
+    """alpha on the masked simplex, a gradient, a 0/1 mask with at least one
+    active lane per row (as tests/test_kernels.py makes them)."""
+    r = np.random.default_rng(seed)
+    m = (r.random((v, k)) < 0.5).astype(np.float32)
+    m[:, 0] = 1.0
+    a = r.dirichlet(np.ones(k), size=v).astype(np.float32) * m
+    a = a / a.sum(1, keepdims=True)
+    g = r.normal(size=(v, k)).astype(np.float32)
+    return tuple(torch.as_tensor(x).to(dtype).to(device) for x in (a, g, m))
+
+
+def check_kl_kernels(device, k: int) -> dict[str, float]:
+    """The three kl_simplex kernels against their plain versions on the card,
+    at the reference's shapes, the main path's K (and K + 1 with an RSU row),
+    K = 1024 and K = 4096; the empty-mask rule of eg_step; the wrappers'
+    refusals. Returns the largest absolute error per kernel."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {"eg_step": 0.0, "kl_rows": 0.0, "entropy_rows": 0.0}
+    row_cases = [(v, kk, f32, False) for v, kk in KL_REF_SHAPES]
+    row_cases += [(k, k, f32, False), (k + 1, k + 1, f32, True)]
+    row_cases += [(v, kk, dt, False) for v, kk in ((1024, 1024), (64, 4096)) for dt in (f32, bf16)]
+    for v, kk, dtype, rsu in row_cases:
+        s, g = _state_case(v, kk, dtype, v * 7 + kk, device, rsu)
+        got_kl = kl_simplex.kl_rows_kernel(s, g)
+        got_h = kl_simplex.entropy_rows_kernel(s)
+        torch.cuda.synchronize()
+        err_kl = _max_err(got_kl, kl_simplex.kl_rows_ref(s, g))
+        err_h = _max_err(got_h, kl_simplex.entropy_rows_ref(s))
+        check(got_kl.shape == got_h.shape == (v,) and max(err_kl, err_h) <= ATOL[dtype],
+              f"kl_rows / entropy_rows [{v},{kk}] {dtype}{' with an RSU row' if rsu else ''} "
+              f"max err {err_kl:.2e} / {err_h:.2e}")
+        worst["kl_rows"] = max(worst["kl_rows"], err_kl)
+        worst["entropy_rows"] = max(worst["entropy_rows"], err_h)
+    eg_cases = [(v, kk, f32) for v, kk in KL_REF_SHAPES]
+    eg_cases += [(k, k, f32), (k + 1, k + 1, f32), (1024, 1024, f32), (64, 4096, f32),
+                 (16, 200, bf16)]
+    for v, kk, dtype in eg_cases:
+        a, grad, m = _eg_case(v, kk, dtype, v * 13 + kk, device)
+        got = kl_simplex.eg_step(a, grad, m, step_size=2.0)
+        torch.cuda.synchronize()
+        err = _max_err(got, kl_simplex.eg_step_ref(a, grad, m, step_size=2.0))
+        check(got.shape == (v, kk) and got.dtype == f32 and err <= ATOL[dtype]
+              and bool((got[m == 0] == 0).all()),
+              f"eg_step [{v},{kk}] {dtype} max err {err:.2e}, exactly 0 off the mask")
+        worst["eg_step"] = max(worst["eg_step"], err)
+    # an all-zero mask row gives 0 everywhere (the Pallas kernel's rule; the
+    # plain version gives NaN there), in the register and streaming variants
+    for kk in (k, 4096):
+        a, grad, m = _eg_case(3, kk, f32, kk, device)
+        m[1] = 0.0
+        got = kl_simplex.eg_step(a, grad, m)
+        torch.cuda.synchronize()
+        check(bool((got[1] == 0).all()) and bool(torch.isfinite(got).all()),
+              f"eg_step K={kk}: a row with an empty mask is all 0")
+    s, g = _state_case(4, 8, f32, 0, device)
+    a, grad, m = _eg_case(4, 8, f32, 0, device)
+    for bad in (lambda: kl_simplex.kl_rows_kernel(s.double(), g),          # dtype
+                lambda: kl_simplex.kl_rows_kernel(s, g[:7].contiguous()),   # shape
+                lambda: kl_simplex.kl_rows_kernel(s, g.to(bf16)),
+                lambda: kl_simplex.entropy_rows_kernel(s.t()),              # layout
+                lambda: kl_simplex.entropy_rows_kernel(s[0]),
+                lambda: kl_simplex.eg_step(a, grad, m.to(bf16)),
+                lambda: kl_simplex.eg_step(a, grad, m[:, :5].contiguous()),
+                lambda: kl_simplex.eg_step(a, grad.cpu(), m)):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise SystemExit("FAILED: a kl_simplex wrapper accepted an input its kernel does not take")
+    log("  ok: kl_simplex wrappers raise on wrong shape / dtype / layout / device")
+    return worst
+
+
+def time_kl_kernels(device, k: int) -> dict[str, dict]:
+    """The kl_simplex kernels at the main path's V = K (one launch each: one
+    P1 step, one diagnostic of a state matrix) and at K = 1024, the largest K
+    of the scale sweep, each beside its plain version, its library call and
+    its bound. Returns the timing keys of the kernels line."""
+    out = {}
+    for kk in (k, 1024):
+        s, g = _state_case(kk, kk, torch.float32, kk, device)
+        a, grad, m = _eg_case(kk, kk, torch.float32, kk, device)
+        n = kk * kk
+        specs = {
+            # bytes: S read once, g once, [V] written; about 5 / 4 / 20 f32
+            # operations per element
+            "kl_rows": dict(
+                fn=lambda: kl_simplex.kl_rows_kernel(s, g),
+                plain=lambda: kl_simplex.kl_rows_ref(s, g),
+                library=lambda: torch.nn.functional.kl_div(
+                    torch.log(g), s, reduction="none").sum(-1) / LN2,
+                bytes=4 * (n + 2 * kk), flops=5 * n),
+            "entropy_rows": dict(
+                fn=lambda: kl_simplex.entropy_rows_kernel(s),
+                plain=lambda: kl_simplex.entropy_rows_ref(s),
+                library=lambda: torch.special.entr(s).sum(-1) / LN2,
+                bytes=4 * (n + kk), flops=4 * n),
+            "eg_step": dict(
+                fn=lambda: kl_simplex.eg_step(a, grad, m, step_size=2.0),
+                plain=lambda: kl_simplex.eg_step_ref(a, grad, m, step_size=2.0),
+                library=None, bytes=16 * n, flops=20 * n),
+        }
+        for name, spec in specs.items():
+            row = _timed(spec["fn"], spec["plain"], spec["library"], spec["bytes"],
+                         spec["flops"], f"one launch, V=K={kk}, f32")
+            if kk == k:
+                out[name] = row
+            else:
+                out[name][f"k{kk}"] = row
+    for name, row in out.items():
+        log(f"  {name}: {json.dumps(row)}")
     return out
 
 
 # --------------------------------------------------------------- main path ----
 
 def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
-    """One run through the public entry points, counters zeroed just before
-    and read just after. Returns (result, context, launches, report)."""
+    """One run of ``cfg.algorithm`` through the public entry points, every
+    counter zeroed just before and read just after. Returns (result, context,
+    gossip-mix launches, report)."""
     timer = PhaseTimer(cfg.device)
     ctx = engine.build_context(cfg, dataset=dataset, timer=timer)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launch_counts()
+    kernels_lib.reset_launch_counts()
     t0 = time.perf_counter()
     result = engine.run_with_context(ctx)
     if torch.cuda.is_available():
@@ -276,7 +466,8 @@ def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
     launches = dict(kernel.launch_counts)
     phases = timer.totals_ms()
     report = {
-        "contact_format": cfg.contact_format, "epochs": cfg.epochs,
+        "algorithm": cfg.algorithm, "contact_format": cfg.contact_format,
+        "epochs": cfg.epochs,
         "d_max": ctx.contacts.d_max,
         "seconds_per_epoch": seconds / cfg.epochs,
         "device_ms_per_epoch": {n: v / cfg.epochs for n, v in sorted(phases.items())},
@@ -299,20 +490,22 @@ def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
     rows = ctx.final_state.state_matrix.sum(dim=1)
     check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-5)),
           "state-matrix rows sum to 1")
-    check(result.kl_trace[-1] < result.kl_trace[0],
-          f"kl_trace falls: {result.kl_trace[0]:.4f} -> {result.kl_trace[-1]:.4f}")
+    if cfg.algorithm == "dds":
+        check(result.kl_trace[-1] < result.kl_trace[0],
+              f"kl_trace falls: {result.kl_trace[0]:.4f} -> {result.kl_trace[-1]:.4f}")
     check(sum(result.comm_mb) > 0, "vehicles exchanged models")
     if cfg.device != "cpu":
         used = "gossip_mix_gather" if cfg.contact_format == "sparse" else "gossip_mix_matmul"
         other = next(n for n in launches if n != used)
         want = cfg.epochs * leaves_per_mix
         check(launches[used] == want and launches[other] == 0,
-              f"{used} launched {launches[used]} times = {cfg.epochs} mixes x "
-              f"{leaves_per_mix} leaves; {other} {launches[other]} times")
+              f"{cfg.algorithm} {cfg.contact_format}: {used} launched {launches[used]} "
+              f"times = {cfg.epochs} mixes x {leaves_per_mix} leaves; {other} "
+              f"{launches[other]} times")
     return result, ctx, launches, report
 
 
-def check_kernel_path_against_torch_mix(ctx) -> None:
+def check_kernel_path_against_torch_mix(ctx, contacts_t) -> None:
     """One more round from the run's final state, same batches, dropout off,
     once through the CUDA-kernel mix and twice through the plain-torch mix.
     The mixed parameters and the state matrix must agree to 1e-5. The
@@ -321,8 +514,6 @@ def check_kernel_path_against_torch_mix(ctx) -> None:
     atomics in an order that changes from run to run, so that pair is the
     floor any comparison after training sits on."""
     cfg = ctx.cfg
-    contacts_t = contacts_lib.epoch_of(
-        contacts_lib.to_device(ctx.contacts.window(1), ctx.device), 0)
     batch = ctx.sample_fn(ctx.fed_data, ctx.init_rng)
     outs = []
     for mix_fn in (ops.mix_params_cuda, aggregation.mix_params, aggregation.mix_params):
@@ -344,14 +535,16 @@ def check_kernel_path_against_torch_mix(ctx) -> None:
         f"by {err_par:.2e}; two identical torch-mix rounds differ by {floor:.2e}")
 
 
-def check_card_against_cpu(device: str) -> None:
-    """The same small federation on the card and on the CPU: the traces that
-    do not depend on SGD noise agree to 1e-5."""
+def check_card_against_cpu(device: str, algorithms=("dds", "sp", "d_sgd")) -> None:
+    """The same small federation (an RSU, dropped exchanges) on the card and
+    on the CPU, per algorithm and contact format: the traces that do not
+    depend on SGD noise agree to 1e-5."""
     ds = synthetic_mnist(n_train=1200, n_test=200)
-    base = dict(num_vehicles=8, epochs=4, eval_every=2, eval_samples=200,
-                local_steps=2, batch_size=16, p1_steps=40, comm_range=250.0,
-                num_rsus=1, p_drop=0.1)
-    for fmt in ("sparse", "dense"):
+    runs = [(algo, fmt) for algo in algorithms for fmt in ("sparse", "dense")]
+    for algo, fmt in runs:
+        base = dict(algorithm=algo, num_vehicles=8, epochs=4, eval_every=2,
+                    eval_samples=200, local_steps=2, batch_size=16, p1_steps=40,
+                    comm_range=250.0, num_rsus=1, p_drop=0.1)
         on_cpu = run_simulation(SimulationConfig(**base, contact_format=fmt, device="cpu"),
                                 dataset=ds)
         on_card = run_simulation(SimulationConfig(**base, contact_format=fmt, device=device),
@@ -359,7 +552,125 @@ def check_card_against_cpu(device: str) -> None:
         err = max(np.abs(np.asarray(on_cpu.kl_trace) - np.asarray(on_card.kl_trace)).max(),
                   np.abs(np.stack(on_cpu.entropy) - np.stack(on_card.entropy)).max(),
                   np.abs(np.asarray(on_cpu.comm_mb) - np.asarray(on_card.comm_mb)).max())
-        check(err <= 1e-5, f"{fmt}: small federation, {device} vs cpu traces max diff {err:.2e}")
+        check(err <= 1e-5, f"{algo} {fmt}: small federation, {device} vs cpu traces "
+              f"max diff {err:.2e}")
+
+
+# ---------------------------------------------------- P1 entry point ----
+
+def _device_events(fn) -> int | None:
+    """Kernels and copies the device ran for one call of ``fn``, counted by
+    ``torch.profiler`` (None off the card)."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _wall_s(fn) -> float:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix) -> int:
+    """``solve_p1_all_fused`` at full width on a real state matrix, held to
+    the eager solver by the per-row P1 objective (atol 1e-5, the criterion
+    of tests/test_kernels.py). Returns the eg_step launches of the fused
+    solve, which must be one per step."""
+    kw = dict(num_steps=cfg.p1_steps, step_size=cfg.p1_step_size)
+
+    def fused():
+        return kl_simplex.solve_p1_all_fused(states, target, contact_matrix, **kw)
+
+    def eager():
+        return kl_solver.solve_p1_all(states, target, contact_matrix, **kw)
+
+    eager_alpha = eager()
+    kernels_lib.reset_launch_counts()
+    alpha = fused()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    launches = kl_simplex.kernel.launch_counts["eg_step"]
+    if states.is_cuda:
+        check(launches == cfg.p1_steps,
+              f"eg_step launched {launches} times = p1_steps ({cfg.p1_steps})")
+    obj = kl_solver.kl_objective(alpha, states, target)
+    obj_eager = kl_solver.kl_objective(eager_alpha, states, target)
+    err = _max_err(obj, obj_eager)
+    check(alpha.shape == contact_matrix.shape and err <= 1e-5,
+          f"fused P1 per-row objective vs the eager solver: max diff {err:.2e} "
+          f"(K={states.shape[0]}, {cfg.p1_steps} steps, step {cfg.p1_step_size})")
+    check(bool((alpha[contact_matrix == 0] == 0).all()), "alpha is 0 off the contacts")
+    rows = alpha.sum(dim=1)
+    check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-5)),
+          "every row of alpha sums to 1")
+    facts = {name: {"wall_s": _wall_s(fn), "device_events": _device_events(fn)}
+             for name, fn in (("fused", fused), ("eager", eager))}
+    facts["alpha_max_abs_diff"] = _max_err(alpha, eager_alpha)
+    log(f"  facts: {json.dumps(facts)}")
+    return launches
+
+
+# --------------------------------------------------------- baselines ----
+
+def drive_baselines(full: SimulationConfig, dataset) -> tuple[dict, list]:
+    """Each baseline at full width through the gossip-mix kernels, both
+    contact formats, after a one-epoch warm-up. Returns the seconds per epoch
+    by algorithm and format, and per run the final state matrix, target and
+    last diagnostics (for the diagnostics phase)."""
+    seconds, finals = {}, []
+    for algo in BASELINES:
+        cfg = replace(full, algorithm=algo, epochs=BASELINE_EPOCHS, eval_every=1)
+        run_simulation(replace(cfg, epochs=1), dataset=dataset)
+        results = {}
+        for fmt in ("sparse", "dense"):
+            log(f"[baselines] run_simulation, algorithm={algo}, contact_format={fmt}")
+            res, ctx, _, report = drive_main_path(
+                replace(cfg, contact_format=fmt), dataset, len(LEAF_WIDTHS))
+            results[fmt] = res
+            seconds.setdefault(algo, {})[fmt] = report["seconds_per_epoch"]
+            finals.append(_final_diagnostics(ctx, res))
+        sparse, dense = results["sparse"], results["dense"]
+        err = max(np.abs(np.asarray(sparse.kl_trace) - np.asarray(dense.kl_trace)).max(),
+                  np.abs(np.asarray(sparse.comm_mb) - np.asarray(dense.comm_mb)).max())
+        check(err <= 1e-5, f"{algo}: dense and sparse give the same kl_trace / comm_mb "
+              f"(max diff {err:.2e})")
+    return seconds, finals
+
+
+def _final_diagnostics(ctx, result) -> tuple:
+    return (f"{ctx.cfg.algorithm}/{ctx.cfg.contact_format}",
+            ctx.final_state.state_matrix, ctx.target,
+            result.kl_divergence[-1], result.entropy[-1])
+
+
+def check_diagnostics(finals: list, device) -> dict[str, int]:
+    """``kl_rows`` / ``entropy_rows`` (the kernels, on the card) on each run's
+    final state matrix against that run's last diagnostics, atol 1e-5.
+    Returns the launches of the two kernels on this path."""
+    kernels_lib.reset_launch_counts()
+    for name, states, target, kl_last, entropy_last in finals:
+        kl = kl_simplex.kl_rows(states, target).cpu().numpy()
+        h = kl_simplex.entropy_rows(states).cpu().numpy()
+        err_kl = float(np.abs(kl - kl_last).max())
+        err_h = float(np.abs(h - entropy_last).max())
+        check(max(err_kl, err_h) <= 1e-5,
+              f"{name}: kl_rows / entropy_rows of the final state matrix vs the run's "
+              f"last kl_divergence / entropy: {err_kl:.2e} / {err_h:.2e}")
+    launches = {n: kl_simplex.kernel.launch_counts[n] for n in ("kl_rows", "entropy_rows")}
+    if device != "cpu":
+        check(all(c == len(finals) for c in launches.values()),
+              f"kl_rows / entropy_rows launched once per final state matrix: {launches}")
+    return launches
 
 
 def nvidia_smi_line() -> str:
@@ -394,12 +705,13 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     # -- 2. build -----------------------------------------------------------
+    sources = [src for module in kernels_lib.KERNEL_MODULES for src in module.SOURCES.values()]
     if not rehearsal:
         t0 = time.perf_counter()
-        kernel.build()
-        log(f"[build] {len(kernel.SOURCES)} kernels built into {build_lib.build_dir()} "
+        kernels_lib.build_all()
+        log(f"[build] {len(sources)} kernels built into {build_lib.build_dir()} "
             f"in {time.perf_counter() - t0:.1f} s")
-        for source in kernel.SOURCES.values():
+        for source in sources:
             for line in build_lib.build_log(source).splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {source.name}: {line.strip()}")
@@ -422,6 +734,7 @@ def main() -> int:
         log("[kernels] against the plain versions on the card")
         with engine.full_f32_matmul():
             worst = check_kernels(device, full.num_vehicles, d_max)
+            worst.update(check_kl_kernels(device, full.num_vehicles))
             first = contacts_lib.to_device(engine.ContactStream(full, net).window(1), device)
             first = contacts_lib.epoch_of(first, 0)
             mixing_sparse = aggregation.uniform_mixing(first)
@@ -429,6 +742,7 @@ def main() -> int:
                 contacts_lib.mixing_to_dense(mixing_sparse)).to(device)
             log("[kernels] times at the main path's shapes (ms, CUDA events, median)")
             timings = time_kernels(device, mixing_sparse, mixing_dense)
+            timings.update(time_kl_kernels(device, full.num_vehicles))
 
     if args.kernels_only:
         log("[kernels-only] stopping before the main path")
@@ -444,7 +758,7 @@ def main() -> int:
             f"{dataset.test_x.shape} test in {time.perf_counter() - t0:.1f} s")
     log("[main path] warm-up (one epoch, not counted)")
     run_simulation(replace(full, epochs=1), dataset=dataset)
-    results, launches, reports = {}, {}, []
+    results, launches, reports, finals = {}, {}, [], []
     for fmt in ("sparse", "dense"):
         log(f"[main path] run_simulation, contact_format={fmt}")
         res, ctx, counts, report = drive_main_path(
@@ -452,25 +766,45 @@ def main() -> int:
         results[fmt] = res
         launches.update({n: c for n, c in counts.items() if c})
         reports.append(report)
+        finals.append(_final_diagnostics(ctx, res))
+        # the next epoch's contacts: one more round here, and the P1 inputs
+        next_contacts = contacts_lib.epoch_of(
+            contacts_lib.to_device(ctx.contacts.window(1), ctx.device), 0)
         with engine.full_f32_matmul():
-            check_kernel_path_against_torch_mix(ctx)
+            check_kernel_path_against_torch_mix(ctx, next_contacts)
     sparse, dense = results["sparse"], results["dense"]
     err = max(np.abs(np.asarray(sparse.kl_trace) - np.asarray(dense.kl_trace)).max(),
               np.abs(np.asarray(sparse.comm_mb) - np.asarray(dense.comm_mb)).max())
     check(err <= 1e-5, f"dense and sparse give the same kl_trace / comm_mb (max diff {err:.2e})")
+    log(f"[main path] {json.dumps({'per_epoch': reports})}")
+
+    # -- 5. the P1 entry point at full width (the dense run's last state) ---
+    log("[P1] solve_p1_all_fused vs core.kl_solver.solve_p1_all")
+    with engine.full_f32_matmul():
+        launches["eg_step"] = check_fused_p1(
+            full, ctx.final_state.state_matrix, ctx.target, next_contacts)
+    del ctx
+
+    # -- 6. the baselines at full width --------------------------------------
+    seconds, baseline_finals = drive_baselines(full, dataset)
+    finals += baseline_finals
+    log(f"[baselines] {json.dumps({'seconds_per_epoch': seconds})}")
+
+    # -- 7. diagnostics kernels on every final state; card against the CPU --
+    log("[diagnostics] kl_rows / entropy_rows on each run's final state matrix")
+    launches.update(check_diagnostics(finals, device))
     if not rehearsal:
-        log("[main path] a small federation on the card against the CPU")
+        log("[diagnostics] small federations on the card against the CPU")
         check_card_against_cpu(device)
 
-    # -- 5. the record ------------------------------------------------------
-    log(f"[main path] {json.dumps({'per_epoch': reports})}")
+    # -- 8. the record ------------------------------------------------------
     if rehearsal:
         log(f"[rehearsal] control flow ok in {time.perf_counter() - t_start:.1f} s; "
             "no kernel ran, nothing was measured")
         return 3
     rows = []
     for name, meta in KERNELS.items():
-        check(launches.get(name, 0) > 0, f"the main path launched {name}")
+        check(launches.get(name, 0) > 0, f"its path launched {name}")
         rows.append({"name": name, **meta, "launches": launches[name],
                      "max_abs_err": worst[name], **timings[name]})
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -18,14 +18,13 @@ representation: a dense ``[K, K]`` matrix yields a dense row-stochastic W,
 a ``contacts.SparseContacts`` neighbour list yields a ``SparseMixing`` with
 the same weights on the same edges (see core/contacts.py).
 
-Still to port from ``repro.core.aggregation``: ``metropolis_mixing``,
-``sample_size_mixing`` (with the baselines) and ``mix_params_lowp``.
+Still to port from ``repro.core.aggregation``: ``mix_params_lowp``.
 """
 from __future__ import annotations
 
 import torch
 
-from .contacts import SparseContacts, SparseMixing, sparse_mix_array
+from .contacts import SparseContacts, SparseMixing, self_slots, sparse_mix_array
 
 Tensor = torch.Tensor
 
@@ -53,6 +52,36 @@ def uniform_mixing(contacts) -> Tensor | SparseMixing:
         return _renormalize(contacts.idx, contacts.mask.to(torch.float32))
     c = contacts.to(torch.float32)
     return c / torch.clamp(torch.sum(c, dim=-1, keepdim=True), min=1e-12)
+
+
+def metropolis_mixing(contacts) -> Tensor | SparseMixing:
+    """Metropolis-Hastings weights: symmetric, doubly stochastic on undirected
+    graphs — a classic gossip baseline (beyond-paper reference point)."""
+    if isinstance(contacts, SparseContacts):
+        m = contacts.mask.to(torch.float32)
+        deg = torch.sum(m, dim=-1) - 1.0                   # exclude self
+        deg_nbr = deg[contacts.idx.long()]                 # [K, D] gather
+        sel = self_slots(contacts)
+        off = m * (1.0 - sel) / (1.0 + torch.maximum(deg[:, None], deg_nbr))
+        diag = 1.0 - torch.sum(off, dim=-1)
+        return SparseMixing(contacts.idx, off + sel * diag[:, None])
+    c = contacts.to(torch.float32)
+    deg = torch.sum(c, dim=-1) - 1.0  # exclude self
+    off = c * (1.0 / (1.0 + torch.maximum(deg[:, None], deg[None, :])))
+    off = off * (1.0 - torch.eye(c.shape[0], device=c.device))
+    diag = 1.0 - torch.sum(off, dim=-1)
+    return off + torch.diag(diag)
+
+
+def sample_size_mixing(contacts, sample_counts: Tensor) -> Tensor | SparseMixing:
+    """Decentralized-FedAvg weights [6]: proportional to neighbour sample counts."""
+    counts = torch.as_tensor(sample_counts).to(torch.float32)
+    if isinstance(contacts, SparseContacts):
+        return _renormalize(contacts.idx,
+                            contacts.mask * counts[contacts.idx.long()])
+    c = contacts.to(torch.float32)
+    w = c * counts[None, :]
+    return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
 
 
 def mix_params(mixing, params: dict) -> dict:

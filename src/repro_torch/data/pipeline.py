@@ -50,3 +50,18 @@ def sample_batches(data: FederatedData, generator, local_steps: int,
     rows = torch.arange(k, device=data.x.device)
     idx = data.index_table[rows[:, None, None], picks]  # [K, E, B]
     return data.x[idx], data.y[idx]
+
+
+def sample_full_batches(data: FederatedData, generator, batch_size: int,
+                        picks: Tensor | None = None):
+    """One batch per vehicle of ``batch_size`` samples drawn from its
+    partition — used by SP's single full-set local iteration (the paper's SP
+    uses all local samples; we draw ``batch_size`` >= typical partition size,
+    with self-resampling padding preserving the distribution). Returns
+    (x, y) of shape [K, B, ...]; ``picks`` [K, B] injects the positions."""
+    k, w = data.index_table.shape
+    if picks is None:
+        picks = torch.randint(0, w, (k, batch_size), generator=generator,
+                              device=data.x.device)
+    idx = torch.gather(data.index_table, 1, picks.to(data.x.device).long())
+    return data.x[idx], data.y[idx]

@@ -1,4 +1,4 @@
-from . import engine, mobility, partition, simulator, topology  # noqa: F401
+from . import engine, metrics, mobility, partition, simulator, topology  # noqa: F401
 from .engine import ContactStream, EngineContext  # noqa: F401
 from .mobility import ManhattanMobility, MobilityConfig, contact_schedule  # noqa: F401
 from .simulator import SimulationConfig, SimulationResult, run_simulation  # noqa: F401

@@ -1,8 +1,9 @@
 """Registered federation algorithms (see base.Algorithm for the protocol).
 
-Importing this package registers the built-ins. Only ``dds`` (the paper's
-algorithm) is ported so far; the engine resolves
-``SimulationConfig.algorithm`` through ``get_algorithm``.
+Importing this package registers the built-ins: the paper's three
+(``dds`` / ``dfl`` / ``sp``) and the beyond-paper baselines
+(``d_fedavg`` / ``d_sgd``). The engine resolves ``SimulationConfig.algorithm``
+through ``get_algorithm``.
 """
 from .base import (  # noqa: F401
     Algorithm,
@@ -11,4 +12,4 @@ from .base import (  # noqa: F401
     get_algorithm,
     register_algorithm,
 )
-from . import dds  # noqa: F401  (registration)
+from . import d_fedavg, d_sgd, dds, dfl, sp  # noqa: F401  (registration)

@@ -76,9 +76,6 @@ class Algorithm:
 
 _ALGORITHMS: dict[str, Algorithm] = {}
 
-# registered in the reference, still to port here (see ROADMAP.md)
-NOT_YET_PORTED = ("dfl", "sp", "d_fedavg", "d_sgd")
-
 
 def register_algorithm(cls: type[Algorithm]) -> type[Algorithm]:
     """Class decorator: instantiate and register under ``cls.name``."""
@@ -87,11 +84,6 @@ def register_algorithm(cls: type[Algorithm]) -> type[Algorithm]:
 
 
 def get_algorithm(name: str) -> Algorithm:
-    if name in NOT_YET_PORTED and name not in _ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet: it arrives with the "
-            "baselines slice (core/baselines.py + fed/algorithms); only "
-            f"{'|'.join(available_algorithms())} run in repro_torch today")
     try:
         return _ALGORITHMS[name]
     except KeyError:

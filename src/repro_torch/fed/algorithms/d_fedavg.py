@@ -1,0 +1,33 @@
+"""d_fedavg: train-then-aggregate decentralized FedAvg (beyond-paper
+baseline) as a registered Algorithm."""
+from __future__ import annotations
+
+import torch
+
+from ...core import baselines, dfl_dds
+from .base import Algorithm, AlgorithmSetup, register_algorithm
+
+
+@register_algorithm
+class DFedAvg(Algorithm):
+    """Train-then-aggregate decentralized FedAvg (the DFedAvg ordering).
+
+    E local iterations FIRST, then the sample-size-weighted gossip average
+    (core.baselines.d_fedavg_round) — vs ``dfl``'s aggregate-then-train."""
+
+    name = "d_fedavg"
+
+    def init_state(self, setup: AlgorithmSetup):
+        return dfl_dds.init_federation(setup.params_stack, setup.opt_stack,
+                                       setup.total_nodes)
+
+    def round(self, setup, state, contacts_t, target, batch, generator, fed_data):
+        cfg = setup.cfg
+        return baselines.d_fedavg_round(
+            state, contacts_t, target, batch, generator, setup.local_train_fn,
+            sample_counts=fed_data.counts.to(torch.float32), lr=cfg.lr,
+            local_steps=cfg.local_steps, mix_params_fn=setup.mix_params_fn,
+            local_mask=setup.local_mask)
+
+    def model_of(self, setup, state):
+        return state.params

@@ -26,7 +26,6 @@ own), ``"cpu"`` when the caller asks for it, as the tests do.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Any, Callable
@@ -42,6 +41,7 @@ from ..data import pipeline
 from ..kernels.gossip_mix import ops as gossip_ops
 from ..models import cnn as cnn_lib
 from ..optim import ScaleState, apply_updates, sgd
+from ..precision import full_f32_matmul
 from ..profiling import PhaseTimer, phase
 from . import algorithms as algorithms_lib
 from . import extensions as extensions_lib
@@ -538,19 +538,6 @@ def _append_window(result: SimulationResult, traj, mask: np.ndarray, start: int,
         if progress:
             print(f"  epoch {start + int(i) + 1:4d}  avg_acc={accs.mean():.4f}  "
                   f"min={accs.min():.4f}  max={accs.max():.4f}", flush=True)
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """Run with f32 matrix products in full f32 on CUDA (no TF32): the 1e-5
-    mixing / P1 tolerances against the reference do not hold otherwise. The
-    caller's setting is restored on exit."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def run_with_context(ctx: EngineContext, progress: bool = False) -> SimulationResult:

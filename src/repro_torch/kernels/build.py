@@ -4,7 +4,8 @@ Each ``.cu`` source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers in the sources, so a build takes seconds). Several sources are
 compiled in parallel, one ``nvcc`` process each. Libraries are keyed by a
-hash of their source, so an edited source is never served by a stale build.
+hash of their source and of the ``.cuh`` headers beside it, so an edited
+source is never served by a stale build.
 
 The output directory is ``$REPRO_TORCH_BUILD_DIR`` when set, else
 ``build/repro_torch_kernels/`` beside ``src/`` (ignored by git). Nothing here
@@ -50,8 +51,10 @@ def find_nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
+    # the headers beside a source are part of what it compiles from
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{source.stem}-{digest}.so"
 
 

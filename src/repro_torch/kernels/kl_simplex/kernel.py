@@ -1,0 +1,164 @@
+"""CUDA kernels over state matrices, written by hand for Hopper (sm_90a).
+
+* ``kl_rows(states, target)`` — per-row ``D_KL(states[v] || target)`` in bits
+  (``csrc/kl_rows.cu``), Eq. (9) over a whole state matrix;
+* ``entropy_rows(states)`` — per-row entropy in bits
+  (``csrc/entropy_rows.cu``), Eq. (8);
+* ``eg_step(alpha, grad, mask, step_size=)`` — one masked
+  exponentiated-gradient step of the P1 solver per row (``csrc/eg_step.cu``).
+
+Counterparts of the Pallas kernels of ``repro.kernels.kl_simplex.kernel``.
+The sources carry their design notes. They are compiled by ``nvcc`` at first
+use (``kernels.build``) and bound through ``ctypes``; importing this module
+needs neither a GPU nor a compiler.
+
+Each wrapper takes CUDA tensors only and raises on anything the kernel does
+not take (``ops`` routes CPU tensors to the plain versions in ``ref``). It
+allocates the output with ``torch.empty``, launches on PyTorch's current
+stream, does not synchronise, raises if the launch was refused, and adds one
+to ``launch_counts[name]`` per launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from .. import build as build_lib
+
+Tensor = torch.Tensor
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {
+    "eg_step": CSRC / "eg_step.cu",
+    "kl_rows": CSRC / "kl_rows.cu",
+    "entropy_rows": CSRC / "entropy_rows.cu",
+}
+
+# launches per kernel since the last reset_launch_counts()
+launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def build() -> None:
+    """Compile (the three sources in parallel) and load the kernels; a no-op
+    once loaded. Called by the wrappers at first launch."""
+    if _LIBS:
+        return
+    names = list(SOURCES)
+    libs = dict(zip(names, build_lib.load_libraries([SOURCES[n] for n in names])))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs["eg_step"].eg_step_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                               ctypes.c_float, i32, ptr]
+    libs["kl_rows"].kl_rows_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    libs["entropy_rows"].entropy_rows_launch.argtypes = [ptr, ptr, i32, i32, i32,
+                                                         ptr]
+    for name, lib in libs.items():
+        getattr(lib, f"{name}_launch").restype = i32
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
+    _LIBS.update(libs)
+
+
+def _check_rows(t: Tensor, what: str, name: str) -> None:
+    """A ``[V, K]`` operand: CUDA, f32 or bf16, contiguous, V and K int32."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device} "
+                         "(CPU tensors go through kernels.kl_simplex.ops / ref)")
+    if t.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: {what} must be float32 or bfloat16, got {t.dtype}")
+    if t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be a contiguous [V, K] tensor, got "
+                         f"shape {tuple(t.shape)} stride {t.stride()}")
+    if max(t.shape) >= 2 ** 31:
+        raise ValueError(f"{name}: {what} of shape {tuple(t.shape)} does not fit int32")
+
+
+def _raise_on(code: int, name: str) -> None:
+    if code != 0:
+        text = getattr(_LIBS[name], f"{name}_error_string")(code)
+        raise RuntimeError(f"{name}: launch failed with CUDA error {code} "
+                           f"({text.decode() if text else '?'})")
+
+
+def _launch(name: str, out: Tensor, *args) -> Tensor:
+    build()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(_LIBS[name], f"{name}_launch")(*args, stream)
+    _raise_on(code, name)
+    launch_counts[name] += 1
+    return out
+
+
+def kl_rows(states: Tensor, target: Tensor) -> Tensor:
+    """Per-row ``D_KL(states[v] || target)`` in bits: states ``[V, K]`` f32 or
+    bf16, target ``[K]`` f32 on the same device -> ``[V]`` f32. Lanes with
+    ``states <= 1e-12`` contribute 0; both sides are clipped to [1e-12, 1]."""
+    name = "kl_rows"
+    _check_rows(states, "states", name)
+    if target.device != states.device:
+        raise ValueError(f"{name}: target is on {target.device}, states on "
+                         f"{states.device}")
+    if target.dtype != torch.float32:
+        raise TypeError(f"{name}: target must be float32, got {target.dtype}")
+    if target.shape != states.shape[1:] or not target.is_contiguous():
+        raise ValueError(f"{name}: target must be a contiguous [K] = "
+                         f"[{states.shape[1]}] tensor, got shape {tuple(target.shape)}")
+    v, k = states.shape
+    out = torch.empty((v,), dtype=torch.float32, device=states.device)
+    if v == 0:
+        return out
+    return _launch(name, out, states.data_ptr(), target.data_ptr(), out.data_ptr(),
+                   v, k, _DTYPE_CODE[states.dtype])
+
+
+def entropy_rows(states: Tensor) -> Tensor:
+    """Per-row entropy in bits: states ``[V, K]`` f32 or bf16 -> ``[V]`` f32.
+    Lanes with ``states <= 1e-12`` contribute 0."""
+    name = "entropy_rows"
+    _check_rows(states, "states", name)
+    v, k = states.shape
+    out = torch.empty((v,), dtype=torch.float32, device=states.device)
+    if v == 0:
+        return out
+    return _launch(name, out, states.data_ptr(), out.data_ptr(), v, k,
+                   _DTYPE_CODE[states.dtype])
+
+
+def eg_step(alpha: Tensor, grad: Tensor, mask: Tensor, *,
+            step_size: float = 2.0) -> Tensor:
+    """One masked exponentiated-gradient step per row: alpha, grad, mask
+    ``[V, K]``, all f32 or all bf16, on one device -> ``[V, K]`` f32 on the
+    simplex, exactly 0 where ``mask <= 0`` (a row with an empty mask is all
+    0). ``step_size`` is a finite float."""
+    name = "eg_step"
+    for what, t in (("alpha", alpha), ("grad", grad), ("mask", mask)):
+        _check_rows(t, what, name)
+        if t.device != alpha.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, alpha on {alpha.device}")
+        if t.dtype != alpha.dtype:
+            raise TypeError(f"{name}: {what} is {t.dtype}, alpha {alpha.dtype}: "
+                            "the three operands share one dtype")
+        if t.shape != alpha.shape:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} and alpha "
+                             f"{tuple(alpha.shape)} differ in shape")
+    step = float(step_size)
+    if not math.isfinite(step):
+        raise ValueError(f"{name}: step_size must be finite, got {step_size}")
+    v, k = alpha.shape
+    out = torch.empty((v, k), dtype=torch.float32, device=alpha.device)
+    if v == 0:
+        return out
+    return _launch(name, out, alpha.data_ptr(), grad.data_ptr(), mask.data_ptr(),
+                   out.data_ptr(), v, k, step, _DTYPE_CODE[alpha.dtype])

@@ -1,0 +1,50 @@
+"""Plain PyTorch versions of the kl_simplex kernels (the reference's
+``repro.kernels.kl_simplex.ref`` on tensors); the CPU path of ``ops`` and the
+yardstick the CUDA kernels are held against on the card."""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+_EPS = 1e-12
+
+
+def kl_rows_ref(states: Tensor, target: Tensor) -> Tensor:
+    """Per-row ``D_KL(states[v] || target)`` in bits -> ``[V]`` f32."""
+    raw = states.to(torch.float32)
+    s = torch.clamp(raw, _EPS, 1.0)
+    g = torch.clamp(target.to(torch.float32), _EPS, 1.0)
+    terms = torch.where(raw > _EPS, raw * (torch.log2(s) - torch.log2(g)[None, :]),
+                        torch.zeros((), device=raw.device))
+    return torch.sum(terms, dim=-1)
+
+
+def entropy_rows_ref(states: Tensor) -> Tensor:
+    """Per-row entropy in bits -> ``[V]`` f32."""
+    raw = states.to(torch.float32)
+    s = torch.clamp(raw, _EPS, 1.0)
+    terms = torch.where(raw > _EPS, raw * torch.log2(s),
+                        torch.zeros((), device=raw.device))
+    return -torch.sum(terms, dim=-1)
+
+
+def eg_step_ref(alpha: Tensor, grad: Tensor, mask: Tensor,
+                step_size: float = 2.0) -> Tensor:
+    """One masked exponentiated-gradient step per row -> ``[V, K]`` f32.
+
+    As the reference's ``eg_step_ref``: a softmax over the masked logits, so
+    a row with an empty mask (all logits -inf) gives NaN, where the kernel
+    gives 0."""
+    a = alpha.to(torch.float32)
+    g = grad.to(torch.float32)
+    m = mask.to(torch.float32)
+    n_act = torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1.0)
+    gbar = torch.sum(g * m, dim=1, keepdim=True) / n_act
+    centered = (g - gbar) * m
+    scale = step_size / torch.clamp(
+        torch.amax(torch.abs(centered), dim=1, keepdim=True), min=1.0)
+    logits = torch.where(m > 0, torch.log(torch.clamp(a, _EPS, 1.0)) - scale * centered,
+                         torch.full((), float("-inf"), device=a.device))
+    new = torch.softmax(logits, dim=1) * m
+    return new / torch.clamp(torch.sum(new, dim=1, keepdim=True), min=_EPS)

@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import aggregation, contacts
 from repro_torch.data.synthetic import synthetic_mnist
 from repro_torch.fed.simulator import SimulationConfig, run_simulation
+from repro_torch.kernels import kl_simplex
 from repro_torch.kernels.gossip_mix import (gossip_mix_gather_ref,
                                             gossip_mix_matmul_ref, kernel,
                                             mix_params_cuda)
@@ -119,3 +120,122 @@ def test_small_federation_on_the_card_matches_the_cpu(card, contact_format):
     np.testing.assert_allclose(on_card.kl_trace, on_cpu.kl_trace, atol=1e-5)
     np.testing.assert_allclose(on_card.comm_mb, on_cpu.comm_mb, atol=1e-5)
     np.testing.assert_allclose(np.stack(on_card.entropy), np.stack(on_cpu.entropy), atol=1e-5)
+
+
+# ------------------------------------------------------------ kl_simplex ----
+
+KL_SHAPES = [(1, 2, torch.float32), (40, 50, torch.float32), (33, 100, torch.float32),
+             (100, 101, torch.float32), (64, 1024, torch.float32),
+             (8, 4096, torch.float32), (33, 100, torch.bfloat16),
+             (64, 1024, torch.bfloat16), (8, 4096, torch.bfloat16)]
+
+
+def _state_rows(v, k, dtype, seed, card):
+    r = np.random.default_rng(seed)
+    s = r.dirichlet(np.ones(k), size=v).astype(np.float32)
+    s[:, r.integers(0, k)] = 0.0
+    g = r.dirichlet(np.ones(k) * 2).astype(np.float32)
+    return torch.as_tensor(s).to(dtype).to(card), torch.as_tensor(g).to(card)
+
+
+@pytest.mark.parametrize("v,k,dtype", KL_SHAPES)
+def test_row_kernels_match_plain_versions(card, v, k, dtype):
+    s, g = _state_rows(v, k, dtype, v + k, card)
+    before = dict(kl_simplex.kernel.launch_counts)
+    got_kl = kl_simplex.kl_rows(s, g)
+    got_h = kl_simplex.entropy_rows(s)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["kl_rows"] == before["kl_rows"] + 1
+    assert kl_simplex.kernel.launch_counts["entropy_rows"] == before["entropy_rows"] + 1
+    assert got_kl.shape == got_h.shape == (v,) and got_kl.dtype == torch.float32
+    assert _err(got_kl, kl_simplex.kl_rows_ref(s, g)) <= ATOL[dtype]
+    assert _err(got_h, kl_simplex.entropy_rows_ref(s)) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("v,k,dtype", [(4, 8, torch.float32), (33, 100, torch.float32),
+                                       (128, 16, torch.float32), (100, 100, torch.float32),
+                                       (64, 1024, torch.float32), (8, 4096, torch.float32),
+                                       (16, 200, torch.bfloat16)])
+def test_eg_step_kernel_matches_plain_version(card, v, k, dtype):
+    r = np.random.default_rng(v * k)
+    m = (r.random((v, k)) < 0.5).astype(np.float32)
+    m[:, 0] = 1.0
+    a = r.dirichlet(np.ones(k), size=v).astype(np.float32) * m
+    a = a / a.sum(1, keepdims=True)
+    grad = r.normal(size=(v, k)).astype(np.float32)
+    a, grad, m = (torch.as_tensor(x).to(dtype).to(card) for x in (a, grad, m))
+    before = kl_simplex.kernel.launch_counts["eg_step"]
+    got = kl_simplex.eg_step(a, grad, m, step_size=2.0)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["eg_step"] == before + 1
+    assert got.shape == (v, k) and got.dtype == torch.float32
+    assert _err(got, kl_simplex.eg_step_ref(a, grad, m, step_size=2.0)) <= ATOL[dtype]
+    assert bool((got[m == 0] == 0).all())
+
+
+def test_eg_step_kernel_gives_zero_on_an_empty_mask_row(card):
+    for k in (6, 2000):                       # register and streaming variants
+        a = torch.full((3, k), 1.0 / k, device=card)
+        grad = torch.randn(3, k, device=card)
+        m = torch.ones(3, k, device=card)
+        m[1] = 0.0
+        got = kl_simplex.eg_step(a, grad, m)
+        torch.cuda.synchronize()
+        assert bool((got[1] == 0).all()) and bool(torch.isfinite(got).all())
+        assert torch.allclose(got[[0, 2]].sum(1), torch.ones(2, device=card), atol=1e-5)
+
+
+def test_kl_simplex_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    s = torch.rand(4, 8, device=card)
+    g = torch.rand(8, device=card)
+    with pytest.raises(TypeError):
+        kl_simplex.kl_rows_kernel(s.double(), g)
+    with pytest.raises(TypeError):
+        kl_simplex.kl_rows_kernel(s, g.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        kl_simplex.kl_rows_kernel(s, torch.rand(7, device=card))
+    with pytest.raises(ValueError):
+        kl_simplex.entropy_rows_kernel(s.t())
+    with pytest.raises(ValueError):
+        kl_simplex.entropy_rows_kernel(torch.rand(8, device=card))
+    with pytest.raises(TypeError):
+        kl_simplex.eg_step(s, s, s.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        kl_simplex.eg_step(s, s, torch.rand(4, 9, device=card))
+    with pytest.raises(ValueError):
+        kl_simplex.eg_step(s, s.cpu(), s)
+
+
+def test_fused_p1_solver_on_the_card_matches_the_cpu(card):
+    from repro_torch.core import kl_solver
+    r = np.random.default_rng(9)
+    k = 100
+    s = torch.as_tensor(r.dirichlet(np.ones(k), size=k).astype(np.float32))
+    g = torch.as_tensor(r.dirichlet(np.ones(k) * 2).astype(np.float32))
+    c = torch.as_tensor(np.minimum((r.random((k, k)) < 0.1) + (r.random((k, k)) < 0.1).T
+                                   + np.eye(k), 1).astype(np.float32))
+    kl_simplex.kernel.reset_launch_counts()
+    on_card = kl_simplex.solve_p1_all_fused(s.to(card), g.to(card), c.to(card),
+                                            num_steps=200, step_size=2.0)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["eg_step"] == 200
+    on_cpu = kl_simplex.solve_p1_all_fused(s, g, c, num_steps=200, step_size=2.0)
+    assert _err(on_card.cpu(), on_cpu) <= 1e-5
+    assert bool((on_card.cpu()[c == 0] == 0).all())
+    obj = kl_solver.kl_objective(on_card.cpu(), s, g)
+    eager = kl_solver.kl_objective(kl_solver.solve_p1_all(s, g, c, num_steps=200), s, g)
+    assert _err(obj, eager) <= 1e-5
+
+
+def test_sp_run_on_the_card_matches_the_cpu(card):
+    ds = synthetic_mnist(n_train=1200, n_test=200)
+    base = dict(algorithm="sp", num_vehicles=8, epochs=3, eval_every=3, eval_samples=200,
+                comm_range=250.0, num_rsus=1, p_drop=0.1)
+    kernel.reset_launch_counts()
+    on_card = run_simulation(SimulationConfig(**base, device="cuda"), dataset=ds)
+    assert kernel.launch_counts["gossip_mix_gather"] == 3 * 8
+    on_cpu = run_simulation(SimulationConfig(**base, device="cpu"), dataset=ds)
+    np.testing.assert_allclose(on_card.kl_trace, on_cpu.kl_trace, atol=1e-5)
+    np.testing.assert_allclose(on_card.comm_mb, on_cpu.comm_mb, atol=1e-5)
+    np.testing.assert_allclose(np.stack(on_card.entropy), np.stack(on_cpu.entropy), atol=1e-5)
+    assert np.isfinite(on_card.avg_accuracy).all()

@@ -21,6 +21,11 @@ def _module_names():
 def test_every_module_imports_without_jax_or_repro():
     names = _module_names()
     assert "repro_torch.kernels.gossip_mix.kernel" in names and len(names) >= 25
+    assert {"repro_torch.kernels.kl_simplex.kernel", "repro_torch.kernels.kl_simplex.ops",
+            "repro_torch.kernels.kl_simplex.ref", "repro_torch.core.baselines",
+            "repro_torch.fed.metrics", "repro_torch.fed.algorithms.sp",
+            "repro_torch.fed.algorithms.dfl", "repro_torch.fed.algorithms.d_sgd",
+            "repro_torch.fed.algorithms.d_fedavg", "repro_torch.precision"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -75,7 +80,7 @@ def test_device_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("algorithm", "dfl"), ("algorithm", "sp"), ("backend", "shard_map"),
+    ("backend", "shard_map"),
     ("overlap", "delayed"), ("execution", "auto"), ("use_scan_engine", False),
 ])
 def test_values_of_later_slices_raise_not_implemented(field, value):
@@ -99,6 +104,7 @@ def test_unknown_values_raise_value_error(field, value):
 
 def test_registries():
     from repro_torch.fed import algorithms
-    assert algorithms.available_algorithms() == ["dds"]
+    assert algorithms.available_algorithms() == ["d_fedavg", "d_sgd", "dds", "dfl", "sp"]
     assert backends.available_backends() == ["vmap"]
-    assert algorithms.get_algorithm("dds").name == "dds"
+    for name in algorithms.available_algorithms():
+        assert algorithms.get_algorithm(name).name == name
