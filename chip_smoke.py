@@ -13,9 +13,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                one ``nvcc`` per source, all started together.
 3. kernels   — every kernel against its plain PyTorch version on the card, at
                the reference's test shapes and at the main path's shapes
-               (tolerance: f32 atol 1e-5, bf16 atol 5e-2), the wrappers'
-               refusals, and each kernel's time there (kl_simplex kernels also
-               at K = 1024).
+               (tolerance: f32 atol 1e-5, bf16 atol 5e-2; flash attention f32
+               2e-5, bf16 3e-2), the wrappers' refusals, and each kernel's time
+               there (kl_simplex kernels also at K = 1024; flash attention at the
+               serving shape B=4, S=T=2048, H=16, KV=8, hd=128).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
                full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
@@ -37,14 +38,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                ``kl_divergence`` / ``entropy`` diagnostics; then small federations
                (``dds``, ``sp``, ``d_sgd``; RSU + dropped exchanges) on the card
                against the CPU.
-8. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+8. serve     — qwen3-1.7b at full width (28 layers, d_model 2048, vocab 151,936;
+               random f32 weights from a seeded generator on the card) through
+               ``launch.serve.generate``: B=4 prompts of 2,048 tokens prefilled
+               through the flash-attention kernel (28 launches, one per layer),
+               32 greedy decode steps (no launch); the kernel-path prefill against
+               the plain-attention prefill (last logits atol 2e-3), prefill + one
+               decode step against ``forward`` at B=1, S=256 (atol 2e-3), and the
+               reduced config on the card against the CPU (atol 1e-4, same tokens).
+9. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after. Times are CUDA-event times on the card the script ran on;
-the bound of a kernel is the larger of its bytes over 3.35 TB/s and its f32
-operations over 67 TFLOP/s (published peaks of one H100 SXM at its full
-power limit).
+the bound of a kernel is the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s for f32 (989 TFLOP/s for bf16 inputs: the tensor
+cores' rate) — published peaks of one H100 SXM at its full power limit.
 """
 from __future__ import annotations
 
@@ -59,22 +68,29 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import kernels as kernels_lib  # noqa: E402
+from repro_torch import convert, kernels as kernels_lib  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregation, contacts as contacts_lib, dfl_dds, kl_solver  # noqa: E402
 from repro_torch.data import datasets as data_lib  # noqa: E402
 from repro_torch.data.synthetic import synthetic_mnist  # noqa: E402
 from repro_torch.fed import engine, topology  # noqa: E402
 from repro_torch.fed.simulator import SimulationConfig, run_simulation  # noqa: E402
 from repro_torch.kernels import build as build_lib  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kl_simplex  # noqa: E402
 from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores, published
+BF16_FLOP_PER_S = 989e12      # H100 SXM, bf16 on the tensor cores, dense, published
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 EPOCHS = 4                    # depth of the main-path runs: two evals at eval_every=2
 BASELINE_EPOCHS = 2           # depth of each baseline run, evaluated every epoch
@@ -109,7 +125,26 @@ KERNELS = {
         "source": "src/repro_torch/kernels/kl_simplex/csrc/entropy_rows.cu",
         "replaces": "src/repro/kernels/kl_simplex/kernel.py:76",
     },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+    },
 }
+
+# the serving path: qwen3-1.7b at full width, B prompts of S tokens, GEN greedy steps
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# flash attention: the reference's sweep (tests/test_kernels.py), b, s, h, kv, hd,
+# causal, window, dtype; its tolerances
+FA_SWEEP = [(2, 64, 4, 4, 32, True, None, torch.float32),
+            (1, 100, 8, 2, 64, True, None, torch.float32),
+            (2, 33, 4, 1, 16, True, None, torch.float32),
+            (1, 128, 4, 4, 64, True, 32, torch.float32),
+            (1, 96, 2, 2, 128, False, None, torch.float32),
+            (2, 64, 4, 4, 64, True, None, torch.bfloat16),
+            (1, 257, 2, 1, 64, True, 100, torch.float32)]
+FA_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
 def log(msg: str) -> None:
@@ -230,14 +265,15 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
     return worst
 
 
-def _timed(fn, plain, library, nbytes: int, flops: int, work: str) -> dict:
+def _timed(fn, plain, library, nbytes: int, flops: int, work: str,
+           flop_rate: float = F32_FLOP_PER_S) -> dict:
     """The timing keys of one kernels-line row: the kernel and its plain
     version in turns (plain, kernel, kernel, plain, within this call), the
     library call where there is one, and the bound — the larger of the bytes
-    the function must move over the memory rate and its f32 operations over
-    the f32 rate."""
+    the function must move over the memory rate and its operations over the
+    rate of their type (f32 unless ``flop_rate`` says otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOP_PER_S * 1e3
+    t_flops = flops / flop_rate * 1e3
     plain_a = time_ms(plain)
     ms_a = time_ms(fn)
     ms_b = time_ms(fn)
@@ -446,6 +482,252 @@ def time_kl_kernels(device, k: int) -> dict[str, dict]:
     return out
 
 
+# ------------------------------------------------------- flash attention ----
+
+def _qkv(b, s, h, kv, hd, dtype, seed, device, t=None):
+    r = np.random.default_rng(seed)
+    t = s if t is None else t
+    shapes = ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd))
+    return tuple(torch.as_tensor(r.normal(size=sh).astype(np.float32)).to(dtype).to(device)
+                 for sh in shapes)
+
+
+def _fa_case(q, k, v, what: str, causal=True, window=None, scale=None,
+             rtol=None) -> float:
+    """With ``rtol``, every element is also held to
+    ``FA_ATOL[f32] + rtol * |want|``: a limit that scales with the value."""
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    err = _max_err(got, want)
+    ok = got.shape == q.shape and got.dtype == q.dtype and err <= FA_ATOL[q.dtype]
+    what = f"flash_attention {what} max err {err:.2e}"
+    if rtol is not None:
+        diff = (got.float() - want.float()).abs()
+        excess = (diff - rtol * want.float().abs()).max().item()
+        ok = ok and excess <= FA_ATOL[torch.float32]
+        what += f", max(|diff| - {rtol:g}|want|) {excess:.2e}"
+    check(ok, what)
+    return err
+
+
+def check_flash_attention(device) -> dict[str, float]:
+    """The flash-attention kernel against its plain version on the card: the
+    reference's sweep, the reference's block-shape case (1, 70, 2, 32), S != T,
+    inputs read through strides, the serving shapes (causal f32, causal bf16,
+    window 512), the empty-row rule and the wrapper's refusals. At the serving
+    shape bf16 is also held to one bf16 rounding step of each value (rtol
+    1e-2 > 2**-7), far inside the sweep's 3e-2. Returns the largest absolute
+    error per input dtype."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {f32: 0.0, bf16: 0.0}
+
+    def seen(q, err):
+        worst[q.dtype] = max(worst[q.dtype], err)
+    for b, s, h, kv, hd, causal, win, dtype in FA_SWEEP:
+        q, k, v = _qkv(b, s, h, kv, hd, dtype, s * h, device)
+        seen(q, _fa_case(q, k, v, f"[{b},{s},{h}/{kv},{hd}] causal={causal} "
+                                    f"window={win} {dtype}", causal, win))
+    q, k, v = _qkv(1, 70, 2, 2, 32, f32, 1, device)
+    seen(q, _fa_case(q, k, v, "[1,70,2/2,32]"))
+    for s, t, causal, win, hd in ((40, 72, False, None, 64), (72, 40, False, 40, 128),
+                                  (130, 130, True, 7, 128), (300, 300, True, 64, 32)):
+        q, k, v = _qkv(2, s, 4, 2, hd, f32, s + t, device, t=t)
+        seen(q, _fa_case(q, k, v, f"S={s} T={t} hd={hd} causal={causal} "
+                                    f"window={win} scale=0.3", causal, win, scale=0.3))
+    # strided views: q a slice of a wider projection, k/v transposed from [B, KV, T, hd]
+    r = np.random.default_rng(5)
+    wide = torch.as_tensor(r.normal(size=(2, 96, 8, 192)).astype(np.float32)).to(device)
+    kt = torch.as_tensor(r.normal(size=(2, 4, 96, 64)).astype(np.float32)).to(device)
+    vt = torch.as_tensor(r.normal(size=(2, 4, 96, 64)).astype(np.float32)).to(device)
+    q, k, v = wide[..., 64:128], kt.transpose(1, 2), vt.transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous())
+    seen(q, _fa_case(q, k, v, "on strided views (no copy)"))
+    b, s, h, kv, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
+    for dtype, win in ((f32, None), (bf16, None), (f32, 512)):
+        q, k, v = _qkv(b, s, h, kv, hd, dtype, 7, device)
+        seen(q, _fa_case(q, k, v, f"serving shape [{b},{s},{h}/{kv},{hd}] {dtype} "
+                                    f"causal window={win}", True, win,
+                         rtol=1e-2 if dtype == bf16 else None))
+        del q, k, v
+    # a query row with no kept key gives 0 (the plain version gives NaN there)
+    q, k, v = _qkv(1, 100, 2, 1, 64, f32, 3, device, t=10)
+    got = fa.flash_attention(q, k, v, causal=False, window=5)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_ref(q, k, v, causal=False, window=5)
+    err = _max_err(got[:, :14], want[:, :14])
+    check(bool((got[:, 14:] == 0).all()) and bool(torch.isnan(want[:, 14:]).all())
+          and err <= FA_ATOL[f32],
+          f"flash_attention: rows with no kept key give 0 (plain version NaN); the rest "
+          f"max err {err:.2e}")
+    q, k, v = _qkv(1, 16, 4, 2, 32, f32, 0, device)
+    for bad in (lambda: fa.flash_attention(q.cpu(), k.cpu(), v.cpu()),            # CPU
+                lambda: fa.flash_attention(q, k.cpu(), v),                         # devices
+                lambda: fa.flash_attention(q.double(), k.double(), v.double()),    # dtype
+                lambda: fa.flash_attention(q, k.to(bf16), v),
+                lambda: fa.flash_attention(*_qkv(1, 16, 3, 2, 32, f32, 0, device)),  # H % KV
+                lambda: fa.flash_attention(*_qkv(1, 16, 2, 2, 256, f32, 0, device)),  # hd > 128
+                lambda: fa.flash_attention(*_qkv(1, 16, 2, 2, 48, f32, 0, device)),
+                lambda: fa.flash_attention(q.transpose(2, 3), k.transpose(2, 3),  # last stride
+                                           v.transpose(2, 3))):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise SystemExit("FAILED: flash_attention accepted an input its kernel does not take")
+    log("  ok: flash_attention raises on CPU / mixed devices / dtype / H % KV / head_dim / "
+        "last stride")
+    return {"max_abs_err": max(worst.values()), "max_abs_err_f32": worst[f32],
+            "max_abs_err_bf16": worst[bf16]}
+
+
+def _attention_pairs(s: int, t: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask keeps for one (batch, head)."""
+    q = np.arange(s)[:, None]
+    k = np.arange(t)[None, :]
+    keep = np.ones((s, t), bool)
+    if causal:
+        keep &= k <= q
+    if window is not None:
+        keep &= k > q - window
+    return int(keep.sum())
+
+
+def time_flash_attention(device) -> dict:
+    """The kernel at the serving shape (B=4, S=T=2048, H=16, KV=8, hd=128,
+    causal): f32 (the row), bf16 and window 512 (nested), each beside its
+    plain version, ``scaled_dot_product_attention`` (``enable_gqa=True``; a
+    boolean mask for the window) and its bound: 4 * hd operations per kept
+    (query, key) pair per head, q/k/v read once and o written once."""
+    b, s, h, kv, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
+    out = {}
+    for label, dtype, win in (("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
+                              ("window512", torch.float32, 512)):
+        q, k, v = _qkv(b, s, h, kv, hd, dtype, 11, device)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None if win is None else layers.causal_mask(s, s, 0, win, device=device)
+        esize = q.element_size()
+        flops = 4 * hd * b * h * _attention_pairs(s, s, True, win)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+        sdpa_err = _max_err(library().transpose(1, 2),
+                            fa.flash_attention_ref(q, k, v, window=win))
+        row = _timed(lambda: fa.flash_attention(q, k, v, window=win),
+                     lambda: fa.flash_attention_ref(q, k, v, window=win), library,
+                     2 * esize * (b * s * h * hd + b * s * kv * hd), flops,
+                     f"one launch (one layer's prefill attention): B={b}, S=T={s}, H={h}, "
+                     f"KV={kv}, hd={hd}, causal, window={win}, {dtype}",
+                     flop_rate=BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+        row["library_max_abs_err"] = sdpa_err
+        row["tflop_per_s"] = flops / row["ms"] / 1e9
+        if label == "f32":
+            out = row
+        else:
+            out[label] = row
+        del q, k, v, qt, kt, vt
+    log(f"  flash_attention: {json.dumps(out)}")
+    return {"flash_attention": out}
+
+
+# -------------------------------------------------------------------- serve ----
+
+def drive_serve(device: str, seed: int, rehearsal: bool) -> tuple[int, dict]:
+    """qwen3-1.7b through ``launch.serve.generate`` (the main path of this
+    phase, counters zeroed just before and read just after), then the three
+    agreement checks. Returns the flash-attention launches of the main path
+    and the report."""
+    on_card = device != "cpu"
+    cfg = get_config(SERVE_ARCH)
+    b, s, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    if rehearsal:
+        cfg, b, s, gen = cfg.reduced(), 2, 32, 4
+    L = cfg.num_layers
+    log(f"[serve] {cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, f32; B={b}, prompt {s}, {gen} steps")
+    generator = torch.Generator(device=device).manual_seed(seed)
+    params, init_s = _seconds(lambda: transformer.init_params(generator, cfg, device=device))
+    tokens = torch.randint(0, cfg.true_vocab_size, (b, s), generator=generator, device=device)
+    impl = fa.make_attn_impl()
+    serve.generate(params, tokens[:1, :64], cfg, gen=2, attn_impl=impl)   # warm-up
+
+    # -- the main path
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels_lib.reset_launch_counts()
+    res = serve.generate(params, tokens, cfg, gen=gen, attn_impl=impl)
+    launches = fa.kernel.launch_counts["flash_attention"]
+    report = {
+        "arch": cfg.name, "batch": b, "prompt": s, "gen": gen, "init_s": init_s,
+        "prefill_s": res.prefill_s, "prefill_tokens_per_s": b * s / res.prefill_s,
+        "decode_s": res.decode_s, "decode_ms_per_token": res.decode_s / gen * 1e3,
+        "peak_device_memory_mb": (torch.cuda.max_memory_allocated() / 2**20
+                                  if on_card else None),
+        "flash_attention_launches": launches, "generated_ids_0": res.tokens[0, :16].tolist()}
+    check(res.tokens.shape == (b, gen) and bool(torch.isfinite(res.last_logits).all())
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.true_vocab_size)).all())
+          and res.cache_len == s + gen,
+          f"generate: {gen} greedy tokens per prompt, finite logits, cache of {s + gen}")
+    if on_card:
+        check(launches == L, f"flash_attention launched {launches} times in prefill + "
+              f"{gen} decode steps = {L} (one per layer in the prefill, none in decode)")
+
+    # -- the kernel-path prefill against the plain-attention prefill
+    with torch.no_grad(), full_f32_matmul():
+        kernels_lib.reset_launch_counts()
+        (lg_kernel, state), t_kernel = _seconds(lambda: transformer.prefill(
+            params, tokens, cfg, attn_impl=impl, cache_dtype=torch.float32))
+        n = fa.kernel.launch_counts["flash_attention"]
+        del state
+        (lg_plain, _), t_plain = _seconds(lambda: transformer.prefill(
+            params, tokens, cfg, attn_impl=None, cache_dtype=torch.float32))
+    err = _max_err(lg_kernel, lg_plain)
+    same = float((lg_kernel.argmax(-1) == lg_plain.argmax(-1)).float().mean())
+    report.update({"prefill_kernel_s": t_kernel, "prefill_plain_s": t_plain,
+                   "prefill_logits_max_abs_diff": err, "argmax_agreement": same})
+    if on_card:
+        check(n == L, f"a prefill through the kernel launches it {n} = {L} times")
+    check(err <= 2e-3, f"prefill through the kernel vs plain attention: last logits max diff "
+          f"{err:.2e} (atol 2e-3), argmax agrees on {same:.0%} of prompts")
+    del lg_kernel, lg_plain
+
+    # -- prefill + one decode step against forward at position S
+    s1 = min(256, s - 1)
+    tok = tokens[:1, :s1 + 1]
+    with torch.no_grad(), full_f32_matmul():
+        full = transformer.forward(params, tok, cfg)
+        last, state = transformer.prefill(params, tok[:, :s1], cfg, attn_impl=impl,
+                                          cache_dtype=torch.float32)
+        step, _ = transformer.decode_step(params, tok[:, s1:], serve.pad_cache(
+            state, cfg, 1, s1 + 1), cfg)
+    err_p, err_d = _max_err(last, full[:, s1 - 1]), _max_err(step, full[:, s1])
+    report.update({"handoff_prefill_max_abs_diff": err_p, "handoff_decode_max_abs_diff": err_d})
+    check(max(err_p, err_d) <= 2e-3, f"B=1, S={s1}: prefill (kernel) then one decode step vs "
+          f"forward: {err_p:.2e} / {err_d:.2e} (atol 2e-3)")
+    del full, state, params
+
+    # -- the reduced config on the card against the CPU: same weights, same tokens
+    small = get_config(SERVE_ARCH).reduced()
+    cpu_params = transformer.init_params(torch.Generator().manual_seed(seed), small)
+    cpu_tokens = torch.randint(0, small.true_vocab_size, (2, 64),
+                               generator=torch.Generator().manual_seed(seed + 1))
+    want = serve.generate(cpu_params, cpu_tokens, small, gen=8, attn_impl=impl)
+    card_params = convert.transformer_params_from_numpy(cpu_params, device)
+    got = serve.generate(card_params, cpu_tokens.to(device), small, gen=8, attn_impl=impl)
+    err = max(_max_err(got.prefill_logits.cpu(), want.prefill_logits),
+              _max_err(got.last_logits.cpu(), want.last_logits))
+    same_tokens = bool(torch.equal(got.tokens.cpu(), want.tokens))
+    report["reduced_card_vs_cpu_max_abs_diff"] = err
+    check(err <= 1e-4 and same_tokens, f"{small.name} on {device} vs cpu: logits max diff "
+          f"{err:.2e} (atol 1e-4), same {want.tokens.shape[1]} tokens: {same_tokens}")
+    log(f"[serve] {json.dumps(report)}")
+    return launches, report
+
+
 # --------------------------------------------------------------- main path ----
 
 def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
@@ -571,14 +853,19 @@ def _device_events(fn) -> int | None:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def _wall_s(fn) -> float:
+def _seconds(fn):
+    """(result, host seconds) of one synchronised call of ``fn``."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    result = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return result, time.perf_counter() - t0
+
+
+def _wall_s(fn) -> float:
+    return _seconds(fn)[1]
 
 
 def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix) -> int:
@@ -743,6 +1030,12 @@ def main() -> int:
             log("[kernels] times at the main path's shapes (ms, CUDA events, median)")
             timings = time_kernels(device, mixing_sparse, mixing_dense)
             timings.update(time_kl_kernels(device, full.num_vehicles))
+        fa_errors = check_flash_attention(device)
+        worst["flash_attention"] = fa_errors.pop("max_abs_err")
+        log("[kernels] flash_attention at the serving shape (ms, CUDA events, median)")
+        with full_f32_matmul():
+            timings.update(time_flash_attention(device))
+        timings["flash_attention"].update(fa_errors)
 
     if args.kernels_only:
         log("[kernels-only] stopping before the main path")
@@ -797,7 +1090,10 @@ def main() -> int:
         log("[diagnostics] small federations on the card against the CPU")
         check_card_against_cpu(device)
 
-    # -- 8. the record ------------------------------------------------------
+    # -- 8. the serving path: qwen3-1.7b prefill + greedy decode ------------
+    launches["flash_attention"], _ = drive_serve(device, args.seed, rehearsal)
+
+    # -- 9. the record ------------------------------------------------------
     if rehearsal:
         log(f"[rehearsal] control flow ok in {time.perf_counter() - t_start:.1f} s; "
             "no kernel ran, nothing was measured")

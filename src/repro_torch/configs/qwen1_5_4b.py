@@ -1,0 +1,18 @@
+"""qwen1.5-4b [dense] — 40L d_model=2560 20H (GQA kv=20, i.e. MHA) d_ff=6912
+vocab=151936, QKV bias. [hf:Qwen/Qwen1.5-0.5B family card]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-4b",
+    family="dense",
+    num_layers=40,
+    d_model=2560,
+    num_heads=20,
+    num_kv_heads=20,
+    head_dim=128,
+    d_ff=6912,
+    vocab_size=151936,
+    qkv_bias=True,
+    rope_theta=5e6,
+    citation="[hf:Qwen/Qwen1.5-0.5B]",
+)

@@ -23,6 +23,19 @@ def params_from_numpy(params: dict, device="cpu") -> dict:
             for name, p in params.items()}
 
 
+def transformer_params_from_numpy(params: dict, device="cpu") -> dict:
+    """A transformer's parameters as the reference holds them — ``embed``,
+    ``blocks`` (stacked ``[L, ...]`` ``attn`` / ``mlp`` / norm leaves),
+    ``final_norm``, ``lm_head`` — as numpy arrays (or tensors) to the same
+    nested dictionary of tensors on ``device``. Layouts, shapes and dtypes
+    are kept; ``to_numpy`` takes the tree back."""
+    if isinstance(params, dict):
+        return {name: transformer_params_from_numpy(v, device) for name, v in params.items()}
+    if isinstance(params, torch.Tensor):
+        return params.detach().to(device)
+    return torch.tensor(np.asarray(params)).to(device)
+
+
 def federation_state_from_numpy(params: dict, opt_count, state_matrix, epoch,
                                 device="cpu") -> FederationState:
     """A ``FederationState`` from the reference's pieces: stacked ``params``,

@@ -1,0 +1,198 @@
+"""GQA multi-head attention: train / prefill and cached decode paths.
+
+Counterpart of ``repro.models.attention``: grouped-query attention (any
+kv <= q head ratio), rotary embeddings, optional QKV bias (qwen1.5/2.5),
+optional per-head q/k RMSNorm (qwen3), optional sliding window. Parameters
+are a dictionary of tensors with the reference's names and ``[d_in, d_out]``
+layouts.
+
+``attn_impl`` is the hook for a kernel with ``_sdpa``'s signature
+``(q, k, v, mask, scale)`` — ``kernels.flash_attention.make_attn_impl()``.
+The ``[S, S]`` mask is built for the plain ``_sdpa`` only: an ``attn_impl``
+gets ``None`` there and takes the causal (+ window) structure from its own
+flags, as the flash adapter does (the reference builds the mask and the
+adapter drops it; eager PyTorch would pay for it in every layer).
+``blocked_sdpa`` / ``make_blocked_impl`` of the reference (the pure-jnp twin
+of the flash kernel, used by ``launch/variants.py``) are not ported yet.
+
+Decode writes the new token's k/v into the cache **in place** (the returned
+``KVCache`` shares the input's tensors): the reference's
+``dynamic_update_slice`` returns a new cache, which a Python loop here
+would copy, whole, per layer and step. Positions and slots stay tensors, so
+a decode step does not synchronise with the host.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import layers
+
+Tensor = torch.Tensor
+
+
+def init_attn(generator: torch.Generator, cfg: ArchConfig, device=None,
+              num_layers: int | None = None) -> dict:
+    """Attention weights of one layer, or of ``num_layers`` layers stacked on
+    a leading ``[L, ...]`` axis (each layer drawn at its own fan-in)."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    device = generator.device if device is None else device
+    lead = () if num_layers is None else (num_layers,)
+
+    def linear(d_in, d_out):
+        return layers.init_linear(generator, lead + (d_in, d_out), scale=d_in ** -0.5,
+                                  device=device)
+
+    def const(value, n):
+        return torch.full(lead + (n,), value, dtype=torch.float32, device=device)
+
+    p = {"wq": linear(d, h * hd), "wk": linear(d, kv * hd), "wv": linear(d, kv * hd),
+         "wo": linear(h * hd, d)}
+    if cfg.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = const(0.0, h * hd), const(0.0, kv * hd), const(0.0, kv * hd)
+    if cfg.qk_norm:
+        p["q_norm"], p["k_norm"] = const(1.0, hd), const(1.0, hd)
+    # zero the W_o rows of padded q-heads so padding is mathematically inert
+    if cfg.true_num_heads < cfg.num_heads:
+        p["wo"][..., cfg.true_num_heads * hd:, :] = 0.0
+    return p
+
+
+def _project_qkv(p: dict, x: Tensor, cfg: ArchConfig, positions: Tensor):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = layers.rotary_cos_sin(positions, hd, cfg.rope_theta)
+    q = layers.apply_rotary(q, cos, sin)
+    k = layers.apply_rotary(k, cos, sin)
+    return q, k, v
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor:
+    """Plain scaled-dot-product attention with GQA head grouping.
+
+    q: [B, S, H, hd]; k/v: [B, T, KV, hd]; mask: [S, T] or [B, S, T] bool.
+    Both contractions in f32 (a bf16 cache is widened, as the reference's
+    ``preferred_element_type=f32`` does), masked logits at f32's lowest value.
+    """
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    group = h // kv
+    f32 = torch.float32
+    qg = q.reshape(b, s, kv, group, hd).to(k.dtype).to(f32)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(f32)) * scale
+    mask_b = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+    logits = torch.where(mask_b, logits, torch.finfo(f32).min)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(f32), v.to(f32))
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _positions(b: int, s: int, device) -> Tensor:
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+def _attend_causal(q: Tensor, k: Tensor, v: Tensor, cfg: ArchConfig,
+                   window: int | None, attn_impl) -> Tensor:
+    scale = cfg.head_dim ** -0.5
+    if attn_impl is not None:
+        return attn_impl(q, k, v, None, scale)
+    s = q.shape[1]
+    win = window if window is not None else cfg.sliding_window
+    return _sdpa(q, k, v, layers.causal_mask(s, s, 0, win, device=q.device), scale)
+
+
+def attention(p: dict, x: Tensor, cfg: ArchConfig, *,
+              positions: Tensor | None = None,
+              window: int | None = None,
+              attn_impl=None) -> Tensor:
+    """Full-sequence causal attention (train / prefill).
+
+    ``attn_impl``: optional drop-in kernel with the ``_sdpa`` signature (the
+    flash kernel's adapter; it is handed ``None`` as the mask) — defaults to
+    the plain ``_sdpa``.
+    """
+    b, s, _ = x.shape
+    if positions is None:
+        positions = _positions(b, s, x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = _attend_causal(q, k, v, cfg, window, attn_impl)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def attention_prefill(p: dict, x: Tensor, cfg: ArchConfig, *,
+                      window: int | None = None,
+                      attn_impl=None) -> tuple[Tensor, Tensor, Tensor]:
+    """Like ``attention()`` but also returns the rotary-applied (k, v) for
+    cache construction. k/v: [B, S, KV, hd]."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, _positions(b, s, x.device))
+    out = _attend_causal(q, k, v, cfg, window, attn_impl)
+    return out.reshape(b, s, -1) @ p["wo"], k, v
+
+
+class KVCache(NamedTuple):
+    k: Tensor        # [B, T_max, KV, hd]
+    v: Tensor        # [B, T_max, KV, hd]
+    length: Tensor   # int32, 0-d — tokens already in the cache
+
+
+def init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype=torch.bfloat16,
+               device=None) -> KVCache:
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return KVCache(
+        k=torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def decode_attention(p: dict, x: Tensor, cache: KVCache, cfg: ArchConfig, *,
+                     window: int | None = None) -> tuple[Tensor, KVCache]:
+    """One-token decode: x [B, 1, d]; returns (out [B, 1, d], updated cache).
+
+    The cache is a ring buffer when ``window`` is set and ``T_max <= window``
+    (sliding-window decode): slot = length mod T_max. Otherwise the slot is
+    ``min(length, T_max - 1)``. The new k/v are written into ``cache`` in
+    place.
+    """
+    b = x.shape[0]
+    t_max = cache.k.shape[1]
+    pos = cache.length.reshape(1, 1).expand(b, 1)   # [B, 1] absolute position
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos)
+
+    win = window if window is not None else cfg.sliding_window
+    ring = win is not None and t_max <= win
+    if ring:
+        slot = torch.remainder(cache.length, t_max)
+    else:
+        slot = torch.clamp(cache.length, max=t_max - 1)
+    index = slot.reshape(1).long()
+    cache.k.index_copy_(1, index, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, index, v_new.to(cache.v.dtype))
+
+    # valid = slots actually written (and inside the window)
+    idx = torch.arange(t_max, device=x.device)
+    if ring:
+        valid = idx < torch.clamp(cache.length + 1, max=t_max)
+    else:
+        valid = idx <= slot
+        if win is not None:
+            valid = valid & (idx > slot - win)
+    mask = valid[None, :]   # [1 (q), T]
+
+    out = _sdpa(q, cache.k, cache.v, mask, cfg.head_dim ** -0.5)
+    out = out.reshape(b, 1, -1) @ p["wo"]
+    return out, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)

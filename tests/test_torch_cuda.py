@@ -5,7 +5,8 @@ machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the card, f32 atol
-1e-5 / bf16 atol 5e-2 (the reference's kernel-test tolerances).
+1e-5 / bf16 atol 5e-2 (the reference's kernel-test tolerances; flash
+attention 2e-5 / 3e-2, its own).
 """
 import numpy as np
 import pytest
@@ -14,6 +15,8 @@ import torch
 from repro_torch.core import aggregation, contacts
 from repro_torch.data.synthetic import synthetic_mnist
 from repro_torch.fed.simulator import SimulationConfig, run_simulation
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kl_simplex
 from repro_torch.kernels.gossip_mix import (gossip_mix_gather_ref,
                                             gossip_mix_matmul_ref, kernel,
@@ -239,3 +242,96 @@ def test_sp_run_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(on_card.comm_mb, on_cpu.comm_mb, atol=1e-5)
     np.testing.assert_allclose(np.stack(on_card.entropy), np.stack(on_cpu.entropy), atol=1e-5)
     assert np.isfinite(on_card.avg_accuracy).all()
+
+
+# ------------------------------------------------------- flash attention ----
+
+FA_SWEEP = [(2, 64, 4, 4, 32, True, None, torch.float32),
+            (1, 100, 8, 2, 64, True, None, torch.float32),
+            (2, 33, 4, 1, 16, True, None, torch.float32),
+            (1, 128, 4, 4, 64, True, 32, torch.float32),
+            (1, 96, 2, 2, 128, False, None, torch.float32),
+            (2, 64, 4, 4, 64, True, None, torch.bfloat16),
+            (1, 257, 2, 1, 64, True, 100, torch.float32)]
+FA_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _qkv(b, s, h, kv, hd, dtype, seed, card, t=None):
+    r = np.random.default_rng(seed)
+    t = s if t is None else t
+    return tuple(torch.as_tensor(r.normal(size=sh).astype(np.float32)).to(dtype).to(card)
+                 for sh in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,win,dtype", FA_SWEEP)
+def test_flash_attention_kernel_matches_plain_version(card, b, s, h, kv, hd, causal, win,
+                                                       dtype):
+    q, k, v = _qkv(b, s, h, kv, hd, dtype, s * h, card)
+    before = fa.kernel.launch_counts["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fa.kernel.launch_counts["flash_attention"] == before + 1
+    assert got.shape == (b, s, h, hd) and got.dtype == dtype
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=win)
+    assert _err(got, want) <= FA_ATOL[dtype]
+    assert _err(fa.attend(q, k, v, causal=causal, window=win), want) <= FA_ATOL[dtype]
+
+
+def test_flash_attention_at_a_serving_shape_and_other_lengths(card):
+    for b, s, t, causal, win, hd in ((1, 2048, 2048, True, None, 128),
+                                     (1, 2048, 2048, True, 512, 128),
+                                     (2, 72, 40, False, 40, 64), (2, 40, 72, False, None, 32)):
+        q, k, v = _qkv(b, s, 16 if hd == 128 else 4, 8 if hd == 128 else 2, hd,
+                       torch.float32, s + t, card, t=t)
+        got = fa.flash_attention(q, k, v, causal=causal, window=win, scale=0.3)
+        want = fa.flash_attention_ref(q, k, v, causal=causal, window=win, scale=0.3)
+        assert _err(got, want) <= 2e-5
+    # bf16 at the serving shape: within one bf16 rounding step (2**-7 < 1e-2) of
+    # each value above the f32 tolerance, far inside the sweep's 3e-2
+    q, k, v = _qkv(1, 2048, 16, 8, 128, torch.bfloat16, 9, card)
+    got = fa.flash_attention(q, k, v).float()
+    want = fa.flash_attention_ref(q, k, v).float()
+    assert bool(((got - want).abs() <= 2e-5 + 1e-2 * want.abs()).all())
+
+
+def test_flash_attention_gives_zero_on_a_row_with_no_key(card):
+    q, k, v = _qkv(1, 100, 2, 1, 64, torch.float32, 3, card, t=10)
+    got = fa.flash_attention(q, k, v, causal=False, window=5)
+    want = fa.flash_attention_ref(q, k, v, causal=False, window=5)
+    torch.cuda.synchronize()
+    assert bool((got[:, 14:] == 0).all()) and bool(torch.isnan(want[:, 14:]).all())
+    assert _err(got[:, :14], want[:, :14]) <= 2e-5
+
+
+def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    q, k, v = _qkv(1, 16, 4, 2, 32, torch.float32, 0, card)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(*_qkv(1, 16, 3, 2, 32, torch.float32, 0, card))
+    with pytest.raises(ValueError):
+        fa.flash_attention(*_qkv(1, 16, 2, 2, 256, torch.float32, 0, card))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+
+
+def test_reduced_prefill_through_the_kernel_matches_the_plain_path(card):
+    from repro_torch.models import transformer
+    cfg = get_config("qwen3-1.7b").reduced()
+    params = transformer.init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=card,
+                           generator=torch.Generator(device=card).manual_seed(1))
+    fa.kernel.reset_launch_counts()
+    got, state = transformer.prefill(params, tokens, cfg, attn_impl=fa.make_attn_impl(),
+                                     cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa.kernel.launch_counts["flash_attention"] == cfg.num_layers
+    want, plain_state = transformer.prefill(params, tokens, cfg, cache_dtype=torch.float32)
+    assert _err(got, want) <= 1e-4
+    assert _err(state.kv.k, plain_state.kv.k) <= 1e-4

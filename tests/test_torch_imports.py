@@ -25,7 +25,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.kl_simplex.ref", "repro_torch.core.baselines",
             "repro_torch.fed.metrics", "repro_torch.fed.algorithms.sp",
             "repro_torch.fed.algorithms.dfl", "repro_torch.fed.algorithms.d_sgd",
-            "repro_torch.fed.algorithms.d_fedavg", "repro_torch.precision"} <= set(names)
+            "repro_torch.fed.algorithms.d_fedavg", "repro_torch.precision",
+            "repro_torch.kernels.flash_attention.kernel", "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.configs.registry", "repro_torch.configs.qwen3_1_7b",
+            "repro_torch.launch.serve"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -77,6 +82,20 @@ def test_device_cuda_without_a_card_raises():
         engine.resolve_device(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         simulator.run_simulation(cfg)
+
+
+def test_serve_cli_with_device_cuda_without_a_card_raises():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-1.7b", "--reduced"])          # --device defaults to cuda
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-1.7b",
+                          "--reduced", "--device", "cuda"], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert run.returncode != 0 and "no CUDA device" in run.stderr
+    assert "generated ids" not in run.stdout
 
 
 @pytest.mark.parametrize("field,value", [
