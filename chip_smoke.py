@@ -31,8 +31,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                step; wall time and launch count of both solves.
 6. baselines — ``run_simulation`` of ``dfl``, ``d_sgd``, ``d_fedavg`` and ``sp`` at the
                same full width, 2 epochs, both contact formats, through the
-               gossip-mix kernels (8 launches per epoch: each round mixes the
-               model's 8 leaves once); seconds per epoch of each.
+               gossip-mix kernels (per epoch one round mixes the model's 8
+               leaves once: 8 gather launches, or 1 grouped matmul launch);
+               seconds per epoch of each.
 7. diagnostics — ``kl_rows`` / ``entropy_rows`` through their kernels on every
                algorithm's final state matrix, held to that run's last
                ``kl_divergence`` / ``entropy`` diagnostics; then small federations
@@ -52,7 +53,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 Every path is driven with the launch counters set to 0 just before it and
 read just after. Times are CUDA-event times on the card the script ran on;
 the bound of a kernel is the larger of its bytes over 3.35 TB/s and its
-operations over 67 TFLOP/s for f32 (989 TFLOP/s for bf16 inputs: the tensor
+operations over 67 TFLOP/s for f32 (flash attention's f32: three TF32 products
+per product over 495 TFLOP/s; 989 TFLOP/s for bf16 inputs: the tensor
 cores' rate) — published peaks of one H100 SXM at its full power limit.
 """
 from __future__ import annotations
@@ -91,6 +93,7 @@ from repro_torch.profiling import PhaseTimer  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores, published
 BF16_FLOP_PER_S = 989e12      # H100 SXM, bf16 on the tensor cores, dense, published
+TF32_FLOP_PER_S = 495e12      # H100 SXM, TF32 on the tensor cores, dense, published
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 EPOCHS = 4                    # depth of the main-path runs: two evals at eval_every=2
 BASELINE_EPOCHS = 2           # depth of each baseline run, evaluated every epoch
@@ -241,6 +244,21 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
               f"gossip_mix_gather K_out={k_out} K_in={k_in} D={d} P={p} {dtype} "
               f"max err {err:.2e}")
         worst["gossip_mix_gather"] = max(worst["gossip_mix_gather"], err)
+    # the grouped launch over the model's leaves (one launch per mix), and
+    # over widths of one column, not a multiple of 4, and K_in past one chunk
+    for k_out, k_in, widths, dtype in ((k, k, LEAF_WIDTHS, f32), (k, k, LEAF_WIDTHS, bf16),
+                                       (33, 300, [1, 7, 250, 4097], f32),
+                                       (8, 13, [1, 7, 250, 4097], bf16)):
+        w, _ = _dense_case(k_out, k_in, 1, f32, k_out + k_in, device)
+        flats = [_dense_case(k_out, k_in, p, dtype, p, device)[1] for p in widths]
+        before = kernel.launch_counts["gossip_mix_matmul"]
+        outs = kernel.gossip_mix_matmul_grouped(w, flats)
+        torch.cuda.synchronize()
+        err = max(_max_err(o, ref.gossip_mix_matmul_ref(w, x)) for o, x in zip(outs, flats))
+        check(kernel.launch_counts["gossip_mix_matmul"] == before + 1 and err <= ATOL[dtype],
+              f"gossip_mix_matmul grouped: one launch over {len(widths)} leaves {widths}, "
+              f"W [{k_out},{k_in}], {dtype}, max err {err:.2e}")
+        worst["gossip_mix_matmul"] = max(worst["gossip_mix_matmul"], err)
     # an unaligned view start forces the element-wise instantiation
     idx, w, x = _sparse_case(9, 9, 4, 64, f32, 1, device)
     base = torch.zeros(9 * 64 + 1, device=device)
@@ -254,14 +272,15 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
                 lambda: kernel.gossip_mix_matmul(torch.eye(9, device=device), x.double()),
                 lambda: kernel.gossip_mix_gather(idx.long(), w, x),
                 lambda: kernel.gossip_mix_gather(idx, w, x.t()),
-                lambda: kernel.gossip_mix_matmul(torch.eye(300, device=device),
-                                                 torch.ones(300, 8, device=device))):
+                lambda: kernel.gossip_mix_matmul(w.cpu(), x),                 # devices
+                lambda: kernel.gossip_mix_matmul_grouped(                      # one dtype
+                    torch.eye(9, device=device), [x, x.to(bf16)])):
         try:
             bad()
         except (ValueError, TypeError):
             continue
         raise SystemExit("FAILED: a wrapper accepted an input its kernel does not take")
-    log("  ok: wrappers raise on wrong shape / dtype / layout / oversize W")
+    log("  ok: wrappers raise on wrong shape / dtype / layout / device / mixed dtypes")
     return worst
 
 
@@ -286,9 +305,10 @@ def _timed(fn, plain, library, nbytes: int, flops: int, work: str,
 
 
 def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
-    """Times at the main path's shapes: one round's mix is one launch per
-    leaf of the model (8 launches). Also one launch over the whole flattened
-    model, for scale. Returns the timing keys of the kernels line."""
+    """Times at the main path's shapes: one round's mix is one gather launch
+    per leaf of the model (8 launches), or one grouped matmul launch over all
+    8 leaves. Also one launch over the whole flattened model, for scale.
+    Returns the timing keys of the kernels line."""
     k = mixing_dense.shape[0]
     r = np.random.default_rng(0)
     leaves = [torch.as_tensor(r.normal(size=(k, p)).astype(np.float32)).to(device)
@@ -302,36 +322,40 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
     esize = 4
     out = {}
 
-    def per_round(fn):
+    def per_leaf(fn):
         return lambda: [fn(x) for x in leaves]
 
     # bytes: every input read once, every output written once, per launch
     model_bytes = sum(2 * k * p * esize for p in LEAF_WIDTHS)
     gather_bytes = model_bytes + len(leaves) * k * d * 8
     gather_flops = 2 * nnz * sum(LEAF_WIDTHS)        # real slots only
-    matmul_bytes = model_bytes + len(leaves) * k * k * 4
+    matmul_bytes = model_bytes + k * k * 4
     matmul_flops = 2 * k * k * sum(LEAF_WIDTHS)
     specs = {
         "gossip_mix_gather": dict(
-            fn=lambda x: kernel.gossip_mix_gather(idx, w, x),
+            round=per_leaf(lambda x: kernel.gossip_mix_gather(idx, w, x)),
+            one=lambda x: kernel.gossip_mix_gather(idx, w, x),
             plain=lambda x: ref.gossip_mix_gather_ref(idx, w, x),
             library=lambda x: torch.sparse.mm(csr, x),
-            bytes=gather_bytes, flops=gather_flops),
+            bytes=gather_bytes, flops=gather_flops,
+            work=f"one round's mix: {len(leaves)} launches, K={k}, leaf widths {LEAF_WIDTHS}, "
+                 f"D={d}, {nnz} real slots"),
         "gossip_mix_matmul": dict(
-            fn=lambda x: kernel.gossip_mix_matmul(mixing_dense, x),
+            round=lambda: kernel.gossip_mix_matmul_grouped(mixing_dense, leaves),
+            one=lambda x: kernel.gossip_mix_matmul(mixing_dense, x),
             plain=lambda x: ref.gossip_mix_matmul_ref(mixing_dense, x),
             library=lambda x: torch.matmul(mixing_dense, x),
-            bytes=matmul_bytes, flops=matmul_flops),
+            bytes=matmul_bytes, flops=matmul_flops,
+            work=f"one round's mix: 1 grouped launch over {len(leaves)} leaves, K={k}, "
+                 f"leaf widths {LEAF_WIDTHS}; library_ms: {len(leaves)} torch.matmul calls, "
+                 "whole_model_library_ms: one over the concatenated model"),
     }
     for name, s in specs.items():
-        out[name] = _timed(
-            per_round(s["fn"]), per_round(s["plain"]), per_round(s["library"]),
-            s["bytes"], s["flops"],
-            f"one round's mix: {len(leaves)} launches, K={k}, leaf widths {LEAF_WIDTHS}"
-            + (f", D={d}, {nnz} real slots" if name.endswith("gather") else ""))
+        out[name] = _timed(s["round"], per_leaf(s["plain"]), per_leaf(s["library"]),
+                           s["bytes"], s["flops"], s["work"])
         t_flops = s["flops"] / F32_FLOP_PER_S * 1e3
         out[name].update({
-            "whole_model_ms": time_ms(lambda: s["fn"](whole)),
+            "whole_model_ms": time_ms(lambda: s["one"](whole)),
             "whole_model_plain_ms": time_ms(lambda: s["plain"](whole)),
             "whole_model_library_ms": time_ms(lambda: s["library"](whole)),
             "whole_model_bound_ms": max(
@@ -515,7 +539,8 @@ def check_flash_attention(device) -> dict[str, float]:
     """The flash-attention kernel against its plain version on the card: the
     reference's sweep, the reference's block-shape case (1, 70, 2, 32), S != T,
     inputs read through strides, the serving shapes (causal f32, causal bf16,
-    window 512), the empty-row rule and the wrapper's refusals. At the serving
+    window 512), f32 at scale 0.3 on the GPU test's inputs, the GQA groups,
+    the empty-row rule and the wrapper's refusals. At the serving
     shape bf16 is also held to one bf16 rounding step of each value (rtol
     1e-2 > 2**-7), far inside the sweep's 3e-2. Returns the largest absolute
     error per input dtype."""
@@ -550,6 +575,19 @@ def check_flash_attention(device) -> dict[str, float]:
                                     f"causal window={win}", True, win,
                          rtol=1e-2 if dtype == bf16 else None))
         del q, k, v
+    # the hardest f32 case for 3xTF32 (scale 0.3: sharp rows, P V dominated by
+    # a few keys), on the GPU test's inputs: its error is printed, as the
+    # margin under 2e-5 of the design's accumulation chains
+    for win in (None, 512):
+        q, k, v = _qkv(1, 2048, 16, 8, 128, f32, 4096, device)
+        seen(q, _fa_case(q, k, v, f"[1,2048,16/8,128] causal window={win} scale=0.3 f32",
+                         True, win, scale=0.3))
+        del q, k, v
+    # G = 1, 2, 4 (one or two q-heads per block, a group split over blocks), 3 (odd)
+    for h, kv in ((4, 4), (4, 2), (8, 2), (6, 2)):
+        for dtype in (f32, bf16):
+            q, k, v = _qkv(2, 150, h, kv, 64, dtype, h * 10 + kv, device)
+            seen(q, _fa_case(q, k, v, f"[2,150,{h}/{kv},64] G={h // kv} {dtype}"))
     # a query row with no kept key gives 0 (the plain version gives NaN there)
     q, k, v = _qkv(1, 100, 2, 1, 64, f32, 3, device, t=10)
     got = fa.flash_attention(q, k, v, causal=False, window=5)
@@ -569,14 +607,18 @@ def check_flash_attention(device) -> dict[str, float]:
                 lambda: fa.flash_attention(*_qkv(1, 16, 2, 2, 256, f32, 0, device)),  # hd > 128
                 lambda: fa.flash_attention(*_qkv(1, 16, 2, 2, 48, f32, 0, device)),
                 lambda: fa.flash_attention(q.transpose(2, 3), k.transpose(2, 3),  # last stride
-                                           v.transpose(2, 3))):
+                                           v.transpose(2, 3)),
+                lambda: fa.flash_attention(                                  # rows 4 bytes off
+                    torch.zeros(1, 16, 4, 33, device=device)[..., 1:], k, v),
+                lambda: fa.flash_attention(                                  # rows 136 bytes apart
+                    q, torch.zeros(1, 16, 2, 34, device=device)[..., :32], v)):
         try:
             bad()
         except (ValueError, TypeError):
             continue
         raise SystemExit("FAILED: flash_attention accepted an input its kernel does not take")
     log("  ok: flash_attention raises on CPU / mixed devices / dtype / H % KV / head_dim / "
-        "last stride")
+        "last stride / rows off 16-byte boundaries")
     return {"max_abs_err": max(worst.values()), "max_abs_err_f32": worst[f32],
             "max_abs_err_bf16": worst[bf16]}
 
@@ -598,7 +640,11 @@ def time_flash_attention(device) -> dict:
     causal): f32 (the row), bf16 and window 512 (nested), each beside its
     plain version, ``scaled_dot_product_attention`` (``enable_gqa=True``; a
     boolean mask for the window) and its bound: 4 * hd operations per kept
-    (query, key) pair per head, q/k/v read once and o written once."""
+    (query, key) pair per head, q/k/v read once and o written once. The
+    operations' rate is that of the design that runs: bf16 on the bf16 tensor
+    cores; f32 as 3xTF32, three TF32 products per product on the TF32 tensor
+    cores (``bound_ms``), beside the CUDA-core f32 bound of the first design
+    (``cuda_core_bound_ms``, a record)."""
     b, s, h, kv, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
     out = {}
     for label, dtype, win in (("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
@@ -615,12 +661,19 @@ def time_flash_attention(device) -> dict:
 
         sdpa_err = _max_err(library().transpose(1, 2),
                             fa.flash_attention_ref(q, k, v, window=win))
+        nbytes = 2 * esize * (b * s * h * hd + b * s * kv * hd)
+        f32 = dtype == torch.float32
         row = _timed(lambda: fa.flash_attention(q, k, v, window=win),
                      lambda: fa.flash_attention_ref(q, k, v, window=win), library,
-                     2 * esize * (b * s * h * hd + b * s * kv * hd), flops,
+                     nbytes, 3 * flops if f32 else flops,
                      f"one launch (one layer's prefill attention): B={b}, S=T={s}, H={h}, "
                      f"KV={kv}, hd={hd}, causal, window={win}, {dtype}",
-                     flop_rate=BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S)
+                     flop_rate=TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+        row["bound_design"] = ("3xTF32: 3 TF32 products per product at 495 TFLOP/s" if f32
+                               else "bf16 tensor cores at 989 TFLOP/s")
+        if f32:
+            row["cuda_core_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                            flops / F32_FLOP_PER_S) * 1e3
         row["library_max_abs_err"] = sdpa_err
         row["tflop_per_s"] = flops / row["ms"] / 1e9
         if label == "f32":
@@ -779,11 +832,13 @@ def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
     if cfg.device != "cpu":
         used = "gossip_mix_gather" if cfg.contact_format == "sparse" else "gossip_mix_matmul"
         other = next(n for n in launches if n != used)
-        want = cfg.epochs * leaves_per_mix
+        # sparse: one gather launch per leaf; dense: one grouped launch per mix
+        per_mix = leaves_per_mix if cfg.contact_format == "sparse" else 1
+        want = cfg.epochs * per_mix
         check(launches[used] == want and launches[other] == 0,
               f"{cfg.algorithm} {cfg.contact_format}: {used} launched {launches[used]} "
-              f"times = {cfg.epochs} mixes x {leaves_per_mix} leaves; {other} "
-              f"{launches[other]} times")
+              f"times = {cfg.epochs} mixes x {per_mix} launches of {leaves_per_mix} leaves; "
+              f"{other} {launches[other]} times")
     return result, ctx, launches, report
 
 
@@ -1000,8 +1055,16 @@ def main() -> int:
             f"in {time.perf_counter() - t0:.1f} s")
         for source in sources:
             for line in build_lib.build_log(source).splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "entry function" in line:
                     log(f"  {source.name}: {line.strip()}")
+        # dynamic shared memory per block of the two kernels redesigned for Hopper
+        for dtype in (torch.float32, torch.bfloat16):
+            log(f"  gossip_mix_matmul.cu: {dtype} K=100: shared memory "
+                f"{kernel.matmul_smem_bytes(100, 100, dtype)} B per block of 256 threads")
+            for hd in fa.kernel.HEAD_DIMS:
+                for group in (1, 2):
+                    log(f"  flash_attention.cu: {dtype} hd={hd} G={group}: "
+                        f"{json.dumps(fa.kernel.block_resources(hd, dtype, group))}")
 
     # the configuration of the main path
     full = SimulationConfig(

@@ -1,6 +1,7 @@
 """Flash attention written by hand for Hopper (sm_90a): forward-only blocked
-online-softmax attention with GQA, causal and sliding-window masking
-(``csrc/flash_attention.cu``, design note there).
+online-softmax attention with GQA, causal and sliding-window masking, on the
+tensor cores (bf16 ``mma.sync``; f32 by 3xTF32) (``csrc/flash_attention.cu``,
+design note there).
 
 Counterpart of the Pallas kernel of ``repro.kernels.flash_attention.kernel``.
 Compiled by ``nvcc`` at first use (``kernels.build``) and bound through
@@ -8,7 +9,10 @@ Compiled by ``nvcc`` at first use (``kernels.build``) and bound through
 
 ``flash_attention`` takes CUDA tensors only and raises on anything the kernel
 does not take (``ops.attend`` routes CPU tensors to the plain version in
-``ref``). It reads q/k/v in place through their strides, allocates the output
+``ref``). It reads q/k/v in place through their strides with 16-byte copies,
+so every row of q, k and v must start on a 16-byte boundary (the data
+pointer and every stride but the last, in bytes, multiples of 16); a view
+that breaks this raises and is never copied in silence. It allocates the output
 with ``torch.empty``, launches on PyTorch's current stream, does not
 synchronise, raises if the launch was refused, and adds one to
 ``launch_counts["flash_attention"]`` per launch.
@@ -52,9 +56,24 @@ def build() -> None:
         [ptr] * 4 + [i32] * 5 + [i64] * 9
         + [ctypes.c_float, i32, i32, i32, i32, i32, ptr])
     lib.flash_attention_launch.restype = i32
+    lib.flash_attention_smem_bytes.argtypes = [i32, i32, i32]
+    lib.flash_attention_smem_bytes.restype = i64
+    lib.flash_attention_heads_per_block.argtypes = [i32]
+    lib.flash_attention_heads_per_block.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     _LIBS["flash_attention"] = lib
+
+
+def block_resources(hd: int, dtype: torch.dtype, group: int) -> dict:
+    """What one block of the kernel takes for this head_dim, dtype and GQA
+    group: q-heads per block, threads, shared memory in bytes (builds the
+    kernel on first use)."""
+    build()
+    lib = _LIBS["flash_attention"]
+    heads = lib.flash_attention_heads_per_block(group)
+    return {"heads_per_block": heads, "threads": 128 * heads,
+            "smem_bytes": lib.flash_attention_smem_bytes(hd, _DTYPE_CODE[dtype], group)}
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -75,6 +94,12 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {what} must have a unit last stride, got "
                              f"stride {t.stride()}")
+        esize = t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(d) * esize % 16 for d in range(3)
+                                    if t.shape[d] > 1):
+            raise ValueError(f"{name}: the rows of {what} must start on 16-byte "
+                             f"boundaries (data pointer {t.data_ptr() % 16} bytes past "
+                             f"one, strides {t.stride()} of {esize}-byte elements)")
     b, _, h, hd = q.shape
     if k.shape != v.shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
@@ -86,18 +111,19 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
         raise ValueError(f"{name}: {h} q-heads are not a multiple of {kv} kv-heads")
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {hd} is not one of {HEAD_DIMS}")
-    if b * h >= 2 ** 16:
-        raise ValueError(f"{name}: batch x heads = {b * h} exceeds the grid's 65,535")
-    if max(q.shape[1], k.shape[1]) >= 2 ** 31 - 128:
-        raise ValueError(f"{name}: sequence lengths {q.shape[1]}, {k.shape[1]} do not "
-                         "fit int32")
+    if b * h >= 2 ** 31:
+        raise ValueError(f"{name}: batch x heads = {b * h} exceeds the grid")
+    if -(-q.shape[1] // 64) > 65_535 or k.shape[1] >= 2 ** 31 - 128:
+        raise ValueError(f"{name}: sequence lengths {q.shape[1]}, {k.shape[1]} exceed "
+                         "the grid (S <= 4,194,240) or int32")
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None) -> Tensor:
     """q: [B, S, H, hd]; k/v: [B, T, KV, hd] with H % KV == 0, hd in
     ``HEAD_DIMS``, all f32 or all bf16 on one CUDA device, any strides with
-    a unit last stride. Returns [B, S, H, hd] in q.dtype (contiguous).
+    a unit last stride and rows on 16-byte boundaries. Returns [B, S, H, hd]
+    in q.dtype (contiguous).
     Causal alignment assumes q and kv start at the same absolute position
     (train / prefill)."""
     _check(q, k, v)

@@ -3,9 +3,10 @@
 * ``gossip_mix_gather(idx, w, flat)`` — ``out[k, p] = sum_d w[k, d] *
   flat[idx[k, d], p]`` (``csrc/gossip_mix_gather.cu``), the mix under the
   sparse contact format;
-* ``gossip_mix_matmul(mixing, flat)`` — ``out = mixing @ flat`` with the
-  product computed in the kernel at full f32 precision
-  (``csrc/gossip_mix_matmul.cu``), the mix under the dense format.
+* ``gossip_mix_matmul_grouped(mixing, flats)`` — ``out_l = mixing @ flat_l``
+  for a list of leaves in one launch, the product computed in the kernel at
+  full f32 precision (``csrc/gossip_mix_matmul.cu``), the mix under the dense
+  format; ``gossip_mix_matmul(mixing, flat)`` is the group of one leaf.
 
 Counterparts of the Pallas kernels of ``repro.kernels.gossip_mix.kernel``.
 The sources carry their design notes. They are compiled by ``nvcc`` at first
@@ -38,8 +39,6 @@ SOURCES = {
     "gossip_mix_matmul": CSRC / "gossip_mix_matmul.cu",
 }
 
-# shared memory one block may use on an H100 (dynamic, after opting in)
-MAX_SMEM_BYTES = 232_448
 _GATHER_ROWS = 4          # kRows in gossip_mix_gather.cu
 _MAX_GRID_Y = 65_535
 
@@ -68,10 +67,11 @@ def build() -> None:
     gather.gossip_mix_gather_launch.restype = i32
     gather.gossip_mix_gather_error_string.argtypes = [i32]
     gather.gossip_mix_gather_error_string.restype = ctypes.c_char_p
-    matmul.gossip_mix_matmul_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32,
-                                                i32, ptr]
-    matmul.gossip_mix_matmul_launch.restype = i32
-    matmul.gossip_mix_matmul_smem_bytes.argtypes = [i32, i32]
+    matmul.gossip_mix_matmul_grouped_launch.argtypes = [
+        ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr),
+        ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, ptr]
+    matmul.gossip_mix_matmul_grouped_launch.restype = i32
+    matmul.gossip_mix_matmul_smem_bytes.argtypes = [i32, i32, i32]
     matmul.gossip_mix_matmul_smem_bytes.restype = ctypes.c_longlong
     matmul.gossip_mix_matmul_error_string.argtypes = [i32]
     matmul.gossip_mix_matmul_error_string.restype = ctypes.c_char_p
@@ -151,39 +151,80 @@ def gossip_mix_gather(idx: Tensor, w: Tensor, flat: Tensor) -> Tensor:
     return out
 
 
-def gossip_mix_matmul(mixing: Tensor, flat: Tensor) -> Tensor:
-    """Dense gossip mix: ``out[k, p] = sum_j mixing[k, j] * flat[j, p]``.
+def matmul_smem_bytes(k_out: int, k_in: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the grouped matmul kernel takes for a
+    ``[K_out, K_in]`` W and leaves in ``dtype`` (builds the kernels on first
+    use)."""
+    build()
+    return _LIBS["gossip_mix_matmul"].gossip_mix_matmul_smem_bytes(
+        k_out, k_in, _DTYPE_CODE[dtype])
 
-    mixing ``[K_out, K_in]`` float32 (rectangular allowed), flat ``[K_in, P]``
-    float32 or bfloat16. Full-f32 accumulation (no TF32); returns
-    ``[K_out, P]`` in ``flat.dtype``. ``mixing`` is staged whole in a block's
-    shared memory: a matrix too large for it raises.
+
+def matmul_max_leaves() -> int:
+    """Leaves one launch of the grouped matmul kernel takes (the size of the
+    table in its parameters; builds the kernels on first use)."""
+    build()
+    return _LIBS["gossip_mix_matmul"].gossip_mix_matmul_max_leaves()
+
+
+def leaf_groups(widths: list[int], max_leaves: int) -> list[list[int]]:
+    """The launches of a grouped mix: the positions in ``widths`` of the leaves
+    with at least one column, in groups of at most ``max_leaves``."""
+    live = [i for i, p in enumerate(widths) if p > 0]
+    return [live[i:i + max_leaves] for i in range(0, len(live), max_leaves)]
+
+
+def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor]) -> list[Tensor]:
+    """Dense gossip mix of a group of leaves:
+    ``out_l[k, p] = sum_j mixing[k, j] * flats[l][j, p]`` for every l.
+
+    mixing ``[K_out, K_in]`` float32 (rectangular allowed, any size), each of
+    ``flats`` a contiguous ``[K_in, P_l]`` tensor, all float32 or all
+    bfloat16 on ``mixing``'s device. Full-f32 accumulation (no TF32); returns
+    ``[K_out, P_l]`` tensors in the leaves' dtype. One launch per
+    ``matmul_max_leaves()`` leaves that have a column (``leaf_groups``).
     """
     name = "gossip_mix_matmul"
-    _check_flat(flat, name)
-    _check_operand(mixing, torch.float32, "mixing", flat, name)
+    if not flats:
+        return []
+    for flat in flats:
+        _check_flat(flat, name)
+        _check_operand(mixing, torch.float32, "mixing", flat, name)
+        if flat.dtype != flats[0].dtype:
+            raise TypeError(f"{name}: one dtype per group, got {flats[0].dtype} "
+                            f"and {flat.dtype}")
     k_out, k_in = mixing.shape
-    if flat.shape[0] != k_in:
-        raise ValueError(f"{name}: mixing {tuple(mixing.shape)} does not "
-                         f"match flat {tuple(flat.shape)}")
-    p = flat.shape[1]
+    for flat in flats:
+        if flat.shape[0] != k_in:
+            raise ValueError(f"{name}: mixing {tuple(mixing.shape)} does not "
+                             f"match flat {tuple(flat.shape)}")
     if k_in == 0 and k_out > 0:
         raise ValueError(f"{name}: K_in = 0")
-    out = torch.empty((k_out, p), dtype=flat.dtype, device=flat.device)
-    if k_out == 0 or p == 0:
-        return out
-    build()
+    outs = [torch.empty((k_out, f.shape[1]), dtype=f.dtype, device=f.device)
+            for f in flats]
+    if k_out == 0:
+        return outs
+    groups = leaf_groups([f.shape[1] for f in flats], matmul_max_leaves())
     lib = _LIBS[name]
-    smem = lib.gossip_mix_matmul_smem_bytes(k_out, k_in)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"{name}: a [{k_out}, {k_in}] mixing matrix needs {smem} bytes of "
-            f"shared memory, a block has {MAX_SMEM_BYTES}")
-    with torch.cuda.device(flat.device):
+    with torch.cuda.device(mixing.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.gossip_mix_matmul_launch(
-            mixing.data_ptr(), flat.data_ptr(), out.data_ptr(),
-            k_out, k_in, p, _DTYPE_CODE[flat.dtype], stream)
-    _raise_on(code, name)
-    launch_counts[name] += 1
-    return out
+        for ids in groups:
+            n = len(ids)
+            code = lib.gossip_mix_matmul_grouped_launch(
+                mixing.data_ptr(),
+                (ctypes.c_void_p * n)(*(flats[i].data_ptr() for i in ids)),
+                (ctypes.c_void_p * n)(*(outs[i].data_ptr() for i in ids)),
+                (ctypes.c_longlong * n)(*(flats[i].shape[1] for i in ids)),
+                n, k_out, k_in, _DTYPE_CODE[flats[0].dtype], stream)
+            _raise_on(code, name)
+            launch_counts[name] += 1
+    return outs
+
+
+def gossip_mix_matmul(mixing: Tensor, flat: Tensor) -> Tensor:
+    """Dense gossip mix of one tensor: ``out[k, p] = sum_j mixing[k, j] *
+    flat[j, p]``, the counterpart of the Pallas function — a group of one
+    (``gossip_mix_matmul_grouped``). mixing ``[K_out, K_in]`` float32, flat
+    ``[K_in, P]`` float32 or bfloat16; returns ``[K_out, P]`` in
+    ``flat.dtype``."""
+    return gossip_mix_matmul_grouped(mixing, [flat])[0]

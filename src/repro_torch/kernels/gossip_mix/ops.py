@@ -3,8 +3,10 @@ through the hand-written CUDA kernels (``mixing_backend="cuda"``).
 
 Counterpart of ``repro.kernels.gossip_mix.ops.mix_params_pallas``. Both
 mixing representations route through here: a dense ``[K_out, K_in]`` matrix
-hits the tiled product kernel, a ``core.contacts.SparseMixing`` neighbour
-list hits the gather kernel.
+hits the grouped product kernel, one launch for all the leaves of one dtype
+(one launch per mix for a model of one dtype); a
+``core.contacts.SparseMixing`` neighbour list hits the gather kernel, one
+launch per leaf.
 
 A leaf that lies on the CPU goes to the plain versions in ``ref`` — for that
 reason only. A CUDA leaf launches the kernel or raises; nothing falls back.
@@ -26,26 +28,23 @@ def mix_params_cuda(mixing, params: dict) -> dict:
     ``(K_out,) + leaf.shape[1:]``. ``mixing`` may be rectangular
     ``[K_out, K_in]`` or a ``SparseMixing`` whose ids address the leaf rows.
     """
+    flats = {name: x.reshape(x.shape[0], -1).contiguous() for name, x in params.items()}
     if isinstance(mixing, SparseMixing):
         idx = mixing.idx.to(torch.int32).contiguous()
         w = mixing.w.to(torch.float32).contiguous()
         k_out = idx.shape[0]
-
-        def run(flat: Tensor) -> Tensor:
-            if flat.is_cuda:
-                return kernel.gossip_mix_gather(idx, w, flat)
-            return ref.gossip_mix_gather_ref(idx, w, flat)
+        mixed = {name: kernel.gossip_mix_gather(idx, w, flat) if flat.is_cuda
+                 else ref.gossip_mix_gather_ref(idx, w, flat)
+                 for name, flat in flats.items()}
     else:
         dense = mixing.to(torch.float32).contiguous()
         k_out = dense.shape[0]
-
-        def run(flat: Tensor) -> Tensor:
-            if flat.is_cuda:
-                return kernel.gossip_mix_matmul(dense, flat)
-            return ref.gossip_mix_matmul_ref(dense, flat)
-
-    def mix_leaf(x: Tensor) -> Tensor:
-        flat = x.reshape(x.shape[0], -1).contiguous()
-        return run(flat).reshape((k_out,) + tuple(x.shape[1:]))
-
-    return {name: mix_leaf(x) for name, x in params.items()}
+        mixed = {name: ref.gossip_mix_matmul_ref(dense, flat)
+                 for name, flat in flats.items() if not flat.is_cuda}
+        on_card = [name for name, flat in flats.items() if flat.is_cuda]
+        for dtype in dict.fromkeys(flats[name].dtype for name in on_card):
+            group = [name for name in on_card if flats[name].dtype == dtype]
+            outs = kernel.gossip_mix_matmul_grouped(dense, [flats[n] for n in group])
+            mixed.update(zip(group, outs))
+    return {name: mixed[name].reshape((k_out,) + tuple(x.shape[1:]))
+            for name, x in params.items()}

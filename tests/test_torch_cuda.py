@@ -19,6 +19,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kl_simplex
 from repro_torch.kernels.gossip_mix import (gossip_mix_gather_ref,
+                                            gossip_mix_matmul_grouped,
                                             gossip_mix_matmul_ref, kernel,
                                             mix_params_cuda)
 
@@ -72,7 +73,8 @@ def test_gather_kernel_matches_plain_version(card, k_out, k_in, p, dtype):
     assert _err(got, gossip_mix_gather_ref(idx, w, x)) <= ATOL[dtype]
 
 
-def test_mix_params_cuda_launches_one_kernel_per_leaf(card):
+def test_mix_params_cuda_launches_one_kernel_per_mix(card):
+    """Dense: one grouped launch for all the leaves; sparse: one per leaf."""
     r = np.random.default_rng(0)
     k = 6
     tree = {"a": torch.as_tensor(r.normal(size=(k, 3, 5)).astype(np.float32)).to(card),
@@ -80,12 +82,13 @@ def test_mix_params_cuda_launches_one_kernel_per_leaf(card):
     w = torch.as_tensor(r.dirichlet(np.ones(k), size=k).astype(np.float32)).to(card)
     idx = torch.as_tensor(r.integers(0, k, size=(k, 3)).astype(np.int32)).to(card)
     ws = torch.as_tensor(r.random((k, 3)).astype(np.float32)).to(card)
-    for mixing, name in ((w, "gossip_mix_matmul"),
-                         (contacts.SparseMixing(idx, ws), "gossip_mix_gather")):
+    for mixing, name, launches in ((w, "gossip_mix_matmul", 1),
+                                   (contacts.SparseMixing(idx, ws), "gossip_mix_gather",
+                                    len(tree))):
         kernel.reset_launch_counts()
         got = mix_params_cuda(mixing, tree)
         want = aggregation.mix_params(mixing, tree)
-        assert kernel.launch_counts[name] == len(tree)
+        assert kernel.launch_counts[name] == launches
         for n in tree:
             assert got[n].shape == tree[n].shape
             assert _err(got[n], want[n]) <= 1e-5
@@ -99,14 +102,56 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         kernel.gossip_mix_matmul(torch.eye(5, device=card), x)
     with pytest.raises(ValueError):
         kernel.gossip_mix_matmul(torch.eye(4, device=card), x.t())
-    with pytest.raises(ValueError):          # W does not fit a block's shared memory
-        kernel.gossip_mix_matmul(torch.eye(300, device=card), torch.ones(300, 8, device=card))
+    with pytest.raises(ValueError):          # W on another device than the leaves
+        kernel.gossip_mix_matmul(torch.eye(4), x)
+    with pytest.raises(TypeError):           # one dtype per group
+        kernel.gossip_mix_matmul_grouped(torch.eye(4, device=card),
+                                         [x, x.to(torch.bfloat16)])
     with pytest.raises(TypeError):
         kernel.gossip_mix_gather(torch.zeros(4, 2, dtype=torch.int64, device=card),
                                  torch.ones(4, 2, device=card), x)
     with pytest.raises(ValueError):
         kernel.gossip_mix_gather(torch.zeros(4, 2, dtype=torch.int32),
                                  torch.ones(4, 2, device=card), x)
+
+
+# leaf widths of a grouped mix: one column, the CNN's narrow and widest leaves,
+# a width that is not a multiple of 4 (rows not 16-byte aligned), one of 250
+GROUP_WIDTHS = [1, 10, 250, 16000, 7, 4097]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k_out,k_in", [(100, 100), (3, 8), (8, 13), (33, 300)])
+def test_grouped_matmul_kernel_matches_plain_version_per_leaf(card, k_out, k_in, dtype):
+    """Square and rectangular W, K_in not a multiple of 4 and past one staged
+    chunk of 128 rows; one launch for the whole group."""
+    r = np.random.default_rng(k_out + k_in)
+    w = torch.as_tensor(r.dirichlet(np.ones(k_in), size=k_out).astype(np.float32)).to(card)
+    flats = [torch.as_tensor(r.normal(size=(k_in, p)).astype(np.float32)).to(dtype).to(card)
+             for p in GROUP_WIDTHS]
+    before = kernel.launch_counts["gossip_mix_matmul"]
+    got = gossip_mix_matmul_grouped(w, flats)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_matmul"] == before + 1
+    for x, out in zip(flats, got):
+        assert out.shape == (k_out, x.shape[1]) and out.dtype == dtype
+        assert _err(out, gossip_mix_matmul_ref(w, x)) <= ATOL[dtype]
+
+
+def test_grouped_matmul_splits_a_group_past_the_table(card):
+    r = np.random.default_rng(3)
+    k = 9
+    n = kernel.matmul_max_leaves() + 6
+    w = torch.as_tensor(r.dirichlet(np.ones(k), size=k).astype(np.float32)).to(card)
+    tree = {f"leaf{i}": torch.as_tensor(r.normal(size=(k, 1 + 37 * i)).astype(np.float32))
+            .to(card) for i in range(n)}
+    kernel.reset_launch_counts()
+    got = mix_params_cuda(w, tree)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_matmul"] == 2
+    for name, x in tree.items():
+        assert got[name].shape == x.shape
+        assert _err(got[name], gossip_mix_matmul_ref(w, x)) <= 1e-5
 
 
 @pytest.mark.parametrize("contact_format", ["sparse", "dense"])
@@ -117,8 +162,10 @@ def test_small_federation_on_the_card_matches_the_cpu(card, contact_format):
                 num_rsus=1, p_drop=0.1, contact_format=contact_format)
     kernel.reset_launch_counts()
     on_card = run_simulation(SimulationConfig(**base, device="cuda"), dataset=ds)
-    used = "gossip_mix_gather" if contact_format == "sparse" else "gossip_mix_matmul"
-    assert kernel.launch_counts[used] == 4 * 8
+    # sparse: one gather launch per leaf (8) per epoch; dense: one grouped launch
+    used, per_epoch = (("gossip_mix_gather", 8) if contact_format == "sparse"
+                       else ("gossip_mix_matmul", 1))
+    assert kernel.launch_counts[used] == 4 * per_epoch
     on_cpu = run_simulation(SimulationConfig(**base, device="cpu"), dataset=ds)
     np.testing.assert_allclose(on_card.kl_trace, on_cpu.kl_trace, atol=1e-5)
     np.testing.assert_allclose(on_card.comm_mb, on_cpu.comm_mb, atol=1e-5)
@@ -301,6 +348,35 @@ def test_flash_attention_gives_zero_on_a_row_with_no_key(card):
     torch.cuda.synchronize()
     assert bool((got[:, 14:] == 0).all()) and bool(torch.isnan(want[:, 14:]).all())
     assert _err(got[:, :14], want[:, :14]) <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 2), (6, 2)])
+def test_flash_attention_kernel_over_gqa_groups(card, h, kv, dtype):
+    """G = 1, 2, 4 (one or two q-heads per block, a group split over blocks)
+    and G = 3 (odd: one head per block), causal with a ragged S."""
+    q, k, v = _qkv(2, 150, h, kv, 64, dtype, h * 10 + kv, card)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _err(got, fa.flash_attention_ref(q, k, v)) <= FA_ATOL[dtype]
+
+
+def test_flash_attention_wrapper_raises_on_a_misaligned_view(card):
+    """The kernel copies rows 16 bytes at a time: a view whose rows do not
+    start on a 16-byte boundary raises, and is not copied in silence."""
+    q, k, v = _qkv(1, 16, 4, 2, 32, torch.float32, 0, card)
+    shifted = torch.zeros(1, 16, 4, 33, device=card)[..., 1:]     # 4 bytes past
+    assert shifted.stride(-1) == 1
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(shifted, k, v)
+    odd_rows = torch.zeros(1, 16, 2, 34, device=card)[..., :32]   # rows 136 bytes apart
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, odd_rows, v)
+    launches = fa.kernel.launch_counts["flash_attention"]
+    aligned = torch.zeros(1, 16, 4, 36, device=card)[..., 4:]    # 16 bytes past
+    aligned.copy_(q)
+    assert _err(fa.flash_attention(aligned, k, v), fa.flash_attention_ref(q, k, v)) <= 2e-5
+    assert fa.kernel.launch_counts["flash_attention"] == launches + 1
 
 
 def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(card):

@@ -119,3 +119,77 @@ def test_module_imports_without_nvcc_or_a_gpu():
                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "",
                                         "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
+
+
+# ---------------------------------------------- tensor-core arithmetic ----
+# The CUDA kernel runs its products on the tensor cores: f32 by 3xTF32, bf16
+# with P split into two bf16 terms. These tests emulate that arithmetic in
+# plain torch at a reduced serving shape and hold it to the f32 plain version
+# at the kernel's own tolerances, and show that the one-term versions (plain
+# TF32, a single bf16 P) would not hold them.
+
+def _tf32(x):
+    """Round float32 to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: add half of the dropped 13 bits
+    to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(a, b, terms):
+    """a @ b in f32 from TF32 operands: 1 term (big*big) or 3 (3xTF32)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if terms == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _bf16_terms(p, terms):
+    hi = p.to(torch.bfloat16).float()
+    return hi if terms == 1 else hi + (p - hi).to(torch.bfloat16).float()
+
+
+def _emulated_attention(q, k, v, *, scale, qk, pv):
+    """Causal GQA attention with the products ``qk(q, k^T)`` and
+    ``pv(p, v)`` supplied; f32 softmax, output in q.dtype."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, hd).permute(0, 2, 3, 1, 4)
+    logits = qk(qg, k.float().permute(0, 2, 3, 1)[:, :, None]) * scale
+    keep = torch.ones(s, s, dtype=torch.bool).tril()
+    probs = torch.softmax(torch.where(keep, logits, float("-inf")), dim=-1)
+    out = pv(probs, v.float().permute(0, 2, 1, 3)[:, :, None])
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def test_3xtf32_products_hold_the_f32_tolerance():
+    """f32 path: 3xTF32 within 2e-5 of the f32 plain version at B=1, S=512,
+    H=4, KV=2, hd=128, causal, scale 0.3; one TF32 product is not."""
+    q, k, v = (torch.as_tensor(x) for x in _inputs(1, 512, 4, 2, 128, 14))
+    assert torch.equal(_tf32(torch.tensor([1.0, -1.0 - 2.0 ** -11, 1.0 + 2.0 ** -12])),
+                       torch.tensor([1.0, -1.0 - 2.0 ** -10, 1.0]))
+    want = fa.flash_attention_ref(q, k, v, causal=True, scale=0.3)
+    errs = {}
+    for terms in (3, 1):
+        got = _emulated_attention(q, k, v, scale=0.3,
+                                  qk=lambda a, b, n=terms: _mm(a, b, n),
+                                  pv=lambda a, b, n=terms: _mm(a, b, n))
+        errs[terms] = float((got - want).abs().max())
+    assert errs[3] <= 2e-5, errs
+    assert errs[1] > 2e-5, errs
+
+
+def test_bf16_p_in_two_terms_holds_the_serving_check():
+    """bf16 path: Q K^T of bf16 values is exact in f32; P V with P = hi + lo
+    (two bf16 terms) holds |got - want| <= 2e-5 + 1e-2 |want| everywhere, a
+    single bf16 P does not."""
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16) for x in _inputs(1, 512, 4, 2, 128, 15))
+    want = fa.flash_attention_ref(q, k, v, causal=True).float()
+    excess = {}
+    for terms in (2, 1):
+        got = _emulated_attention(q, k, v, scale=128 ** -0.5, qk=torch.matmul,
+                                  pv=lambda p, b, n=terms: _bf16_terms(p, n) @ b).float()
+        excess[terms] = float(((got - want).abs() - 1e-2 * want.abs()).max())
+    assert excess[2] <= 2e-5, excess
+    assert excess[1] > 2e-5, excess

@@ -144,3 +144,47 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
                                      torch.ones(4, 2), x)
         else:
             kernel.gossip_mix_matmul(torch.eye(4), x)
+
+
+# the MNIST CNN's eight leaves, flattened: conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b
+CNN_WIDTHS = [250, 10, 5000, 20, 16000, 50, 500, 10]
+
+
+def test_leaf_groups_puts_the_cnn_round_in_one_launch():
+    assert kernel.leaf_groups(CNN_WIDTHS, 64) == [list(range(8))]
+    assert kernel.leaf_groups(CNN_WIDTHS, 8) == [list(range(8))]
+
+
+def test_leaf_groups_skips_empty_leaves_and_splits_past_the_table():
+    widths = [0] + [1 + 63 * (i % 3) for i in range(130)] + [0, 65]
+    groups = kernel.leaf_groups(widths, 64)
+    assert [len(ids) for ids in groups] == [64, 64, 3]
+    assert [i for ids in groups for i in ids] == list(range(1, 131)) + [132]
+    assert kernel.leaf_groups([0, 0], 64) == [] and kernel.leaf_groups([], 64) == []
+
+
+def test_leaf_groups_keeps_the_leaves_in_order():
+    assert kernel.leaf_groups([5] * 5, 2) == [[0, 1], [2, 3], [4]]
+    assert kernel.leaf_groups([3, 0, 1, 0, 2], 1) == [[0], [2], [4]]
+
+
+@pytest.mark.parametrize("k_out,k_in", [(100, 100), (7, 13)])
+def test_mix_params_cuda_cpu_route_on_mixed_widths(k_out, k_in):
+    """A dictionary of the CNN's leaf widths and a bf16 leaf, square and
+    rectangular W: the CPU route matches ``aggregation.mix_params`` leaf by
+    leaf and launches nothing."""
+    r = np.random.default_rng(k_out)
+    w = T(r.dirichlet(np.ones(k_in), size=k_out).astype(np.float32))
+    tree = {f"leaf{i}": T(r.normal(size=(k_in, p)).astype(np.float32))
+            for i, p in enumerate(CNN_WIDTHS)}
+    tree["conv"] = T(r.normal(size=(k_in, 5, 1, 3, 3)).astype(np.float32))
+    tree["half"] = T(r.normal(size=(k_in, 33)).astype(np.float32)).to(torch.bfloat16)
+    kernel.reset_launch_counts()
+    got = mix_params_cuda(w, tree)
+    want = aggregation.mix_params(w, tree)
+    assert kernel.launch_counts == {"gossip_mix_gather": 0, "gossip_mix_matmul": 0}
+    assert list(got) == list(tree)
+    for name, x in tree.items():
+        assert got[name].shape == (k_out,) + x.shape[1:] and got[name].dtype == x.dtype
+        tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-5
+        np.testing.assert_allclose(_f32(got[name]), _f32(want[name]), atol=tol)
