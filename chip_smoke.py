@@ -14,25 +14,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. kernels   — every kernel against its plain PyTorch version on the card, at
                the reference's test shapes and at the main path's shapes
                (tolerance: f32 atol 1e-5, bf16 atol 5e-2; flash attention f32
-               2e-5, bf16 3e-2), the wrappers' refusals, and each kernel's time
-               there (kl_simplex kernels also at K = 1024; flash attention at the
-               serving shape B=4, S=T=2048, H=16, KV=8, hd=128).
+               2e-5, bf16 3e-2), the grouped launches over groups of leaves,
+               the one-launch P1 solve up to the library's limit, the wrappers'
+               refusals, and each kernel's time there (kl_simplex kernels also
+               at K = 1024; the P1 solve per 200-step solve; flash attention at
+               the serving shape B=4, S=T=2048, H=16, KV=8, hd=128).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
                full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
-               once per contact format, through the gossip-mix kernels; checks
-               the launch counters, the traces and the state matrix, the
-               agreement of the two formats and of the kernel path with the
-               plain-torch mix.
+               once per contact format, through the gossip-mix kernels (one
+               grouped launch per round over the model's 8 leaves, gather or
+               matmul); checks the launch counters, the traces and the state
+               matrix, the agreement of the two formats and of the kernel path
+               with the plain-torch mix.
 5. P1        — ``kernels.kl_simplex.solve_p1_all_fused`` on the dense run's final
-               state matrix, target and next contact matrix: its per-row
-               objective against the eager ``core.kl_solver.solve_p1_all``, alpha
-               on the simplex and 0 off the contacts, one ``eg_step`` launch per
-               step; wall time and launch count of both solves.
+               state matrix, target and next contact matrix (one ``eg_solve``
+               launch, no ``eg_step``), and on a seeded K = 300 case past the
+               one-launch limit (one ``eg_step`` launch per step): each one's
+               per-row objective against the eager ``core.kl_solver.solve_p1_all``,
+               alpha on the simplex and 0 off the contacts; wall time and
+               device events of the one-launch solve, of the per-step loop at
+               the same K and of that loop replayed from a CUDA graph.
 6. baselines — ``run_simulation`` of ``dfl``, ``d_sgd``, ``d_fedavg`` and ``sp`` at the
                same full width, 2 epochs, both contact formats, through the
-               gossip-mix kernels (per epoch one round mixes the model's 8
-               leaves once: 8 gather launches, or 1 grouped matmul launch);
+               gossip-mix kernels (one grouped launch per round);
                seconds per epoch of each.
 7. diagnostics — ``kl_rows`` / ``entropy_rows`` through their kernels on every
                algorithm's final state matrix, held to that run's last
@@ -98,6 +103,7 @@ ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 EPOCHS = 4                    # depth of the main-path runs: two evals at eval_every=2
 BASELINE_EPOCHS = 2           # depth of each baseline run, evaluated every epoch
 BASELINES = ("dfl", "d_sgd", "d_fedavg", "sp")
+P1_K_PAST_LIMIT = 300         # a P1 problem past eg_solve's limit: the per-step path
 LN2 = float(np.log(2.0))
 # the MNIST CNN's eight leaves, flattened: conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b
 LEAF_WIDTHS = [250, 10, 5000, 20, 16000, 50, 500, 10]
@@ -116,6 +122,11 @@ KERNELS = {
     "eg_step": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/kl_simplex/csrc/eg_step.cu",
+        "replaces": "src/repro/kernels/kl_simplex/kernel.py:112",
+    },
+    "eg_solve": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/kl_simplex/csrc/eg_solve.cu",
         "replaces": "src/repro/kernels/kl_simplex/kernel.py:112",
     },
     "kl_rows": {
@@ -213,7 +224,8 @@ def _max_err(got, want) -> float:
 
 
 def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
-    """Both gossip-mix kernels against their plain versions on the card.
+    """Both gossip-mix kernels against their plain versions on the card, one
+    leaf at a time and in groups (one launch per group, leaf by leaf).
     Returns the largest absolute error seen per kernel; fails past the
     tolerance."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -267,6 +279,35 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
     err = _max_err(kernel.gossip_mix_gather(idx, w, shifted),
                    ref.gossip_mix_gather_ref(idx, w, x))
     check(err <= 1e-5, f"gossip_mix_gather on a 4-byte-aligned X max err {err:.2e}")
+    worst["gossip_mix_gather"] = max(worst["gossip_mix_gather"], err)
+    # the grouped gather: the model's leaves (f32, bf16), mixed widths with a
+    # 4-byte-aligned leaf among 16-byte ones, rectangular lists, and a group
+    # past the leaf table (two launches)
+    table = kernel.gather_max_leaves()
+    # (K_out, K_in, D, widths, dtype, last leaf 4 bytes off a 16-byte boundary)
+    groups = [(k, k, d_max, LEAF_WIDTHS, f32, False), (k, k, d_max, LEAF_WIDTHS, bf16, False),
+              (33, 300, 9, [1, 7, 250, 4097, 64], f32, True),
+              (8, 13, 4, [1, 7, 250, 4097], bf16, False),
+              (9, 9, 4, [1 + 37 * i for i in range(table + 6)], f32, False)]
+    for k_out, k_in, d, widths, dtype, shift_last in groups:
+        g_idx, g_w, _ = _sparse_case(k_out, k_in, d, 1, f32, k_out + k_in, device)
+        flats = [_sparse_case(k_out, k_in, d, p, dtype, p, device)[2] for p in widths]
+        if shift_last:
+            view = torch.zeros(k_in * widths[-1] + 1, dtype=dtype, device=device)[1:]
+            flats[-1] = view.view(k_in, widths[-1]).copy_(flats[-1])
+        before = kernel.launch_counts["gossip_mix_gather"]
+        outs = kernel.gossip_mix_gather_grouped(g_idx, g_w, flats)
+        torch.cuda.synchronize()
+        launches = kernel.launch_counts["gossip_mix_gather"] - before
+        err = max(_max_err(o, ref.gossip_mix_gather_ref(g_idx, g_w, x))
+                  for o, x in zip(outs, flats))
+        want = -(-len(widths) // table)
+        check(launches == want and err <= ATOL[dtype]
+              and all(o.shape == (k_out, x.shape[1]) for o, x in zip(outs, flats)),
+              f"gossip_mix_gather grouped: {launches} launch(es) over {len(widths)} leaves "
+              f"(table of {table}), K_out={k_out} K_in={k_in} D={d}, {dtype}, "
+              f"max err {err:.2e}")
+        worst["gossip_mix_gather"] = max(worst["gossip_mix_gather"], err)
     # what the wrappers must refuse
     for bad in (lambda: kernel.gossip_mix_matmul(w, x),                     # shapes
                 lambda: kernel.gossip_mix_matmul(torch.eye(9, device=device), x.double()),
@@ -274,41 +315,54 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
                 lambda: kernel.gossip_mix_gather(idx, w, x.t()),
                 lambda: kernel.gossip_mix_matmul(w.cpu(), x),                 # devices
                 lambda: kernel.gossip_mix_matmul_grouped(                      # one dtype
-                    torch.eye(9, device=device), [x, x.to(bf16)])):
+                    torch.eye(9, device=device), [x, x.to(bf16)]),
+                lambda: kernel.gossip_mix_gather_grouped(idx, w, [x, x.to(bf16)]),
+                lambda: kernel.gossip_mix_gather_grouped(                      # one K_in
+                    idx, w, [x, torch.ones(5, 64, device=device)]),
+                lambda: kernel.gossip_mix_gather_grouped(idx, w, [x, x.cpu()]),
+                lambda: kernel.gossip_mix_gather_grouped(idx, w, [x, x.t()])):
         try:
             bad()
         except (ValueError, TypeError):
             continue
         raise SystemExit("FAILED: a wrapper accepted an input its kernel does not take")
-    log("  ok: wrappers raise on wrong shape / dtype / layout / device / mixed dtypes")
+    try:                                # D past the block's slot buffer: refused in C
+        kernel.gossip_mix_gather(torch.zeros(4, 2000, dtype=torch.int32, device=device),
+                                 torch.zeros(4, 2000, device=device), x)
+        raise SystemExit("FAILED: gossip_mix_gather took D = 2000 slots")
+    except RuntimeError:
+        pass
+    log("  ok: wrappers raise on wrong shape / dtype / layout / device / mixed dtypes / "
+        "mixed K_in / D past the slot buffer")
     return worst
 
 
 def _timed(fn, plain, library, nbytes: int, flops: int, work: str,
-           flop_rate: float = F32_FLOP_PER_S) -> dict:
+           flop_rate: float = F32_FLOP_PER_S, **time_kw) -> dict:
     """The timing keys of one kernels-line row: the kernel and its plain
     version in turns (plain, kernel, kernel, plain, within this call), the
     library call where there is one, and the bound — the larger of the bytes
     the function must move over the memory rate and its operations over the
-    rate of their type (f32 unless ``flop_rate`` says otherwise)."""
+    rate of their type (f32 unless ``flop_rate`` says otherwise).
+    ``time_kw`` goes to ``time_ms``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / flop_rate * 1e3
-    plain_a = time_ms(plain)
-    ms_a = time_ms(fn)
-    ms_b = time_ms(fn)
-    plain_b = time_ms(plain)
+    plain_a = time_ms(plain, **time_kw)
+    ms_a = time_ms(fn, **time_kw)
+    ms_b = time_ms(fn, **time_kw)
+    plain_b = time_ms(plain, **time_kw)
     return {"ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "library_ms": None if library is None else time_ms(library),
+            "library_ms": None if library is None else time_ms(library, **time_kw),
             "work": work, "ms_repeat": [ms_a, ms_b], "plain_ms_repeat": [plain_a, plain_b]}
 
 
 def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
-    """Times at the main path's shapes: one round's mix is one gather launch
-    per leaf of the model (8 launches), or one grouped matmul launch over all
-    8 leaves. Also one launch over the whole flattened model, for scale.
-    Returns the timing keys of the kernels line."""
+    """Times at the main path's shapes: one round's mix is one grouped launch
+    over the model's 8 leaves, gather or matmul. Also one launch over the
+    whole flattened model, for scale. Returns the timing keys of the kernels
+    line."""
     k = mixing_dense.shape[0]
     r = np.random.default_rng(0)
     leaves = [torch.as_tensor(r.normal(size=(k, p)).astype(np.float32)).to(device)
@@ -327,19 +381,21 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
 
     # bytes: every input read once, every output written once, per launch
     model_bytes = sum(2 * k * p * esize for p in LEAF_WIDTHS)
-    gather_bytes = model_bytes + len(leaves) * k * d * 8
+    gather_bytes = model_bytes + k * d * 8
     gather_flops = 2 * nnz * sum(LEAF_WIDTHS)        # real slots only
     matmul_bytes = model_bytes + k * k * 4
     matmul_flops = 2 * k * k * sum(LEAF_WIDTHS)
     specs = {
         "gossip_mix_gather": dict(
-            round=per_leaf(lambda x: kernel.gossip_mix_gather(idx, w, x)),
+            round=lambda: kernel.gossip_mix_gather_grouped(idx, w, leaves),
             one=lambda x: kernel.gossip_mix_gather(idx, w, x),
             plain=lambda x: ref.gossip_mix_gather_ref(idx, w, x),
             library=lambda x: torch.sparse.mm(csr, x),
             bytes=gather_bytes, flops=gather_flops,
-            work=f"one round's mix: {len(leaves)} launches, K={k}, leaf widths {LEAF_WIDTHS}, "
-                 f"D={d}, {nnz} real slots"),
+            work=f"one round's mix: 1 grouped launch over {len(leaves)} leaves, K={k}, "
+                 f"leaf widths {LEAF_WIDTHS}, D={d}, {nnz} real slots; library_ms: "
+                 f"{len(leaves)} torch.sparse.mm calls (CSR), whole_model_library_ms: one "
+                 "over the concatenated model"),
         "gossip_mix_matmul": dict(
             round=lambda: kernel.gossip_mix_matmul_grouped(mixing_dense, leaves),
             one=lambda x: kernel.gossip_mix_matmul(mixing_dense, x),
@@ -403,13 +459,27 @@ def _eg_case(v, k, dtype, seed, device):
     return tuple(torch.as_tensor(x).to(dtype).to(device) for x in (a, g, m))
 
 
-def check_kl_kernels(device, k: int) -> dict[str, float]:
-    """The three kl_simplex kernels against their plain versions on the card,
+def _p1_case(v, k, seed, device, empty_row: bool = True):
+    """A P1 problem: states [V, K] (a column under the 1e-12 cut), a target,
+    a 0/1 contact matrix [V, V] with a self contact on every row but row 1,
+    which (with ``empty_row``) has no contact at all."""
+    s, g = _state_case(v, k, torch.float32, seed, device)
+    r = np.random.default_rng(seed + 1)
+    c = np.minimum((r.random((v, v)) < 0.1) + (r.random((v, v)) < 0.1).T + np.eye(v), 1)
+    if empty_row:
+        c[1] = 0.0
+    return s, g, torch.as_tensor(c.astype(np.float32)).to(device)
+
+
+def check_kl_kernels(device, k: int, p1_steps: int) -> dict[str, float]:
+    """The four kl_simplex kernels against their plain versions on the card,
     at the reference's shapes, the main path's K (and K + 1 with an RSU row),
-    K = 1024 and K = 4096; the empty-mask rule of eg_step; the wrappers'
-    refusals. Returns the largest absolute error per kernel."""
+    K = 1024 and K = 4096; the one-launch P1 solve at K = 8, the main path's K
+    and the library's limit, over 1 and ``p1_steps`` steps; the empty-mask
+    rule of eg_step and eg_solve; the wrappers' refusals. Returns the largest
+    absolute error per kernel."""
     f32, bf16 = torch.float32, torch.bfloat16
-    worst = {"eg_step": 0.0, "kl_rows": 0.0, "entropy_rows": 0.0}
+    worst = {"eg_step": 0.0, "eg_solve": 0.0, "kl_rows": 0.0, "entropy_rows": 0.0}
     row_cases = [(v, kk, f32, False) for v, kk in KL_REF_SHAPES]
     row_cases += [(k, k, f32, False), (k + 1, k + 1, f32, True)]
     row_cases += [(v, kk, dt, False) for v, kk in ((1024, 1024), (64, 4096)) for dt in (f32, bf16)]
@@ -446,6 +516,37 @@ def check_kl_kernels(device, k: int) -> dict[str, float]:
         torch.cuda.synchronize()
         check(bool((got[1] == 0).all()) and bool(torch.isfinite(got).all()),
               f"eg_step K={kk}: a row with an empty mask is all 0")
+    # the whole solve in one launch, up to the library's limit; row 1 of the
+    # contacts is empty (0 by the kernel's rule, as eg_solve_ref gives)
+    limit = kl_simplex.kernel.eg_solve_max_k()
+    for kk in (8, k, limit):
+        for steps in (1, p1_steps):
+            s, g, c = _p1_case(kk, kk, kk + steps, device)
+            before = kl_simplex.kernel.launch_counts["eg_solve"]
+            got = kl_simplex.eg_solve(s, g, c, num_steps=steps, step_size=2.0)
+            torch.cuda.synchronize()
+            launches = kl_simplex.kernel.launch_counts["eg_solve"] - before
+            err = _max_err(got, kl_simplex.eg_solve_ref(s, g, c, num_steps=steps, step_size=2.0))
+            check(launches == 1 and got.shape == (kk, kk) and err <= ATOL[f32]
+                  and bool((got[c == 0] == 0).all()) and bool((got[1] == 0).all()),
+                  f"eg_solve V=K={kk}{' (the limit)' if kk == limit else ''}, {steps} steps: "
+                  f"one launch, max err {err:.2e}, 0 off the contacts and on the empty row")
+            worst["eg_solve"] = max(worst["eg_solve"], err)
+    s, g, c = _p1_case(8, 8, 0, device)
+    for bad in (lambda: kl_simplex.eg_solve(s.to(bf16), g, c, num_steps=2),   # dtype
+                lambda: kl_simplex.eg_solve(s, g[:7].contiguous(), c, num_steps=2),
+                lambda: kl_simplex.eg_solve(s, g, c[:, :7].contiguous(), num_steps=2),
+                lambda: kl_simplex.eg_solve(s, g.cpu(), c, num_steps=2),
+                lambda: kl_simplex.eg_solve(s, g, c, num_steps=-1),
+                lambda: kl_simplex.eg_solve(*_p1_case(limit + 1, limit + 1, 0, device),
+                                            num_steps=2)):       # past the limit
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise SystemExit("FAILED: eg_solve accepted an input its kernel does not take")
+    log(f"  ok: eg_solve raises on wrong dtype / shape / device / steps and past its "
+        f"limit (V=K={limit + 1})")
     s, g = _state_case(4, 8, f32, 0, device)
     a, grad, m = _eg_case(4, 8, f32, 0, device)
     for bad in (lambda: kl_simplex.kl_rows_kernel(s.double(), g),          # dtype
@@ -465,11 +566,12 @@ def check_kl_kernels(device, k: int) -> dict[str, float]:
     return worst
 
 
-def time_kl_kernels(device, k: int) -> dict[str, dict]:
+def time_kl_kernels(device, k: int, p1_steps: int) -> dict[str, dict]:
     """The kl_simplex kernels at the main path's V = K (one launch each: one
-    P1 step, one diagnostic of a state matrix) and at K = 1024, the largest K
-    of the scale sweep, each beside its plain version, its library call and
-    its bound. Returns the timing keys of the kernels line."""
+    P1 step, one diagnostic of a state matrix, one whole P1 solve of
+    ``p1_steps`` steps) and at K = 1024, the largest K of the scale sweep
+    (not the solve: past its limit), each beside its plain version, its
+    library call and its bound. Returns the timing keys of the kernels line."""
     out = {}
     for kk in (k, 1024):
         s, g = _state_case(kk, kk, torch.float32, kk, device)
@@ -501,6 +603,17 @@ def time_kl_kernels(device, k: int) -> dict[str, dict]:
                 out[name] = row
             else:
                 out[name][f"k{kk}"] = row
+    # the solve: S, g and the mask read once, alpha written once; two
+    # [V, V] x [V, K] products of FMAs per step
+    s, g, c = _p1_case(k, k, k, device)
+    solve = _timed(lambda: kl_simplex.eg_solve(s, g, c, num_steps=p1_steps, step_size=2.0),
+                   lambda: kl_simplex.eg_solve_ref(s, g, c, num_steps=p1_steps, step_size=2.0),
+                   None, 4 * (k * k + k + 2 * k * k), p1_steps * 2 * 2 * k * k * k,
+                   f"one P1 solve in one launch: {p1_steps} EG steps, V=K={k}, f32",
+                   inner=2, reps=5, warm=2)
+    out["eg_solve"] = solve
+    out["eg_step"].update({"solve_ms": solve["ms"], "solve_bound_ms": solve["bound_ms"],
+                           "solve_work": solve["work"]})
     for name, row in out.items():
         log(f"  {name}: {json.dumps(row)}")
     return out
@@ -783,7 +896,7 @@ def drive_serve(device: str, seed: int, rehearsal: bool) -> tuple[int, dict]:
 
 # --------------------------------------------------------------- main path ----
 
-def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
+def drive_main_path(cfg: SimulationConfig, dataset):
     """One run of ``cfg.algorithm`` through the public entry points, every
     counter zeroed just before and read just after. Returns (result, context,
     gossip-mix launches, report)."""
@@ -832,13 +945,10 @@ def drive_main_path(cfg: SimulationConfig, dataset, leaves_per_mix: int):
     if cfg.device != "cpu":
         used = "gossip_mix_gather" if cfg.contact_format == "sparse" else "gossip_mix_matmul"
         other = next(n for n in launches if n != used)
-        # sparse: one gather launch per leaf; dense: one grouped launch per mix
-        per_mix = leaves_per_mix if cfg.contact_format == "sparse" else 1
-        want = cfg.epochs * per_mix
-        check(launches[used] == want and launches[other] == 0,
+        check(launches[used] == cfg.epochs and launches[other] == 0,
               f"{cfg.algorithm} {cfg.contact_format}: {used} launched {launches[used]} "
-              f"times = {cfg.epochs} mixes x {per_mix} launches of {leaves_per_mix} leaves; "
-              f"{other} {launches[other]} times")
+              f"times = {cfg.epochs} mixes x 1 grouped launch over {len(LEAF_WIDTHS)} "
+              f"leaves; {other} {launches[other]} times")
     return result, ctx, launches, report
 
 
@@ -923,41 +1033,86 @@ def _wall_s(fn) -> float:
     return _seconds(fn)[1]
 
 
-def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix) -> int:
-    """``solve_p1_all_fused`` at full width on a real state matrix, held to
-    the eager solver by the per-row P1 objective (atol 1e-5, the criterion
-    of tests/test_kernels.py). Returns the eg_step launches of the fused
-    solve, which must be one per step."""
+def _check_p1(cfg: SimulationConfig, states, target, contact_matrix, want: str):
+    """``solve_p1_all_fused`` held to the eager solver by the per-row P1
+    objective (atol 1e-5, the criterion of tests/test_kernels.py), alpha on
+    the simplex and 0 off the contacts; on the card, exactly one ``eg_solve``
+    launch (``want="eg_solve"``) or one ``eg_step`` launch per step
+    (``want="eg_step"``) and none of the other. Returns (alpha, the eager
+    solver's alpha, the two kernels' launches)."""
     kw = dict(num_steps=cfg.p1_steps, step_size=cfg.p1_step_size)
-
-    def fused():
-        return kl_simplex.solve_p1_all_fused(states, target, contact_matrix, **kw)
-
-    def eager():
-        return kl_solver.solve_p1_all(states, target, contact_matrix, **kw)
-
-    eager_alpha = eager()
+    eager_alpha = kl_solver.solve_p1_all(states, target, contact_matrix, **kw)
     kernels_lib.reset_launch_counts()
-    alpha = fused()
+    alpha = kl_simplex.solve_p1_all_fused(states, target, contact_matrix, **kw)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    launches = kl_simplex.kernel.launch_counts["eg_step"]
+    launches = {n: kl_simplex.kernel.launch_counts[n] for n in ("eg_solve", "eg_step")}
+    k = states.shape[0]
     if states.is_cuda:
-        check(launches == cfg.p1_steps,
-              f"eg_step launched {launches} times = p1_steps ({cfg.p1_steps})")
-    obj = kl_solver.kl_objective(alpha, states, target)
-    obj_eager = kl_solver.kl_objective(eager_alpha, states, target)
-    err = _max_err(obj, obj_eager)
+        expect = ({"eg_solve": 1, "eg_step": 0} if want == "eg_solve"
+                  else {"eg_solve": 0, "eg_step": cfg.p1_steps})
+        check(launches == expect, f"K={k}: {launches} = {expect}")
+    err = _max_err(kl_solver.kl_objective(alpha, states, target),
+                   kl_solver.kl_objective(eager_alpha, states, target))
     check(alpha.shape == contact_matrix.shape and err <= 1e-5,
           f"fused P1 per-row objective vs the eager solver: max diff {err:.2e} "
-          f"(K={states.shape[0]}, {cfg.p1_steps} steps, step {cfg.p1_step_size})")
-    check(bool((alpha[contact_matrix == 0] == 0).all()), "alpha is 0 off the contacts")
+          f"(K={k}, {cfg.p1_steps} steps, step {cfg.p1_step_size})")
+    check(bool((alpha[contact_matrix == 0] == 0).all()), f"K={k}: alpha is 0 off the contacts")
     rows = alpha.sum(dim=1)
     check(bool(torch.allclose(rows, torch.ones_like(rows), atol=1e-5)),
-          "every row of alpha sums to 1")
+          f"K={k}: every row of alpha sums to 1")
+    return alpha, eager_alpha, launches
+
+
+def _graph_of(fn):
+    """``fn`` captured once in a CUDA graph (after a warm-up on a side
+    stream); returns the replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix,
+                   k_past_limit: int, seed: int) -> dict[str, int]:
+    """``solve_p1_all_fused`` at full width on a real state matrix (one
+    ``eg_solve`` launch), then on a seeded K = ``k_past_limit`` problem past
+    the one-launch limit (one ``eg_step`` launch per step), both held to the
+    eager solver. Prints, as facts, the wall time and device events of the
+    one-launch solve, of the per-step loop at the same K, of that loop
+    replayed from a CUDA graph, and of the eager solve. Returns the launches
+    of the full-width solve's kernel and of the per-step case's."""
+    alpha, eager_alpha, first = _check_p1(cfg, states, target, contact_matrix, "eg_solve")
+    big = _p1_case(k_past_limit, k_past_limit, seed, states.device, empty_row=False)
+    if states.is_cuda:
+        check(not kl_simplex.kernel.eg_solve_fits(k_past_limit, k_past_limit),
+              f"K={k_past_limit} is past eg_solve's limit "
+              f"(K <= {kl_simplex.kernel.eg_solve_max_k()})")
+    _, _, second = _check_p1(cfg, *big, "eg_step")
+    launches = {"eg_solve": first["eg_solve"], "eg_step": second["eg_step"]}
+    if not states.is_cuda:
+        return launches
+    s = states.to(torch.float32).contiguous()
+    g = target.to(torch.float32).contiguous()
+    m = contact_matrix.to(torch.float32).contiguous()
+    kw = dict(num_steps=cfg.p1_steps, step_size=cfg.p1_step_size)
+    runs = {
+        "one_launch": lambda: kl_simplex.solve_p1_all_fused(states, target, contact_matrix, **kw),
+        "per_step": lambda: kl_simplex.ops._solve_per_step(s, g, m, cfg.p1_steps,
+                                                          cfg.p1_step_size),
+        "per_step_cuda_graph_replay": _graph_of(
+            lambda: kl_simplex.ops._solve_per_step(s, g, m, cfg.p1_steps, cfg.p1_step_size)),
+        "eager": lambda: kl_solver.solve_p1_all(states, target, contact_matrix, **kw),
+    }
     facts = {name: {"wall_s": _wall_s(fn), "device_events": _device_events(fn)}
-             for name, fn in (("fused", fused), ("eager", eager))}
-    facts["alpha_max_abs_diff"] = _max_err(alpha, eager_alpha)
+             for name, fn in runs.items()}
+    facts["K"] = states.shape[0]
+    facts["one_launch_vs_eager_alpha_max_abs_diff"] = _max_err(alpha, eager_alpha)
     log(f"  facts: {json.dumps(facts)}")
     return launches
 
@@ -976,8 +1131,7 @@ def drive_baselines(full: SimulationConfig, dataset) -> tuple[dict, list]:
         results = {}
         for fmt in ("sparse", "dense"):
             log(f"[baselines] run_simulation, algorithm={algo}, contact_format={fmt}")
-            res, ctx, _, report = drive_main_path(
-                replace(cfg, contact_format=fmt), dataset, len(LEAF_WIDTHS))
+            res, ctx, _, report = drive_main_path(replace(cfg, contact_format=fmt), dataset)
             results[fmt] = res
             seconds.setdefault(algo, {})[fmt] = report["seconds_per_epoch"]
             finals.append(_final_diagnostics(ctx, res))
@@ -1057,7 +1211,9 @@ def main() -> int:
             for line in build_lib.build_log(source).splitlines():
                 if "registers" in line or "spill" in line or "entry function" in line:
                     log(f"  {source.name}: {line.strip()}")
-        # dynamic shared memory per block of the two kernels redesigned for Hopper
+        # dynamic shared memory per block of the kernels redesigned for Hopper
+        log(f"  eg_solve.cu: V=K=100: shared memory {kl_simplex.kernel.eg_solve_smem_bytes(100, 100)}"
+            f" B per block of 256 threads; limit V=K={kl_simplex.kernel.eg_solve_max_k()}")
         for dtype in (torch.float32, torch.bfloat16):
             log(f"  gossip_mix_matmul.cu: {dtype} K=100: shared memory "
                 f"{kernel.matmul_smem_bytes(100, 100, dtype)} B per block of 256 threads")
@@ -1084,7 +1240,7 @@ def main() -> int:
         log("[kernels] against the plain versions on the card")
         with engine.full_f32_matmul():
             worst = check_kernels(device, full.num_vehicles, d_max)
-            worst.update(check_kl_kernels(device, full.num_vehicles))
+            worst.update(check_kl_kernels(device, full.num_vehicles, full.p1_steps))
             first = contacts_lib.to_device(engine.ContactStream(full, net).window(1), device)
             first = contacts_lib.epoch_of(first, 0)
             mixing_sparse = aggregation.uniform_mixing(first)
@@ -1092,7 +1248,7 @@ def main() -> int:
                 contacts_lib.mixing_to_dense(mixing_sparse)).to(device)
             log("[kernels] times at the main path's shapes (ms, CUDA events, median)")
             timings = time_kernels(device, mixing_sparse, mixing_dense)
-            timings.update(time_kl_kernels(device, full.num_vehicles))
+            timings.update(time_kl_kernels(device, full.num_vehicles, full.p1_steps))
         fa_errors = check_flash_attention(device)
         worst["flash_attention"] = fa_errors.pop("max_abs_err")
         log("[kernels] flash_attention at the serving shape (ms, CUDA events, median)")
@@ -1117,8 +1273,7 @@ def main() -> int:
     results, launches, reports, finals = {}, {}, [], []
     for fmt in ("sparse", "dense"):
         log(f"[main path] run_simulation, contact_format={fmt}")
-        res, ctx, counts, report = drive_main_path(
-            replace(full, contact_format=fmt), dataset, len(LEAF_WIDTHS))
+        res, ctx, counts, report = drive_main_path(replace(full, contact_format=fmt), dataset)
         results[fmt] = res
         launches.update({n: c for n, c in counts.items() if c})
         reports.append(report)
@@ -1137,8 +1292,10 @@ def main() -> int:
     # -- 5. the P1 entry point at full width (the dense run's last state) ---
     log("[P1] solve_p1_all_fused vs core.kl_solver.solve_p1_all")
     with engine.full_f32_matmul():
-        launches["eg_step"] = check_fused_p1(
-            full, ctx.final_state.state_matrix, ctx.target, next_contacts)
+        launches.update(check_fused_p1(full, ctx.final_state.state_matrix, ctx.target,
+                                       next_contacts, P1_K_PAST_LIMIT, args.seed))
+    if timings:
+        timings["eg_step"]["solve_launches"] = launches["eg_solve"]
     del ctx
 
     # -- 6. the baselines at full width --------------------------------------

@@ -1,8 +1,9 @@
 """CUDA kernels for the gossip mix, written by hand for Hopper (sm_90a).
 
-* ``gossip_mix_gather(idx, w, flat)`` — ``out[k, p] = sum_d w[k, d] *
-  flat[idx[k, d], p]`` (``csrc/gossip_mix_gather.cu``), the mix under the
-  sparse contact format;
+* ``gossip_mix_gather_grouped(idx, w, flats)`` — ``out_l[k, p] = sum_d
+  w[k, d] * flats[l][idx[k, d], p]`` for a list of leaves in one launch
+  (``csrc/gossip_mix_gather.cu``), the mix under the sparse contact format;
+  ``gossip_mix_gather(idx, w, flat)`` is the group of one leaf;
 * ``gossip_mix_matmul_grouped(mixing, flats)`` — ``out_l = mixing @ flat_l``
   for a list of leaves in one launch, the product computed in the kernel at
   full f32 precision (``csrc/gossip_mix_matmul.cu``), the mix under the dense
@@ -39,9 +40,6 @@ SOURCES = {
     "gossip_mix_matmul": CSRC / "gossip_mix_matmul.cu",
 }
 
-_GATHER_ROWS = 4          # kRows in gossip_mix_gather.cu
-_MAX_GRID_Y = 65_535
-
 # launches per kernel since the last reset_launch_counts()
 launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -62,9 +60,10 @@ def build() -> None:
     names = list(SOURCES)
     gather, matmul = build_lib.load_libraries([SOURCES[n] for n in names])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    gather.gossip_mix_gather_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
-                                                i32, i32, ptr]
-    gather.gossip_mix_gather_launch.restype = i32
+    gather.gossip_mix_gather_grouped_launch.argtypes = [
+        ptr, ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr),
+        ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, ptr]
+    gather.gossip_mix_gather_grouped_launch.restype = i32
     gather.gossip_mix_gather_error_string.argtypes = [i32]
     gather.gossip_mix_gather_error_string.restype = ctypes.c_char_p
     matmul.gossip_mix_matmul_grouped_launch.argtypes = [
@@ -112,45 +111,6 @@ def _raise_on(code: int, name: str) -> None:
                            f"({text.decode() if text else '?'})")
 
 
-def gossip_mix_gather(idx: Tensor, w: Tensor, flat: Tensor) -> Tensor:
-    """Sparse gossip mix: ``out[k, p] = sum_d w[k, d] * flat[idx[k, d], p]``.
-
-    idx ``[K_out, D]`` int32 (every id in ``[0, K_in)``, padding slots too —
-    not checked here, a check would synchronise), w ``[K_out, D]`` float32 (0
-    on padding), flat ``[K_in, P]`` float32 or bfloat16. f32 accumulation;
-    returns ``[K_out, P]`` in ``flat.dtype``.
-    """
-    name = "gossip_mix_gather"
-    _check_flat(flat, name)
-    _check_operand(idx, torch.int32, "idx", flat, name)
-    _check_operand(w, torch.float32, "w", flat, name)
-    if idx.shape != w.shape:
-        raise ValueError(f"{name}: idx {tuple(idx.shape)} and w "
-                         f"{tuple(w.shape)} differ in shape")
-    k_out, d = idx.shape
-    k_in, p = flat.shape
-    if d == 0 or (k_in == 0 and k_out > 0):
-        raise ValueError(f"{name}: needs at least one slot and one row to "
-                         f"gather from (D={d}, K_in={k_in})")
-    if _GATHER_ROWS * d * 8 > 48 * 1024:
-        raise ValueError(f"{name}: D = {d} slots exceed the block's index "
-                         "buffer (shared memory)")
-    if -(-k_out // _GATHER_ROWS) > _MAX_GRID_Y:
-        raise ValueError(f"{name}: K_out = {k_out} exceeds the grid")
-    out = torch.empty((k_out, p), dtype=flat.dtype, device=flat.device)
-    if k_out == 0 or p == 0:
-        return out
-    build()
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _LIBS[name].gossip_mix_gather_launch(
-            idx.data_ptr(), w.data_ptr(), flat.data_ptr(), out.data_ptr(),
-            k_out, d, p, _DTYPE_CODE[flat.dtype], stream)
-    _raise_on(code, name)
-    launch_counts[name] += 1
-    return out
-
-
 def matmul_smem_bytes(k_out: int, k_in: int, dtype: torch.dtype) -> int:
     """Shared memory one block of the grouped matmul kernel takes for a
     ``[K_out, K_in]`` W and leaves in ``dtype`` (builds the kernels on first
@@ -174,6 +134,90 @@ def leaf_groups(widths: list[int], max_leaves: int) -> list[list[int]]:
     return [live[i:i + max_leaves] for i in range(0, len(live), max_leaves)]
 
 
+def gather_max_leaves() -> int:
+    """Leaves one launch of the grouped gather kernel takes (the size of the
+    table in its parameters; builds the kernels on first use)."""
+    build()
+    return _LIBS["gossip_mix_gather"].gossip_mix_gather_max_leaves()
+
+
+def _launch_groups(name: str, flats: list[Tensor], outs: list[Tensor], before: tuple,
+                   after: tuple, max_leaves: int) -> None:
+    """``{name}_grouped_launch(*before, x_ptrs, out_ptrs, widths, n, *after,
+    stream)`` once per group of ``leaf_groups``, each launch counted; raises
+    on a refused launch."""
+    launch = getattr(_LIBS[name], f"{name}_grouped_launch")
+    with torch.cuda.device(flats[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for ids in leaf_groups([f.shape[1] for f in flats], max_leaves):
+            n = len(ids)
+            code = launch(*before,
+                          (ctypes.c_void_p * n)(*(flats[i].data_ptr() for i in ids)),
+                          (ctypes.c_void_p * n)(*(outs[i].data_ptr() for i in ids)),
+                          (ctypes.c_longlong * n)(*(flats[i].shape[1] for i in ids)),
+                          n, *after, stream)
+            _raise_on(code, name)
+            launch_counts[name] += 1
+
+
+def _check_group(flats: list[Tensor], name: str) -> None:
+    """The leaves of a group: CUDA, contiguous ``[K_in, P_l]``, one dtype, one
+    K_in, one device."""
+    for flat in flats:
+        _check_flat(flat, name)
+        if flat.device != flats[0].device:
+            raise ValueError(f"{name}: leaves on {flats[0].device} and {flat.device}")
+        if flat.dtype != flats[0].dtype:
+            raise TypeError(f"{name}: one dtype per group, got {flats[0].dtype} "
+                            f"and {flat.dtype}")
+        if flat.shape[0] != flats[0].shape[0]:
+            raise ValueError(f"{name}: leaves of {flats[0].shape[0]} and "
+                             f"{flat.shape[0]} rows in one group")
+
+
+def gossip_mix_gather_grouped(idx: Tensor, w: Tensor, flats: list[Tensor]) -> list[Tensor]:
+    """Sparse gossip mix of a group of leaves:
+    ``out_l[k, p] = sum_d w[k, d] * flats[l][idx[k, d], p]`` for every l.
+
+    idx ``[K_out, D]`` int32 (every id in ``[0, K_in)``, padding slots too —
+    not checked here, a check would synchronise), w ``[K_out, D]`` float32 (0
+    on padding), each of ``flats`` a contiguous ``[K_in, P_l]`` tensor, all
+    float32 or all bfloat16 on ``idx``'s device. f32 accumulation; returns
+    ``[K_out, P_l]`` tensors in the leaves' dtype. One launch per
+    ``gather_max_leaves()`` leaves that have a column (``leaf_groups``).
+    """
+    name = "gossip_mix_gather"
+    if not flats:
+        return []
+    _check_group(flats, name)
+    _check_operand(idx, torch.int32, "idx", flats[0], name)
+    _check_operand(w, torch.float32, "w", flats[0], name)
+    if idx.shape != w.shape:
+        raise ValueError(f"{name}: idx {tuple(idx.shape)} and w "
+                         f"{tuple(w.shape)} differ in shape")
+    k_out, d = idx.shape
+    k_in = flats[0].shape[0]
+    if d == 0 or (k_in == 0 and k_out > 0):
+        raise ValueError(f"{name}: needs at least one slot and one row to "
+                         f"gather from (D={d}, K_in={k_in})")
+    outs = [torch.empty((k_out, f.shape[1]), dtype=f.dtype, device=f.device)
+            for f in flats]
+    if k_out == 0:
+        return outs
+    _launch_groups(name, flats, outs, (idx.data_ptr(), w.data_ptr()),
+                   (k_out, d, _DTYPE_CODE[flats[0].dtype]), gather_max_leaves())
+    return outs
+
+
+def gossip_mix_gather(idx: Tensor, w: Tensor, flat: Tensor) -> Tensor:
+    """Sparse gossip mix of one tensor: ``out[k, p] = sum_d w[k, d] *
+    flat[idx[k, d], p]``, the counterpart of the Pallas function — a group of
+    one (``gossip_mix_gather_grouped``). idx ``[K_out, D]`` int32, w
+    ``[K_out, D]`` float32, flat ``[K_in, P]`` float32 or bfloat16; returns
+    ``[K_out, P]`` in ``flat.dtype``."""
+    return gossip_mix_gather_grouped(idx, w, [flat])[0]
+
+
 def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor]) -> list[Tensor]:
     """Dense gossip mix of a group of leaves:
     ``out_l[k, p] = sum_j mixing[k, j] * flats[l][j, p]`` for every l.
@@ -187,37 +231,20 @@ def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor]) -> list[Tenso
     name = "gossip_mix_matmul"
     if not flats:
         return []
-    for flat in flats:
-        _check_flat(flat, name)
-        _check_operand(mixing, torch.float32, "mixing", flat, name)
-        if flat.dtype != flats[0].dtype:
-            raise TypeError(f"{name}: one dtype per group, got {flats[0].dtype} "
-                            f"and {flat.dtype}")
+    _check_group(flats, name)
+    _check_operand(mixing, torch.float32, "mixing", flats[0], name)
     k_out, k_in = mixing.shape
-    for flat in flats:
-        if flat.shape[0] != k_in:
-            raise ValueError(f"{name}: mixing {tuple(mixing.shape)} does not "
-                             f"match flat {tuple(flat.shape)}")
+    if flats[0].shape[0] != k_in:
+        raise ValueError(f"{name}: mixing {tuple(mixing.shape)} does not "
+                         f"match flat {tuple(flats[0].shape)}")
     if k_in == 0 and k_out > 0:
         raise ValueError(f"{name}: K_in = 0")
     outs = [torch.empty((k_out, f.shape[1]), dtype=f.dtype, device=f.device)
             for f in flats]
     if k_out == 0:
         return outs
-    groups = leaf_groups([f.shape[1] for f in flats], matmul_max_leaves())
-    lib = _LIBS[name]
-    with torch.cuda.device(mixing.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for ids in groups:
-            n = len(ids)
-            code = lib.gossip_mix_matmul_grouped_launch(
-                mixing.data_ptr(),
-                (ctypes.c_void_p * n)(*(flats[i].data_ptr() for i in ids)),
-                (ctypes.c_void_p * n)(*(outs[i].data_ptr() for i in ids)),
-                (ctypes.c_longlong * n)(*(flats[i].shape[1] for i in ids)),
-                n, k_out, k_in, _DTYPE_CODE[flats[0].dtype], stream)
-            _raise_on(code, name)
-            launch_counts[name] += 1
+    _launch_groups(name, flats, outs, (mixing.data_ptr(),),
+                   (k_out, k_in, _DTYPE_CODE[flats[0].dtype]), matmul_max_leaves())
     return outs
 
 

@@ -3,15 +3,16 @@ through the hand-written CUDA kernels (``mixing_backend="cuda"``).
 
 Counterpart of ``repro.kernels.gossip_mix.ops.mix_params_pallas``. Both
 mixing representations route through here: a dense ``[K_out, K_in]`` matrix
-hits the grouped product kernel, one launch for all the leaves of one dtype
-(one launch per mix for a model of one dtype); a
-``core.contacts.SparseMixing`` neighbour list hits the gather kernel, one
-launch per leaf.
+hits the grouped product kernel, a ``core.contacts.SparseMixing`` neighbour
+list the grouped gather kernel; either way one launch for all the leaves of
+one dtype (one launch per mix for a model of one dtype).
 
 A leaf that lies on the CPU goes to the plain versions in ``ref`` — for that
 reason only. A CUDA leaf launches the kernel or raises; nothing falls back.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -33,18 +34,17 @@ def mix_params_cuda(mixing, params: dict) -> dict:
         idx = mixing.idx.to(torch.int32).contiguous()
         w = mixing.w.to(torch.float32).contiguous()
         k_out = idx.shape[0]
-        mixed = {name: kernel.gossip_mix_gather(idx, w, flat) if flat.is_cuda
-                 else ref.gossip_mix_gather_ref(idx, w, flat)
-                 for name, flat in flats.items()}
+        plain = partial(ref.gossip_mix_gather_ref, idx, w)
+        grouped = partial(kernel.gossip_mix_gather_grouped, idx, w)
     else:
         dense = mixing.to(torch.float32).contiguous()
         k_out = dense.shape[0]
-        mixed = {name: ref.gossip_mix_matmul_ref(dense, flat)
-                 for name, flat in flats.items() if not flat.is_cuda}
-        on_card = [name for name, flat in flats.items() if flat.is_cuda]
-        for dtype in dict.fromkeys(flats[name].dtype for name in on_card):
-            group = [name for name in on_card if flats[name].dtype == dtype]
-            outs = kernel.gossip_mix_matmul_grouped(dense, [flats[n] for n in group])
-            mixed.update(zip(group, outs))
+        plain = partial(ref.gossip_mix_matmul_ref, dense)
+        grouped = partial(kernel.gossip_mix_matmul_grouped, dense)
+    mixed = {name: plain(flat) for name, flat in flats.items() if not flat.is_cuda}
+    on_card = [name for name, flat in flats.items() if flat.is_cuda]
+    for dtype in dict.fromkeys(flats[name].dtype for name in on_card):
+        group = [name for name in on_card if flats[name].dtype == dtype]
+        mixed.update(zip(group, grouped([flats[n] for n in group])))
     return {name: mixed[name].reshape((k_out,) + tuple(x.shape[1:]))
             for name, x in params.items()}

@@ -1,18 +1,9 @@
 // One exponentiated-gradient step of the P1 solver per row, for Hopper
-// (sm_90a). For each row v of alpha, grad, mask [V, K] (f32 or bf16, read as
-// f32; out [V, K] f32), natural logarithms throughout:
-//
-//     n      = max(sum_k m, 1)                  gbar  = sum_k grad*m / n
-//     c      = (grad - gbar) * m                scale = step / max(max_k |c|, 1)
-//     logit  = log clip(alpha) - scale*c        where m > 0, else -inf
-//     e      = exp(logit - max_k logit)         where m > 0, else 0
-//     out    = e / max(sum_k e, 1e-12)
-//
-// with clip(x) = min(max(x, 1e-12), 1): a masked softmax, exactly 0 off the
-// mask. A row whose mask is all zero gives 0 everywhere, as the TPU kernel
-// does (its plain version, like the reference's eg_step_ref, gives NaN there):
-// exp is evaluated only on lanes with m > 0, so exp(-inf - (-inf)) is never
-// computed on a branch that is taken.
+// (sm_90a): alpha, grad, mask [V, K] (f32 or bf16, read as f32) -> out [V, K]
+// f32. The per-row math (a masked softmax, exactly 0 off the mask, and 0 on a
+// row whose mask is all zero, as the TPU kernel gives; its plain version,
+// like the reference's eg_step_ref, gives NaN there) is in eg_update.cuh,
+// shared with eg_solve.cu.
 //
 // Replaces the Pallas TPU kernel `_eg_step_kernel` / `eg_step` in
 // src/repro/kernels/kl_simplex/kernel.py, where `step_size` was a
@@ -22,7 +13,7 @@
 // written once (16 bytes per element) for some twenty f32 operations, one
 // log and one exp among them: 0.05 us at V = K = 100, 5 us at K = 1024. At the
 // paper's K = 100 every launch sits at launch latency; the P1 solve launches
-// it once per EG step.
+// it once per EG step, where the shape is too large for eg_solve.cu.
 //
 // What the design does about it: one warp per row, and the row's five
 // reductions (two sums, two maxima, one sum) as shuffles (row_reduce.cuh).
@@ -35,23 +26,13 @@
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw
 // device pointers and the current stream, and raises on the returned error.
-#include <math_constants.h>
-
-#include "row_reduce.cuh"
+#include "eg_update.cuh"
 
 namespace {
 
 using namespace kl_simplex;
 
 constexpr int kMaxItems = 32;   // elements per lane held in registers: K <= 1024
-
-__device__ __forceinline__ float centered(float g, float gbar, float m) {
-  return (g - gbar) * m;
-}
-
-__device__ __forceinline__ float eg_logit(float a, float scale, float c) {
-  return logf(clip_unit(a)) - scale * c;
-}
 
 template <typename T, int ITEMS>
 __global__ void __launch_bounds__(kThreads)
@@ -63,7 +44,6 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const long long base = row * k;
   float a[ITEMS], g[ITEMS], m[ITEMS];
-  float m_sum = 0.0f, gm_sum = 0.0f;
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const int j = lane + 32 * i;
@@ -71,38 +51,12 @@ __global__ void __launch_bounds__(kThreads)
     a[i] = in_row ? to_float(alpha[base + j]) : 0.0f;
     g[i] = in_row ? to_float(grad[base + j]) : 0.0f;
     m[i] = in_row ? to_float(mask[base + j]) : 0.0f;
-    m_sum += m[i];
-    gm_sum += g[i] * m[i];
   }
-  const float n_active = fmaxf(warp_sum(m_sum), 1.0f);
-  const float gbar = warp_sum(gm_sum) / n_active;
-  float c_max = 0.0f;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    g[i] = centered(g[i], gbar, m[i]);   // g now holds c
-    c_max = fmaxf(c_max, fabsf(g[i]));
-  }
-  const float scale = step / fmaxf(warp_max(c_max), 1.0f);
-  float z_max = -CUDART_INF_F;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    if (m[i] > 0.0f) {
-      a[i] = eg_logit(a[i], scale, g[i]);   // a now holds the logit
-      z_max = fmaxf(z_max, a[i]);
-    }
-  }
-  z_max = warp_max(z_max);
-  float e_sum = 0.0f;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    a[i] = m[i] > 0.0f ? expf(a[i] - z_max) : 0.0f;   // a now holds e
-    e_sum += a[i];
-  }
-  const float denom = fmaxf(warp_sum(e_sum), kEps);
+  eg_update_row<ITEMS>(a, g, m, step);
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const int j = lane + 32 * i;
-    if (j < k) out[base + j] = a[i] / denom;
+    if (j < k) out[base + j] = a[i];
   }
 }
 
@@ -130,8 +84,8 @@ __global__ void __launch_bounds__(kThreads)
 
   float c_max = 0.0f;
   for (int j = lane; j < k; j += 32) {
-    c_max = fmaxf(c_max, fabsf(centered(to_float(g_row[j]), gbar,
-                                        to_float(m_row[j]))));
+    c_max = fmaxf(c_max, fabsf(eg_centered(to_float(g_row[j]), gbar,
+                                           to_float(m_row[j]))));
   }
   const float scale = step / fmaxf(warp_max(c_max), 1.0f);
 
@@ -140,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
     const float m = to_float(m_row[j]);
     if (m > 0.0f) {
       z_max = fmaxf(z_max, eg_logit(to_float(a_row[j]), scale,
-                                    centered(to_float(g_row[j]), gbar, m)));
+                                    eg_centered(to_float(g_row[j]), gbar, m)));
     }
   }
   z_max = warp_max(z_max);
@@ -150,19 +104,19 @@ __global__ void __launch_bounds__(kThreads)
     const float m = to_float(m_row[j]);
     if (m > 0.0f) {
       e_sum += expf(eg_logit(to_float(a_row[j]), scale,
-                             centered(to_float(g_row[j]), gbar, m)) - z_max);
+                             eg_centered(to_float(g_row[j]), gbar, m)) - z_max);
     }
   }
-  const float denom = fmaxf(warp_sum(e_sum), kEps);
+  const float inv_denom = 1.0f / fmaxf(warp_sum(e_sum), kEps);
 
   for (int j = lane; j < k; j += 32) {
     const float m = to_float(m_row[j]);
     float e = 0.0f;
     if (m > 0.0f) {
       e = expf(eg_logit(to_float(a_row[j]), scale,
-                        centered(to_float(g_row[j]), gbar, m)) - z_max);
+                        eg_centered(to_float(g_row[j]), gbar, m)) - z_max);
     }
-    o_row[j] = e / denom;
+    o_row[j] = e * inv_denom;   // as eg_update_row
   }
 }
 

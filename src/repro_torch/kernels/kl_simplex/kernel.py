@@ -5,7 +5,10 @@
 * ``entropy_rows(states)`` — per-row entropy in bits
   (``csrc/entropy_rows.cu``), Eq. (8);
 * ``eg_step(alpha, grad, mask, step_size=)`` — one masked
-  exponentiated-gradient step of the P1 solver per row (``csrc/eg_step.cu``).
+  exponentiated-gradient step of the P1 solver per row (``csrc/eg_step.cu``);
+* ``eg_solve(states, target, mask, num_steps=, step_size=)`` — every EG step
+  of a P1 solve in one launch (``csrc/eg_solve.cu``), for a state matrix
+  that fits one block's shared memory (``eg_solve_fits``, ``eg_solve_max_k``).
 
 Counterparts of the Pallas kernels of ``repro.kernels.kl_simplex.kernel``.
 The sources carry their design notes. They are compiled by ``nvcc`` at first
@@ -33,6 +36,7 @@ Tensor = torch.Tensor
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "eg_step": CSRC / "eg_step.cu",
+    "eg_solve": CSRC / "eg_solve.cu",
     "kl_rows": CSRC / "kl_rows.cu",
     "entropy_rows": CSRC / "entropy_rows.cu",
 }
@@ -50,7 +54,7 @@ def reset_launch_counts() -> None:
 
 
 def build() -> None:
-    """Compile (the three sources in parallel) and load the kernels; a no-op
+    """Compile (the four sources in parallel) and load the kernels; a no-op
     once loaded. Called by the wrappers at first launch."""
     if _LIBS:
         return
@@ -59,6 +63,14 @@ def build() -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs["eg_step"].eg_step_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
                                                ctypes.c_float, i32, ptr]
+    libs["eg_solve"].eg_solve_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                                 i32, ctypes.c_float, ptr]
+    libs["eg_solve"].eg_solve_fits.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    libs["eg_solve"].eg_solve_fits.restype = i32
+    libs["eg_solve"].eg_solve_max_k.argtypes = [ctypes.POINTER(i32)]
+    libs["eg_solve"].eg_solve_max_k.restype = i32
+    libs["eg_solve"].eg_solve_smem_bytes.argtypes = [i32, i32]
+    libs["eg_solve"].eg_solve_smem_bytes.restype = ctypes.c_longlong
     libs["kl_rows"].kl_rows_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     libs["entropy_rows"].entropy_rows_launch.argtypes = [ptr, ptr, i32, i32, i32,
                                                          ptr]
@@ -162,3 +174,79 @@ def eg_step(alpha: Tensor, grad: Tensor, mask: Tensor, *,
         return out
     return _launch(name, out, alpha.data_ptr(), grad.data_ptr(), mask.data_ptr(),
                    out.data_ptr(), v, k, step, _DTYPE_CODE[alpha.dtype])
+
+
+def _device_query(fn_name: str, *args, device=None) -> int:
+    """Call an ``eg_solve_*`` query of the library on ``device`` (the current
+    CUDA device when None) and return the value it wrote; raises on a CUDA
+    error. Builds the kernels on first use."""
+    build()
+    value = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = getattr(_LIBS["eg_solve"], fn_name)(*args, ctypes.byref(value))
+    _raise_on(code, "eg_solve")
+    return value.value
+
+
+def eg_solve_fits(d: int, k: int, device=None) -> bool:
+    """Whether ``eg_solve`` takes a ``[d, k]`` state matrix on ``device``: S
+    fits one block's shared memory there (builds the kernels on first use)."""
+    return bool(_device_query("eg_solve_fits", d, k, device=device))
+
+
+def eg_solve_max_k(device=None) -> int:
+    """The largest K for which ``eg_solve`` takes a ``[K, K]`` state matrix on
+    ``device`` (builds the kernels on first use)."""
+    return _device_query("eg_solve_max_k", device=device)
+
+
+def eg_solve_smem_bytes(d: int, k: int) -> int:
+    """Shared memory one block of ``eg_solve`` takes for a ``[d, k]`` state
+    matrix (builds the kernels on first use)."""
+    build()
+    return int(_LIBS["eg_solve"].eg_solve_smem_bytes(d, k))
+
+
+def eg_solve(states: Tensor, target: Tensor, mask: Tensor, *, num_steps: int,
+             step_size: float = 2.0) -> Tensor:
+    """Every exponentiated-gradient step of a P1 solve in one launch: states
+    ``[D, K]``, target ``[K]``, mask ``[R, D]`` (0/1 contacts), all f32 and
+    contiguous on one device -> alpha ``[R, D]`` f32 after ``num_steps``
+    steps from ``mask / max(sum mask, 1)``, rows on the simplex, exactly 0
+    off the mask (a row with an empty mask is all 0). Raises on a shape that
+    does not fit one block (``eg_solve_fits``): ``ops.solve_p1_all_fused``
+    takes the per-step loop there."""
+    name = "eg_solve"
+    _check_rows(states, "states", name)
+    _check_rows(mask, "mask", name)
+    for what, t in (("target", target), ("mask", mask)):
+        if t.device != states.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, states on {states.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+    if states.dtype != torch.float32:
+        raise TypeError(f"{name}: states must be float32, got {states.dtype}")
+    d, k = states.shape
+    if target.shape != (k,) or not target.is_contiguous():
+        raise ValueError(f"{name}: target must be a contiguous [K] = [{k}] tensor, got "
+                         f"shape {tuple(target.shape)}")
+    if mask.shape[1] != d:
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} does not match states "
+                         f"{tuple(states.shape)}: one column per row of states")
+    if int(num_steps) != num_steps or num_steps < 0:
+        raise ValueError(f"{name}: num_steps must be an integer >= 0, got {num_steps}")
+    step = float(step_size)
+    if not math.isfinite(step):
+        raise ValueError(f"{name}: step_size must be finite, got {step_size}")
+    if not eg_solve_fits(d, k, states.device):
+        raise ValueError(
+            f"{name}: states [{d}, {k}] do not fit one block "
+            f"({eg_solve_smem_bytes(d, k)} B of shared memory; the largest square state "
+            f"matrix is [{eg_solve_max_k(states.device)}]^2): solve_p1_all_fused takes "
+            "the per-step loop there")
+    r = mask.shape[0]
+    out = torch.empty((r, d), dtype=torch.float32, device=states.device)
+    if r == 0:
+        return out
+    return _launch(name, out, states.data_ptr(), target.data_ptr(), mask.data_ptr(),
+                   out.data_ptr(), r, d, k, int(num_steps), step)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ...precision import full_f32_matmul
+
 Tensor = torch.Tensor
 
 _EPS = 1e-12
@@ -48,3 +50,32 @@ def eg_step_ref(alpha: Tensor, grad: Tensor, mask: Tensor,
                          torch.full((), float("-inf"), device=a.device))
     new = torch.softmax(logits, dim=1) * m
     return new / torch.clamp(torch.sum(new, dim=1, keepdim=True), min=_EPS)
+
+
+def eg_iterate(states: Tensor, target: Tensor, mask: Tensor, num_steps: int,
+               step_size: float, step) -> Tensor:
+    """The P1 iteration of ``solve_p1_all_fused`` with ``step`` as its EG step
+    (``eg_step_ref``, or the ``eg_step`` kernel on the card): alpha ``[R, D]``
+    from states ``[D, K]``, target ``[K]``, mask ``[R, D]``, starting at
+    ``mask / max(sum mask, 1)``; the two products in full f32."""
+    s = states.to(torch.float32)
+    m = mask.to(torch.float32)
+    alpha = m / torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1.0)
+    log_g = torch.log(torch.clamp(target.to(torch.float32), min=_EPS))
+    with full_f32_matmul():
+        for _ in range(num_steps):
+            u = torch.clamp(alpha @ s, min=_EPS)          # [R, K] mixed states
+            grad = (torch.log(u) - log_g + 1.0) @ s.T     # [R, D] dKL/dalpha
+            alpha = step(alpha, grad, m, step_size=step_size)
+    return alpha
+
+
+def eg_solve_ref(states: Tensor, target: Tensor, mask: Tensor, *, num_steps: int,
+                 step_size: float = 2.0) -> Tensor:
+    """Plain version of the ``eg_solve`` kernel: ``num_steps`` EG steps of
+    ``eg_step_ref`` -> alpha ``[R, D]`` f32. A row with an empty mask is 0,
+    the kernel's rule (``eg_step_ref`` gives NaN there, and rows never mix,
+    so the NaN stays in that row until it is zeroed here)."""
+    alpha = eg_iterate(states, target, mask, num_steps, step_size, eg_step_ref)
+    empty = ~torch.any(mask > 0, dim=1, keepdim=True)
+    return torch.where(empty, torch.zeros((), device=alpha.device), alpha)

@@ -74,7 +74,7 @@ def test_gather_kernel_matches_plain_version(card, k_out, k_in, p, dtype):
 
 
 def test_mix_params_cuda_launches_one_kernel_per_mix(card):
-    """Dense: one grouped launch for all the leaves; sparse: one per leaf."""
+    """Dense and sparse: one grouped launch for all the leaves."""
     r = np.random.default_rng(0)
     k = 6
     tree = {"a": torch.as_tensor(r.normal(size=(k, 3, 5)).astype(np.float32)).to(card),
@@ -83,8 +83,7 @@ def test_mix_params_cuda_launches_one_kernel_per_mix(card):
     idx = torch.as_tensor(r.integers(0, k, size=(k, 3)).astype(np.int32)).to(card)
     ws = torch.as_tensor(r.random((k, 3)).astype(np.float32)).to(card)
     for mixing, name, launches in ((w, "gossip_mix_matmul", 1),
-                                   (contacts.SparseMixing(idx, ws), "gossip_mix_gather",
-                                    len(tree))):
+                                   (contacts.SparseMixing(idx, ws), "gossip_mix_gather", 1)):
         kernel.reset_launch_counts()
         got = mix_params_cuda(mixing, tree)
         want = aggregation.mix_params(mixing, tree)
@@ -154,6 +153,87 @@ def test_grouped_matmul_splits_a_group_past_the_table(card):
         assert _err(got[name], gossip_mix_matmul_ref(w, x)) <= 1e-5
 
 
+def _neighbours(k_out, k_in, d, seed, card):
+    r = np.random.default_rng(seed)
+    idx = torch.as_tensor(r.integers(0, k_in, size=(k_out, d)).astype(np.int32)).to(card)
+    w = r.random((k_out, d)).astype(np.float32)
+    w[:, -1] = 0.0                                  # a zero-weight padding slot
+    return idx, torch.as_tensor(w).to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k_out,k_in,d", [(100, 100, 9), (3, 8, 5), (8, 13, 4), (33, 300, 9)])
+def test_grouped_gather_kernel_matches_plain_version_per_leaf(card, k_out, k_in, d, dtype):
+    """Square and rectangular neighbour lists over leaves of one column, of
+    widths not a multiple of the 16-byte vector (element-wise path) and wide
+    ones (16-byte path); one launch for the whole group."""
+    idx, w = _neighbours(k_out, k_in, d, k_out + k_in, card)
+    r = np.random.default_rng(d)
+    flats = [torch.as_tensor(r.normal(size=(k_in, p)).astype(np.float32)).to(dtype).to(card)
+             for p in GROUP_WIDTHS]
+    before = kernel.launch_counts["gossip_mix_gather"]
+    got = kernel.gossip_mix_gather_grouped(idx, w, flats)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_gather"] == before + 1
+    for x, out in zip(flats, got):
+        assert out.shape == (k_out, x.shape[1]) and out.dtype == dtype
+        assert _err(out, gossip_mix_gather_ref(idx, w, x)) <= ATOL[dtype]
+
+
+def test_grouped_gather_takes_an_unaligned_leaf_beside_aligned_ones(card):
+    """A leaf whose rows start 4 bytes past a 16-byte boundary takes the
+    element-wise path inside the same launch as the 16-byte leaves."""
+    idx, w = _neighbours(9, 9, 4, 1, card)
+    r = np.random.default_rng(2)
+    x = torch.as_tensor(r.normal(size=(9, 64)).astype(np.float32)).to(card)
+    shifted = torch.zeros(9 * 64 + 1, device=card)[1:].view(9, 64)
+    shifted.copy_(x)
+    flats = [x, shifted, x[:, :60].contiguous()]
+    before = kernel.launch_counts["gossip_mix_gather"]
+    got = kernel.gossip_mix_gather_grouped(idx, w, flats)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_gather"] == before + 1
+    for x_l, out in zip(flats, got):
+        assert _err(out, gossip_mix_gather_ref(idx, w, x_l)) <= 1e-5
+
+
+def test_grouped_gather_splits_a_group_past_the_table(card):
+    k = 9
+    idx, w = _neighbours(k, k, 4, 3, card)
+    r = np.random.default_rng(3)
+    n = kernel.gather_max_leaves() + 6
+    tree = {f"leaf{i}": torch.as_tensor(r.normal(size=(k, 1 + 37 * i)).astype(np.float32))
+            .to(card) for i in range(n)}
+    kernel.reset_launch_counts()
+    got = mix_params_cuda(contacts.SparseMixing(idx, w), tree)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_gather"] == 2
+    for name, x in tree.items():
+        assert got[name].shape == x.shape
+        assert _err(got[name], gossip_mix_gather_ref(idx, w, x)) <= 1e-5
+
+
+def test_grouped_gather_raises_on_what_the_kernel_does_not_take(card):
+    idx, w = _neighbours(4, 4, 2, 0, card)
+    x = torch.ones(4, 8, device=card)
+    with pytest.raises(TypeError):           # one dtype per group
+        kernel.gossip_mix_gather_grouped(idx, w, [x, x.to(torch.bfloat16)])
+    with pytest.raises(ValueError):          # one K_in per group
+        kernel.gossip_mix_gather_grouped(idx, w, [x, torch.ones(5, 8, device=card)])
+    with pytest.raises(ValueError):          # a leaf on the CPU
+        kernel.gossip_mix_gather_grouped(idx, w, [x, torch.ones(4, 8)])
+    with pytest.raises(ValueError):          # a strided leaf
+        kernel.gossip_mix_gather_grouped(idx, w, [x, torch.ones(8, 4, device=card).t()])
+    with pytest.raises(ValueError):          # idx and w differ in shape
+        kernel.gossip_mix_gather_grouped(idx, w[:, :1].contiguous(), [x])
+    with pytest.raises(TypeError):
+        kernel.gossip_mix_gather_grouped(idx, w.double(), [x])
+    with pytest.raises(RuntimeError):        # D past the block's slot buffer
+        kernel.gossip_mix_gather_grouped(torch.zeros(4, 2000, dtype=torch.int32, device=card),
+                                         torch.zeros(4, 2000, device=card), [x])
+    assert kernel.gossip_mix_gather_grouped(idx, w, []) == []
+
+
 @pytest.mark.parametrize("contact_format", ["sparse", "dense"])
 def test_small_federation_on_the_card_matches_the_cpu(card, contact_format):
     ds = synthetic_mnist(n_train=1200, n_test=200)
@@ -162,10 +242,9 @@ def test_small_federation_on_the_card_matches_the_cpu(card, contact_format):
                 num_rsus=1, p_drop=0.1, contact_format=contact_format)
     kernel.reset_launch_counts()
     on_card = run_simulation(SimulationConfig(**base, device="cuda"), dataset=ds)
-    # sparse: one gather launch per leaf (8) per epoch; dense: one grouped launch
-    used, per_epoch = (("gossip_mix_gather", 8) if contact_format == "sparse"
-                       else ("gossip_mix_matmul", 1))
-    assert kernel.launch_counts[used] == 4 * per_epoch
+    # one grouped launch per epoch's mix, gather (sparse) or matmul (dense)
+    used = "gossip_mix_gather" if contact_format == "sparse" else "gossip_mix_matmul"
+    assert kernel.launch_counts[used] == 4
     on_cpu = run_simulation(SimulationConfig(**base, device="cpu"), dataset=ds)
     np.testing.assert_allclose(on_card.kl_trace, on_cpu.kl_trace, atol=1e-5)
     np.testing.assert_allclose(on_card.comm_mb, on_cpu.comm_mb, atol=1e-5)
@@ -268,7 +347,8 @@ def test_fused_p1_solver_on_the_card_matches_the_cpu(card):
     on_card = kl_simplex.solve_p1_all_fused(s.to(card), g.to(card), c.to(card),
                                             num_steps=200, step_size=2.0)
     torch.cuda.synchronize()
-    assert kl_simplex.kernel.launch_counts["eg_step"] == 200
+    assert kl_simplex.kernel.launch_counts["eg_solve"] == 1
+    assert kl_simplex.kernel.launch_counts["eg_step"] == 0
     on_cpu = kl_simplex.solve_p1_all_fused(s, g, c, num_steps=200, step_size=2.0)
     assert _err(on_card.cpu(), on_cpu) <= 1e-5
     assert bool((on_card.cpu()[c == 0] == 0).all())
@@ -277,13 +357,107 @@ def test_fused_p1_solver_on_the_card_matches_the_cpu(card):
     assert _err(obj, eager) <= 1e-5
 
 
+def _p1_case(v, k, seed, card, empty_row=True):
+    """States [V, K], a target, a 0/1 contact matrix [V, V] with a self
+    contact on every row but row 1, which has no contact at all."""
+    r = np.random.default_rng(seed)
+    s = r.dirichlet(np.ones(k), size=v).astype(np.float32)
+    s[:, r.integers(0, k)] = 0.0
+    g = r.dirichlet(np.ones(k) * 2).astype(np.float32)
+    c = np.minimum((r.random((v, v)) < 0.1) + (r.random((v, v)) < 0.1).T + np.eye(v),
+                   1).astype(np.float32)
+    if empty_row:
+        c[1] = 0.0
+    return tuple(torch.as_tensor(x).to(card) for x in (s, g, c))
+
+
+@pytest.mark.parametrize("num_steps", [1, 200])
+@pytest.mark.parametrize("k", [8, 100, "limit"])
+def test_eg_solve_kernel_matches_plain_version(card, k, num_steps):
+    """The whole solve in one launch against ``eg_solve_ref`` at V = K = 8,
+    100 and the library's limit, one and 200 steps: f32 atol 1e-5, exactly 0
+    off the contacts and on the row with none."""
+    k = kl_simplex.kernel.eg_solve_max_k() if k == "limit" else k
+    s, g, c = _p1_case(k, k, k + num_steps, card)
+    before = dict(kl_simplex.kernel.launch_counts)
+    got = kl_simplex.eg_solve(s, g, c, num_steps=num_steps, step_size=2.0)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["eg_solve"] == before["eg_solve"] + 1
+    assert kl_simplex.kernel.launch_counts["eg_step"] == before["eg_step"]
+    want = kl_simplex.eg_solve_ref(s, g, c, num_steps=num_steps, step_size=2.0)
+    assert got.shape == (k, k) and got.dtype == torch.float32
+    assert _err(got, want) <= 1e-5
+    assert bool((got[c == 0] == 0).all()) and bool((got[1] == 0).all())
+    rows = got.sum(1)[c.sum(1) > 0]
+    assert torch.allclose(rows, torch.ones_like(rows), atol=1e-5)
+
+
+def test_eg_solve_kernel_on_rectangular_and_unaligned_states(card):
+    """States [D, K] with K not a multiple of 4 (scalar staging), K < D and
+    K > D, a mask of another row count than D."""
+    r = np.random.default_rng(4)
+    for d, k, rows in ((30, 7, 30), (12, 97, 5), (64, 33, 100)):
+        s = torch.as_tensor(r.dirichlet(np.ones(k), size=d).astype(np.float32)).to(card)
+        g = torch.as_tensor(r.dirichlet(np.ones(k)).astype(np.float32)).to(card)
+        m = torch.as_tensor((r.random((rows, d)) < 0.4).astype(np.float32)).to(card)
+        got = kl_simplex.eg_solve(s, g, m, num_steps=50)
+        want = kl_simplex.eg_solve_ref(s, g, m, num_steps=50)
+        torch.cuda.synchronize()
+        assert got.shape == (rows, d)
+        assert _err(got, want) <= 1e-5 and bool((got[m == 0] == 0).all())
+
+
+def test_p1_solve_past_the_limit_takes_the_per_step_loop(card):
+    """K = 300 does not fit one block: ``eg_solve`` raises, and
+    ``solve_p1_all_fused`` takes one ``eg_step`` launch per step, held to the
+    same checks."""
+    from repro_torch.core import kl_solver
+    k = 300
+    assert not kl_simplex.kernel.eg_solve_fits(k, k)
+    assert kl_simplex.kernel.eg_solve_fits(100, 100)
+    s, g, c = _p1_case(k, k, 5, card, empty_row=False)
+    with pytest.raises(ValueError, match="do not fit"):
+        kl_simplex.eg_solve(s, g, c, num_steps=40)
+    kl_simplex.kernel.reset_launch_counts()
+    alpha = kl_simplex.solve_p1_all_fused(s, g, c, num_steps=40, step_size=2.0)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["eg_step"] == 40
+    assert kl_simplex.kernel.launch_counts["eg_solve"] == 0
+    assert _err(alpha, kl_simplex.eg_solve_ref(s, g, c, num_steps=40)) <= 1e-5
+    assert bool((alpha[c == 0] == 0).all())
+    rows = alpha.sum(1)
+    assert torch.allclose(rows, torch.ones_like(rows), atol=1e-5)
+    eager = kl_solver.solve_p1_all(s, g, c, num_steps=40, step_size=2.0)
+    assert _err(kl_solver.kl_objective(alpha, s, g), kl_solver.kl_objective(eager, s, g)) <= 1e-5
+
+
+def test_eg_solve_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    s, g, c = _p1_case(8, 8, 0, card)
+    with pytest.raises(TypeError):
+        kl_simplex.eg_solve(s.to(torch.bfloat16), g, c, num_steps=2)
+    with pytest.raises(TypeError):
+        kl_simplex.eg_solve(s, g.double(), c, num_steps=2)
+    with pytest.raises(ValueError):           # target of the wrong length
+        kl_simplex.eg_solve(s, g[:7].contiguous(), c, num_steps=2)
+    with pytest.raises(ValueError):           # mask columns != rows of states
+        kl_simplex.eg_solve(s, g, c[:, :7].contiguous(), num_steps=2)
+    with pytest.raises(ValueError):
+        kl_simplex.eg_solve(s, g, c.t(), num_steps=2)
+    with pytest.raises(ValueError):
+        kl_simplex.eg_solve(s, g.cpu(), c, num_steps=2)
+    with pytest.raises(ValueError):
+        kl_simplex.eg_solve(s, g, c, num_steps=-1)
+    with pytest.raises(ValueError):
+        kl_simplex.eg_solve(s, g, c, num_steps=2, step_size=float("nan"))
+
+
 def test_sp_run_on_the_card_matches_the_cpu(card):
     ds = synthetic_mnist(n_train=1200, n_test=200)
     base = dict(algorithm="sp", num_vehicles=8, epochs=3, eval_every=3, eval_samples=200,
                 comm_range=250.0, num_rsus=1, p_drop=0.1)
     kernel.reset_launch_counts()
     on_card = run_simulation(SimulationConfig(**base, device="cuda"), dataset=ds)
-    assert kernel.launch_counts["gossip_mix_gather"] == 3 * 8
+    assert kernel.launch_counts["gossip_mix_gather"] == 3
     on_cpu = run_simulation(SimulationConfig(**base, device="cpu"), dataset=ds)
     np.testing.assert_allclose(on_card.kl_trace, on_cpu.kl_trace, atol=1e-5)
     np.testing.assert_allclose(on_card.comm_mb, on_cpu.comm_mb, atol=1e-5)

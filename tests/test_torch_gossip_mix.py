@@ -188,3 +188,29 @@ def test_mix_params_cuda_cpu_route_on_mixed_widths(k_out, k_in):
         assert got[name].shape == (k_out,) + x.shape[1:] and got[name].dtype == x.dtype
         tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-5
         np.testing.assert_allclose(_f32(got[name]), _f32(want[name]), atol=tol)
+
+
+@pytest.mark.parametrize("k_out,k_in,d", [(16, 16, 9), (7, 13, 4)])
+def test_grouped_gather_cpu_route_matches_pallas_gather_per_leaf(k_out, k_in, d):
+    """The sparse mix of a dictionary of the CNN's leaf widths, a width that
+    is not a multiple of 4 and a bf16 leaf, square and rectangular neighbour
+    lists: ``mix_params_cuda``'s CPU route (what the grouped gather computes
+    on the card) against the reference's Pallas gather in interpret mode,
+    leaf by leaf, launching nothing."""
+    r = np.random.default_rng(k_out * 10 + d)
+    idx = r.integers(0, k_in, size=(k_out, d)).astype(np.int32)
+    w = r.random((k_out, d)).astype(np.float32)
+    w[:, -1] = 0.0                                   # a zero-weight padding slot
+    tree = {f"leaf{i}": r.normal(size=(k_in, p)).astype(np.float32)
+            for i, p in enumerate(CNN_WIDTHS + [7])}
+    tree["half"] = r.normal(size=(k_in, 33)).astype(np.float32)
+    dtypes = {name: jnp.bfloat16 if name == "half" else jnp.float32 for name in tree}
+    tree_t = {n: T(x).to(TORCH_DTYPE[dtypes[n]]) for n, x in tree.items()}
+    kernel.reset_launch_counts()
+    got = mix_params_cuda(contacts.SparseMixing(T(idx), T(w)), tree_t)
+    assert kernel.launch_counts == {"gossip_mix_gather": 0, "gossip_mix_matmul": 0}
+    for name, x in tree.items():
+        want = gossip_mix_gather(jnp.asarray(idx), jnp.asarray(w),
+                                 jnp.asarray(x, dtypes[name]), interpret=True)
+        assert got[name].shape == (k_out, x.shape[1]) and got[name].dtype == tree_t[name].dtype
+        np.testing.assert_allclose(_f32(got[name]), _f32(want), atol=_tol(dtypes[name]))

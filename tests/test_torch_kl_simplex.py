@@ -126,7 +126,63 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     a, gr, m = _eg_inputs(3, 5, 0)
     for call in (lambda: kl_simplex.kl_rows_kernel(T(s), T(g)),
                  lambda: kl_simplex.entropy_rows_kernel(T(s)),
-                 lambda: kl_simplex.eg_step(T(a), T(gr), T(m))):
+                 lambda: kl_simplex.eg_step(T(a), T(gr), T(m)),
+                 lambda: kl_simplex.eg_solve(T(s), T(g), T(m[:, :3]).contiguous(),
+                                             num_steps=2)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert sorted(kl_simplex.kernel.launch_counts) == ["eg_step", "entropy_rows", "kl_rows"]
+    assert sorted(kl_simplex.kernel.launch_counts) == ["eg_solve", "eg_step", "entropy_rows",
+                                                       "kl_rows"]
+
+
+def _p1_case(v, k, seed, empty_row):
+    """States [V, K], a target, a 0/1 contact matrix [V, V] with a self
+    contact on every row; with ``empty_row``, row 1 has no contact at all."""
+    r = np.random.default_rng(seed)
+    s = r.dirichlet(np.ones(k), size=v).astype(np.float32)
+    s[:, r.integers(0, k)] = 0.0                    # a data source nobody holds
+    g = r.dirichlet(np.ones(k) * 2).astype(np.float32)
+    c = np.minimum((r.random((v, v)) < 0.3) + np.eye(v), 1).astype(np.float32)
+    if empty_row:
+        c[1] = 0.0
+    return s, g, c
+
+
+@pytest.mark.parametrize("v,k,num_steps,step,empty_row",
+                         [(20, 20, 200, 2.0, True), (20, 20, 200, 2.0, False),
+                          (8, 8, 1, 2.0, True), (12, 30, 60, 0.5, True)])
+def test_eg_solve_ref_matches_reference_fused_solver(v, k, num_steps, step, empty_row):
+    """``eg_solve_ref`` (the plain version of the one-launch solve, and the
+    CPU route of ``solve_p1_all_fused``) against the reference's fused solver
+    with its Pallas eg_step in interpret mode: a row with no contact is 0 in
+    both."""
+    s, g, c = _p1_case(v, k, v * 31 + num_steps, empty_row)
+    want = np.asarray(ref_kl.solve_p1_all_fused(
+        jnp.asarray(s), jnp.asarray(g), jnp.asarray(c), num_steps=num_steps,
+        step_size=step, interpret=True))
+    got = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=num_steps, step_size=step)
+    assert got.dtype == torch.float32 and got.shape == (v, v)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert (got.numpy()[c == 0] == 0).all()
+    if empty_row:
+        assert (want[1] == 0).all() and (got.numpy()[1] == 0).all()
+    rows = got.numpy().sum(1)[c.sum(1) > 0]
+    np.testing.assert_allclose(rows, 1.0, atol=1e-5)
+    fused = kl_simplex.solve_p1_all_fused(T(s), T(g), T(c), num_steps=num_steps,
+                                          step_size=step)
+    np.testing.assert_array_equal(fused.numpy(), got.numpy())
+
+
+def test_eg_solve_ref_is_the_loop_over_eg_step_ref():
+    """No contact-free row: the plain solve is exactly ``num_steps`` calls of
+    ``eg_step_ref`` between the two full-f32 products."""
+    s, g, c = _p1_case(10, 14, 4, empty_row=False)
+    alpha = T(c) / T(c).sum(1, keepdim=True)
+    for _ in range(25):
+        u = torch.clamp(alpha @ T(s), min=1e-12)
+        grad = (torch.log(u) - torch.log(torch.clamp(T(g), min=1e-12)) + 1.0) @ T(s).T
+        alpha = kl_simplex.eg_step_ref(alpha, grad, T(c), step_size=2.0)
+    got = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=25)
+    np.testing.assert_array_equal(got.numpy(), alpha.numpy())
+    zero = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=0)
+    np.testing.assert_array_equal(zero.numpy(), (T(c) / T(c).sum(1, keepdim=True)).numpy())
