@@ -15,8 +15,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the reference's test shapes and at the main path's shapes
                (tolerance: f32 atol 1e-5, bf16 atol 5e-2; flash attention f32
                2e-5, bf16 3e-2), the grouped launches over groups of leaves,
-               the one-launch P1 solve up to the library's limit, the wrappers'
-               refusals, and each kernel's time there (kl_simplex kernels also
+               the one-launch P1 solve up to the library's limit, the two mixes
+               with the seed axis (S=3 seeds in one launch; also on the
+               zero-diagonal mixing of delayed gossip, with a row of no
+               contact), the wrappers' refusals, and each kernel's time there (kl_simplex kernels also
                at K = 1024; the P1 solve per 200-step solve; flash attention at
                the serving shape B=4, S=T=2048, H=16, KV=8, hd=128).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
@@ -39,6 +41,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                same full width, 2 epochs, both contact formats, through the
                gossip-mix kernels (one grouped launch per round);
                seconds per epoch of each.
+6b. seeds    — ``engine.run_seeds`` of S=3 ``dds`` federations at the same full
+               width, 4 epochs, once per contact format, then with
+               ``overlap="delayed"`` (sparse): each gossip-mix kernel launches
+               once per round for all three seeds (4 launches, not 12), and
+               each seed's ``kl_divergence`` / ``entropy`` / ``comm_mb`` agree
+               with a single run of that seed on the card (atol 1e-5);
+               seconds per epoch of the batch and of the single runs, peak
+               device memory. The delayed anchor (W = I, p_drop = 1) bit for
+               bit through the kernels at full width and end to end at a small
+               size. Then the port's smoke campaign (figures 2, 3, 8, 9, 10 and
+               overlap; K=8, 15 epochs, seeds 0 1 2, forced, into a store in a
+               temporary directory): every scenario must finish with finite
+               trajectories; the ordering checks are printed as n_passed /
+               n_checks and do not gate the exit code.
 7. diagnostics — ``kl_rows`` / ``entropy_rows`` through their kernels on every
                algorithm's final state matrix, held to that run's last
                ``kl_divergence`` / ``entropy`` diagnostics; then small federations
@@ -69,6 +85,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -82,15 +99,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import convert, kernels as kernels_lib  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregation, contacts as contacts_lib, dfl_dds, kl_solver  # noqa: E402
+from repro_torch.core import vehicle_axis  # noqa: E402
 from repro_torch.data import datasets as data_lib  # noqa: E402
 from repro_torch.data.synthetic import synthetic_mnist  # noqa: E402
 from repro_torch.fed import engine, topology  # noqa: E402
 from repro_torch.fed.simulator import SimulationConfig, run_simulation  # noqa: E402
+from repro_torch.figures import common as figures_common  # noqa: E402
 from repro_torch.kernels import build as build_lib  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kl_simplex  # noqa: E402
 from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import campaign as campaign_lib, serve  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
@@ -104,6 +123,7 @@ EPOCHS = 4                    # depth of the main-path runs: two evals at eval_e
 BASELINE_EPOCHS = 2           # depth of each baseline run, evaluated every epoch
 BASELINES = ("dfl", "d_sgd", "d_fedavg", "sp")
 P1_K_PAST_LIMIT = 300         # a P1 problem past eg_solve's limit: the per-step path
+SEEDS = (0, 1, 2)             # the seed axis of the seeds phase (run_seeds)
 LN2 = float(np.log(2.0))
 # the MNIST CNN's eight leaves, flattened: conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b
 LEAF_WIDTHS = [250, 10, 5000, 20, 16000, 50, 500, 10]
@@ -334,6 +354,90 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
         pass
     log("  ok: wrappers raise on wrong shape / dtype / layout / device / mixed dtypes / "
         "mixed K_in / D past the slot buffer")
+    return worst
+
+
+def seed_mixings(full: SimulationConfig, device):
+    """The first epoch's uniform mixing of each seed of ``SEEDS`` at the main
+    path's configuration, stacked on the seed axis: a ``SparseMixing`` ``[S,
+    K, D]`` (the widest seed's D) and the same weights dense, ``[S, K, K]``."""
+    windows = []
+    for seed in SEEDS:
+        cfg = replace(full, seed=seed)
+        net = topology.make_road_network(cfg.road_net, seed=seed)
+        windows.append(engine.ContactStream(cfg, net).window(1))
+    stacked = contacts_lib.to_device(contacts_lib.stack_windows(windows), device)
+    sparse = aggregation.uniform_mixing(contacts_lib.epoch_of(stacked, 0, axis=1))
+    dense = torch.stack([
+        torch.as_tensor(contacts_lib.mixing_to_dense(contacts_lib.SparseMixing(i, w)))
+        for i, w in zip(sparse.idx, sparse.w)]).to(device)
+    return sparse, dense
+
+
+def check_seed_kernels(device, mixing_sparse, mixing_dense) -> dict[str, float]:
+    """Both mixes with the seed axis against their plain versions on the
+    card: S seeds of the model's 8 leaves in ONE launch, f32 and bf16, on
+    the seeds' mixing and on its neighbour-only part (delayed gossip: zero
+    diagonal, rows summing to less than one, and one vehicle of seed 0 that
+    met no one — an all-zero row, whose output must be exactly 0). Returns
+    the largest absolute error per kernel; fails past the tolerance."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    seeds, k = mixing_dense.shape[:2]
+    nbr_dense = vehicle_axis.zero_self_weight(mixing_dense).clone()
+    nbr_dense[0, 0] = 0.0
+    nbr = vehicle_axis.zero_self_weight(mixing_sparse)
+    nbr_w = nbr.w.clone()
+    nbr_w[0, 0] = 0.0
+    nbr_sparse = contacts_lib.SparseMixing(nbr.idx, nbr_w)
+    sums = nbr_dense.sum(-1)
+    check(bool((sums < 1.0).all()) and float(sums[0, 0]) == 0.0
+          and _max_err(torch.as_tensor(contacts_lib.mixing_to_dense(
+              contacts_lib.SparseMixing(nbr_sparse.idx[1], nbr_sparse.w[1]))),
+              nbr_dense[1].cpu()) <= 1e-7,
+          "delayed-gossip mixing: zero diagonal, every row sums below 1, row 0 of "
+          "seed 0 all zeros, the two formats agree")
+    worst = {"gossip_mix_gather": 0.0, "gossip_mix_matmul": 0.0}
+    r = np.random.default_rng(5)
+    for dtype in (f32, bf16):
+        leaves = [torch.as_tensor(r.normal(size=(seeds, k, p)).astype(np.float32))
+                  .to(device).to(dtype) for p in LEAF_WIDTHS]
+        for what, dense, sparse in (("sync", mixing_dense, mixing_sparse),
+                                    ("neighbour-only", nbr_dense, nbr_sparse)):
+            idx = sparse.idx.to(torch.int32).contiguous()
+            w = sparse.w.contiguous()
+            for name, launch, plain in (
+                    ("gossip_mix_matmul",
+                     lambda: kernel.gossip_mix_matmul_grouped(dense, leaves),
+                     lambda x: ref.gossip_mix_matmul_ref(dense, x)),
+                    ("gossip_mix_gather",
+                     lambda: kernel.gossip_mix_gather_grouped(idx, w, leaves),
+                     lambda x: ref.gossip_mix_gather_ref(idx, w, x))):
+                before = kernel.launch_counts[name]
+                outs = launch()
+                torch.cuda.synchronize()
+                launches = kernel.launch_counts[name] - before
+                err = max(_max_err(o, plain(x)) for o, x in zip(outs, leaves))
+                zero_row = what == "sync" or all(
+                    float(o[0, 0].float().abs().max()) == 0.0 for o in outs)
+                check(launches == 1 and err <= ATOL[dtype] and zero_row
+                      and all(o.shape == x.shape and o.dtype == dtype
+                              for o, x in zip(outs, leaves)),
+                      f"{name} seed axis, {what} mixing: 1 launch over S={seeds} seeds x "
+                      f"{len(leaves)} leaves, K={k}, {dtype}, max err {err:.2e}")
+                worst[name] = max(worst[name], err)
+    x = torch.zeros(seeds, k, 8, device=device)
+    for bad in (lambda: kernel.gossip_mix_matmul_grouped(mixing_dense[:2], [x]),   # S
+                lambda: kernel.gossip_mix_gather_grouped(
+                    mixing_sparse.idx[:2].int().contiguous(),
+                    mixing_sparse.w[:2].contiguous(), [x]),
+                lambda: kernel.gossip_mix_matmul_grouped(mixing_dense, [x[0]])):  # rank
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise SystemExit("FAILED: a seed-axis wrapper accepted an input its kernel "
+                         "does not take")
+    log("  ok: seed-axis wrappers raise on a seed count or rank that does not match")
     return worst
 
 
@@ -1003,6 +1107,221 @@ def check_card_against_cpu(device: str, algorithms=("dds", "sp", "d_sgd")) -> No
               f"max diff {err:.2e}")
 
 
+def time_seed_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
+    """Times of one round's mix with the seed axis: S seeds x the model's 8
+    leaves in one launch, gather or matmul; plain versions and library calls
+    per leaf (the library's sparse product over the block-diagonal ``[S*K,
+    S*K]`` CSR of the seeds' weights, which stores only the real slots)."""
+    seeds, k = mixing_dense.shape[:2]
+    r = np.random.default_rng(1)
+    leaves = [torch.as_tensor(r.normal(size=(seeds, k, p)).astype(np.float32)).to(device)
+              for p in LEAF_WIDTHS]
+    folded = [x.reshape(seeds * k, -1) for x in leaves]
+    idx = mixing_sparse.idx.to(torch.int32).contiguous()
+    w = mixing_sparse.w.contiguous()
+    nnz = int((w != 0).sum())
+    d = idx.shape[-1]
+    csr = torch.block_diag(*mixing_dense).to_sparse_csr()
+    model_bytes = sum(2 * seeds * k * p * 4 for p in LEAF_WIDTHS)
+    specs = {
+        "gossip_mix_gather": dict(
+            round=lambda: kernel.gossip_mix_gather_grouped(idx, w, leaves),
+            plain=lambda: [ref.gossip_mix_gather_ref(idx, w, x) for x in leaves],
+            library=lambda: [torch.sparse.mm(csr, x) for x in folded],
+            bytes=model_bytes + seeds * k * d * 8,
+            flops=2 * nnz * sum(LEAF_WIDTHS),
+            work=f"one round's mix of S={seeds} seeds: 1 grouped launch over "
+                 f"{len(leaves)} leaves [S, K={k}, P], D={d}, {nnz} real slots; "
+                 f"library_ms: {len(leaves)} torch.sparse.mm calls (block-diagonal CSR)"),
+        "gossip_mix_matmul": dict(
+            round=lambda: kernel.gossip_mix_matmul_grouped(mixing_dense, leaves),
+            plain=lambda: [ref.gossip_mix_matmul_ref(mixing_dense, x) for x in leaves],
+            library=lambda: [torch.matmul(mixing_dense, x) for x in leaves],
+            bytes=model_bytes + seeds * k * k * 4,
+            flops=2 * seeds * k * k * sum(LEAF_WIDTHS),
+            work=f"one round's mix of S={seeds} seeds: 1 grouped launch over "
+                 f"{len(leaves)} leaves [S, K={k}, P], W [S, K, K]; library_ms: "
+                 f"{len(leaves)} batched torch.matmul calls"),
+    }
+    out = {}
+    for name, spec in specs.items():
+        out[name] = {"seeds": seeds, **_timed(spec["round"], spec["plain"], spec["library"],
+                                              spec["bytes"], spec["flops"], spec["work"])}
+        log(f"  {name} seed axis: {json.dumps(out[name])}")
+    return out
+
+
+# ---------------------------------------------------------------- seeds ----
+
+def _seconds_of(fn, device: str) -> tuple[float, object]:
+    """Host seconds of ``fn()`` with the card drained before and after."""
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return time.perf_counter() - t0, out
+
+
+def drive_seeds(full: SimulationConfig, dataset) -> tuple[dict, dict]:
+    """``engine.run_seeds`` of S=len(SEEDS) ``dds`` federations at full
+    width, per contact format and under delayed gossip (sparse), each after a
+    one-epoch warm-up; the counters zeroed just before each batch and read
+    just after. Every seed's deterministic traces are held to a single run of
+    that seed on the card. Returns the report and the mix launches per
+    kernel (summed over the three batches)."""
+    device = full.device
+    on_card = device != "cpu"
+    report, launches = {}, {}
+    for fmt, overlap in (("sparse", "sync"), ("dense", "sync"), ("sparse", "delayed")):
+        cfg = replace(full, contact_format=fmt, overlap=overlap)
+        log(f"[seeds] run_seeds S={len(SEEDS)}, contact_format={fmt}, overlap={overlap}")
+        engine.run_seeds(replace(cfg, epochs=1), SEEDS, dataset=dataset)
+        setup_s, _ = _seconds_of(lambda: [engine.build_context(replace(cfg, seed=s),
+                                                               dataset=dataset)
+                                          for s in SEEDS], device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        kernels_lib.reset_launch_counts()
+        batch_s, batch = _seconds_of(lambda: engine.run_seeds(cfg, SEEDS, dataset=dataset),
+                                     device)
+        counts = dict(kernel.launch_counts)
+        peak_batch = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
+        used = "gossip_mix_gather" if fmt == "sparse" else "gossip_mix_matmul"
+        other = next(n for n in counts if n != used)
+        if on_card:
+            check(counts[used] == cfg.epochs and counts[other] == 0,
+                  f"run_seeds {fmt}/{overlap}: {used} launched {counts[used]} times = "
+                  f"{cfg.epochs} rounds x 1 launch for all {len(SEEDS)} seeds "
+                  f"(not {cfg.epochs * len(SEEDS)}); {other} {counts[other]} times")
+        launches[used] = launches.get(used, 0) + counts[used]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        singles_s, worst = 0.0, 0.0
+        for seed, res in zip(SEEDS, batch):
+            traces = [res.kl_trace, res.comm_mb, res.avg_accuracy, res.consensus_distance,
+                      np.stack(res.entropy), np.stack(res.vehicle_accuracy)]
+            check(all(np.isfinite(np.asarray(t)).all() for t in traces)
+                  and len(res.kl_trace) == cfg.epochs,
+                  f"seed {seed}: every trace of the batch is finite")
+            t, single = _seconds_of(
+                lambda: run_simulation(replace(cfg, seed=seed), dataset=dataset), device)
+            singles_s += t
+            diffs = {f: float(np.abs(np.asarray(getattr(res, f), np.float64)
+                                     - np.asarray(getattr(single, f), np.float64)).max())
+                     for f in ("kl_divergence", "entropy", "comm_mb", "kl_trace")}
+            err = max(diffs.values())
+            check(err <= 1e-5 and res.epochs_evaluated == single.epochs_evaluated,
+                  f"seed {seed} {fmt}/{overlap}: batch vs single run, max diff "
+                  + ", ".join(f"{f} {v:.2e}" for f, v in diffs.items()) + " (atol 1e-5)")
+            worst = max(worst, float(err))
+        peak_single = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
+        report[f"{fmt}/{overlap}"] = {
+            "seeds": len(SEEDS), "epochs": cfg.epochs,
+            "setup_s_3_contexts": setup_s,
+            "batch_s_per_epoch_incl_setup": batch_s / cfg.epochs,
+            "batch_s_per_epoch": (batch_s - setup_s) / cfg.epochs,
+            "three_singles_s_per_epoch_incl_setup": singles_s / cfg.epochs,
+            "three_singles_s_per_epoch": (singles_s - setup_s) / cfg.epochs,
+            "peak_device_memory_mb_batch": peak_batch,
+            "peak_device_memory_mb_single": peak_single,
+            "launches": counts, "max_diff_vs_single": worst,
+            "final_accuracy": [r.final_accuracy() for r in batch]}
+        log(f"  {json.dumps(report[f'{fmt}/{overlap}'])}")
+    return report, launches
+
+
+def check_delayed_anchor(full: SimulationConfig) -> None:
+    """The reference's anchor: with W = I the delayed mix is the sync mix bit
+    for bit. (a) Through the mix entry point at full width, S seeds, both
+    formats: the identity mixing over random params and a random stale
+    buffer. (b) End to end at a small size (p_drop = 1, so every W is I),
+    single runs and run_seeds: the deterministic traces bit for bit; the
+    accuracies within the run-to-run floor of two identical sync runs (the
+    card's backward pass sums with atomics; on the CPU the floor is 0)."""
+    device = full.device
+    seeds, k = len(SEEDS), full.num_vehicles
+    r = np.random.default_rng(3)
+    params = {f"leaf{i}": torch.as_tensor(r.normal(size=(seeds, k, p)).astype(np.float32))
+              .to(device) for i, p in enumerate(LEAF_WIDTHS)}
+    stale = {n: torch.as_tensor(r.normal(size=tuple(v.shape)).astype(np.float32)).to(device)
+             for n, v in params.items()}
+    rows = torch.arange(k, dtype=torch.int32, device=device)
+    idx = torch.stack([rows] + [torch.roll(rows, j) for j in (1, 2)], dim=-1)
+    idx = idx.expand(seeds, k, 3).contiguous()
+    w = torch.zeros(seeds, k, 3, device=device)
+    w[..., 0] = 1.0
+    eye = torch.eye(k, device=device).expand(seeds, k, k).contiguous()
+    delayed = vehicle_axis.delayed_gossip_mix(ops.mix_params_cuda)
+    for what, mixing in (("sparse", contacts_lib.SparseMixing(idx, w)), ("dense", eye)):
+        kernels_lib.reset_launch_counts()
+        got = delayed(mixing, params, stale)
+        want = ops.mix_params_cuda(mixing, params)
+        exact = all(torch.equal(got[n], want[n]) and torch.equal(want[n], params[n])
+                    for n in params)
+        n_launch = sum(kernel.launch_counts.values())
+        check(exact and (n_launch == 2 or device == "cpu"),
+              f"delayed anchor, {what}, W = I: delayed mix == sync mix == params bit for "
+              f"bit, S={seeds}, K={k}, {n_launch} kernel launches")
+    base = replace(full, num_vehicles=8, epochs=4, eval_every=2, local_steps=2,
+                   batch_size=16, p1_steps=40, eval_samples=200, p_drop=1.0)
+    small = synthetic_mnist(n_train=1200, n_test=200)
+    sync_a = run_simulation(base, dataset=small)
+    sync_b = run_simulation(base, dataset=small)
+    late = run_simulation(replace(base, overlap="delayed"), dataset=small)
+    floor = float(np.abs(np.asarray(sync_a.avg_accuracy) - np.asarray(sync_b.avg_accuracy)).max())
+    diff = float(np.abs(np.asarray(sync_a.avg_accuracy) - np.asarray(late.avg_accuracy)).max())
+    same = (late.kl_trace == sync_a.kl_trace and late.comm_mb == sync_a.comm_mb
+            and all(np.array_equal(a, b) for a, b in zip(late.entropy, sync_a.entropy)))
+    check(same and diff <= floor,
+          f"delayed anchor end to end (K=8, p_drop=1): kl_trace / comm_mb / entropy bit for "
+          f"bit; accuracy diff {diff:.2e} within the sync-vs-sync floor {floor:.2e}")
+    batch_sync = engine.run_seeds(base, SEEDS, dataset=small)
+    batch_late = engine.run_seeds(replace(base, overlap="delayed"), SEEDS, dataset=small)
+    same = all(a.kl_trace == b.kl_trace and a.comm_mb == b.comm_mb
+               for a, b in zip(batch_sync, batch_late))
+    check(same, "delayed anchor through run_seeds: every seed's kl_trace / comm_mb bit for bit")
+
+
+def drive_campaign(device: str, rehearsal: bool) -> dict:
+    """The port's default figure set at the smoke tier, forced, into a store
+    in a temporary directory (never the tree). Fails if a scenario raises or
+    leaves a non-finite trajectory; the ordering checks are reported, not
+    gated on."""
+    overrides = dict(num_vehicles=6, epochs=3, p1_steps=10, eval_samples=64) if rehearsal else {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = str(Path(tmp) / "campaign_smoke_torch.jsonl")
+        spec = figures_common.campaign_spec("smoke", device=device, store_path=store,
+                                            **overrides)
+        log(f"[campaign] figures {' '.join(spec.figures)}, K={spec.base.num_vehicles}, "
+            f"{spec.base.epochs} epochs, seeds {list(spec.seeds)}, --force, store in a "
+            "temporary directory")
+        t0 = time.perf_counter()
+        results = campaign_lib.run_campaign(spec, force=True)
+        wall = time.perf_counter() - t0
+        rows = {row["spec_hash"]: row for fr in results for row in fr.scenario_rows}
+        for row in rows.values():
+            traces = [row["avg_accuracy"], row["kl_trace"], row["comm_mb"],
+                      row["consensus_distance"], row["final_accuracy"]]
+            check(all(np.isfinite(np.asarray(t, dtype=float)).all() for t in traces),
+                  f"campaign scenario {'/'.join(row['key'])}: finite trajectories, "
+                  f"{row['wall_time_s']:.1f} s")
+        stored = campaign_lib.ResultsStore(store)
+        check(len(stored) == len(rows), f"the store holds the {len(rows)} unique scenarios")
+        n_checks = sum(len(fr.checks) for fr in results)
+        n_passed = sum(c.passed for fr in results for c in fr.checks)
+        for fr in results:
+            for c in fr.checks:
+                log(f"  {'PASS' if c.passed else 'FAIL'} {fr.spec.name}:{c.name} — {c.detail}")
+    summary = {"figures": list(spec.figures), "scenarios": len(rows),
+               "n_passed": n_passed, "n_checks": n_checks, "wall_s": wall,
+               "scenario_wall_s": {"/".join(r["key"]): r["wall_time_s"] for r in rows.values()}}
+    log(f"[campaign] {n_passed}/{n_checks} ordering checks passed (not gated), "
+        f"{len(rows)} scenarios in {wall:.1f} s")
+    log(f"[campaign] {json.dumps(summary)}")
+    return summary
+
+
 # ---------------------------------------------------- P1 entry point ----
 
 def _device_events(fn) -> int | None:
@@ -1246,8 +1565,14 @@ def main() -> int:
             mixing_sparse = aggregation.uniform_mixing(first)
             mixing_dense = torch.as_tensor(
                 contacts_lib.mixing_to_dense(mixing_sparse)).to(device)
+            seeds_sparse, seeds_dense = seed_mixings(full, device)
+            log(f"[kernels] the mixes with the seed axis (S={len(SEEDS)}) on the card")
+            for name, err in check_seed_kernels(device, seeds_sparse, seeds_dense).items():
+                worst[name] = max(worst[name], err)
             log("[kernels] times at the main path's shapes (ms, CUDA events, median)")
             timings = time_kernels(device, mixing_sparse, mixing_dense)
+            for name, row in time_seed_kernels(device, seeds_sparse, seeds_dense).items():
+                timings[name]["seed_axis"] = row
             timings.update(time_kl_kernels(device, full.num_vehicles, full.p1_steps))
         fa_errors = check_flash_attention(device)
         worst["flash_attention"] = fa_errors.pop("max_abs_err")
@@ -1303,6 +1628,13 @@ def main() -> int:
     finals += baseline_finals
     log(f"[baselines] {json.dumps({'seconds_per_epoch': seconds})}")
 
+    # -- 6b. seeds: run_seeds at full width, delayed gossip, the campaign ---
+    seeds_report, seed_launches = drive_seeds(full, dataset)
+    log(f"[seeds] {json.dumps(seeds_report)}")
+    log("[seeds] the delayed-gossip anchor (W = I) bit for bit")
+    check_delayed_anchor(full)
+    campaign = drive_campaign(device, rehearsal)
+
     # -- 7. diagnostics kernels on every final state; card against the CPU --
     log("[diagnostics] kl_rows / entropy_rows on each run's final state matrix")
     launches.update(check_diagnostics(finals, device))
@@ -1323,6 +1655,11 @@ def main() -> int:
         check(launches.get(name, 0) > 0, f"its path launched {name}")
         rows.append({"name": name, **meta, "launches": launches[name],
                      "max_abs_err": worst[name], **timings[name]})
+        if name in seed_launches:
+            check(seed_launches[name] > 0, f"the seeds path launched {name}")
+            rows[-1]["seed_axis"]["launches"] = seed_launches[name]
+    log(f"[seeds] campaign {campaign['n_passed']}/{campaign['n_checks']} ordering checks "
+        f"passed in {campaign['wall_s']:.1f} s")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

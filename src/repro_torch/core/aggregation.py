@@ -18,13 +18,19 @@ representation: a dense ``[K, K]`` matrix yields a dense row-stochastic W,
 a ``contacts.SparseContacts`` neighbour list yields a ``SparseMixing`` with
 the same weights on the same edges (see core/contacts.py).
 
+Each function also takes a leading seed axis (``run_seeds``): ``[S, K, K]``
+dense matrices, ``[S, K, D]`` neighbour lists, ``[S, K, ...]`` leaves and
+``[S, K]`` per-vehicle vectors; every seed's rows go through the operations
+a single run's do.
+
 Still to port from ``repro.core.aggregation``: ``mix_params_lowp``.
 """
 from __future__ import annotations
 
 import torch
 
-from .contacts import SparseContacts, SparseMixing, self_slots, sparse_mix_array
+from .contacts import (SparseContacts, SparseMixing, self_slots,
+                       sparse_mix_array, take_ids)
 
 Tensor = torch.Tensor
 
@@ -60,17 +66,17 @@ def metropolis_mixing(contacts) -> Tensor | SparseMixing:
     if isinstance(contacts, SparseContacts):
         m = contacts.mask.to(torch.float32)
         deg = torch.sum(m, dim=-1) - 1.0                   # exclude self
-        deg_nbr = deg[contacts.idx.long()]                 # [K, D] gather
+        deg_nbr = take_ids(deg, contacts.idx)              # [K, D] gather
         sel = self_slots(contacts)
-        off = m * (1.0 - sel) / (1.0 + torch.maximum(deg[:, None], deg_nbr))
+        off = m * (1.0 - sel) / (1.0 + torch.maximum(deg.unsqueeze(-1), deg_nbr))
         diag = 1.0 - torch.sum(off, dim=-1)
-        return SparseMixing(contacts.idx, off + sel * diag[:, None])
+        return SparseMixing(contacts.idx, off + sel * diag.unsqueeze(-1))
     c = contacts.to(torch.float32)
     deg = torch.sum(c, dim=-1) - 1.0  # exclude self
-    off = c * (1.0 / (1.0 + torch.maximum(deg[:, None], deg[None, :])))
-    off = off * (1.0 - torch.eye(c.shape[0], device=c.device))
+    off = c * (1.0 / (1.0 + torch.maximum(deg.unsqueeze(-1), deg.unsqueeze(-2))))
+    off = off * (1.0 - torch.eye(c.shape[-1], device=c.device))
     diag = 1.0 - torch.sum(off, dim=-1)
-    return off + torch.diag(diag)
+    return off + torch.diag_embed(diag)
 
 
 def sample_size_mixing(contacts, sample_counts: Tensor) -> Tensor | SparseMixing:
@@ -78,9 +84,9 @@ def sample_size_mixing(contacts, sample_counts: Tensor) -> Tensor | SparseMixing
     counts = torch.as_tensor(sample_counts).to(torch.float32)
     if isinstance(contacts, SparseContacts):
         return _renormalize(contacts.idx,
-                            contacts.mask * counts[contacts.idx.long()])
+                            contacts.mask * take_ids(counts, contacts.idx))
     c = contacts.to(torch.float32)
-    w = c * counts[None, :]
+    w = c * counts.unsqueeze(-2)
     return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
 
 
@@ -91,24 +97,31 @@ def mix_params(mixing, params: dict) -> dict:
     (``contacts.sparse_mix_array``); a dense W through a full-f32 matrix
     product over the vehicle axis (the default f32 matmul precision of
     PyTorch is full f32, not TF32). Mixing is f32, cast back to the leaf
-    dtype.
+    dtype. A ``[S, K, K]`` W mixes ``[S, K, ...]`` leaves seed by seed.
     """
     if isinstance(mixing, SparseMixing):
         return {name: sparse_mix_array(mixing, x) for name, x in params.items()}
 
     w = mixing.to(torch.float32)
+    lead = w.dim() - 1          # the vehicle axis, after any seed axis
 
     def mix_leaf(x: Tensor) -> Tensor:
-        flat = x.reshape(x.shape[0], -1).to(torch.float32)
-        mixed = (w @ flat).reshape((w.shape[0],) + tuple(x.shape[1:]))
+        flat = x.reshape(tuple(x.shape[:lead]) + (-1,)).to(torch.float32)
+        mixed = (w @ flat).reshape(tuple(w.shape[:-1]) + tuple(x.shape[lead:]))
         return mixed.to(x.dtype)
 
     return {name: mix_leaf(x) for name, x in params.items()}
 
 
-def consensus_distance(params: dict) -> Tensor:
+def consensus_distance(params: dict, seed_axis: bool = False) -> Tensor:
     """Xi_t^2 = (1/K) sum_k || w_bar - w_k ||^2 over a stacked dictionary
-    (the whole federation on one device)."""
+    (the whole federation on one device); ``seed_axis`` gives one distance
+    per seed of ``[S, K, ...]`` leaves -> ``[S]``."""
+    if seed_axis:
+        seeds = next(iter(params.values())).shape[0]
+        return torch.stack([
+            consensus_distance({name: leaf[s] for name, leaf in params.items()})
+            for s in range(seeds)])
     leaves = list(params.values())
     k = leaves[0].shape[0]
     total = 0.0

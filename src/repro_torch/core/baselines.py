@@ -20,7 +20,9 @@ State vectors are also tracked for the baselines (they do not influence the
 baselines' aggregation — they are needed to reproduce the paper's diversity
 measurements, Figs. 2-3).
 
-Counterpart of ``repro.core.baselines`` in its global (unsharded) regime:
+Every round also takes a leading seed axis (``run_seeds``; see
+``core.aggregation``). Counterpart of ``repro.core.baselines`` in its global
+(unsharded) regime:
 the whole federation on one device, no ``shard`` argument. The reference's
 quirks are kept: ``d_fedavg_round`` bumps the state vectors before it
 aggregates them, and ``sp_round`` bumps every row, RSUs included (it takes
@@ -163,15 +165,16 @@ def push_sum_mixing(contacts) -> Tensor | contacts_lib.SparseMixing:
     """
     if isinstance(contacts, contacts_lib.SparseContacts):
         p = torch.sum(contacts.mask, dim=-1)  # |P_{k'}| by symmetry
-        w = contacts.mask / torch.clamp(p[contacts.idx.long()], min=1e-12)
+        w = contacts.mask / torch.clamp(contacts_lib.take_ids(p, contacts.idx),
+                                        min=1e-12)
         return contacts_lib.SparseMixing(contacts.idx, w)
     c = contacts.to(torch.float32)
     p = torch.sum(c, dim=-1)  # |P_{k'}| by symmetry
-    return c / torch.clamp(p[None, :], min=1e-12)
+    return c / torch.clamp(p.unsqueeze(-2), min=1e-12)
 
 
 def _divide_rows(params: dict, y: Tensor) -> dict:
-    return {name: leaf / y.reshape((-1,) + (1,) * (leaf.dim() - 1))
+    return {name: leaf / y.reshape(tuple(y.shape) + (1,) * (leaf.dim() - y.dim()))
             for name, leaf in params.items()}
 
 

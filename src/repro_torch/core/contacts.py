@@ -18,6 +18,13 @@ so the algorithm rounds run unchanged under either format.
 
 Host-side windows (``ContactStream``) hold numpy arrays in these tuples; the
 engine moves them to the run's device with ``to_device``.
+
+**The seed axis.** ``run_seeds`` stacks S federations on a leading seed axis:
+a dense ``[S, K, K]`` matrix, or ``[S, K, D]`` ids that each address their
+own seed's K rows. The functions here take either; on neighbour lists the
+seed is folded into the row id (``seed_rows``: ``s * K + id`` over the
+``[S * K, ...]`` rows), so every seed's rows go through the same per-row
+operations as a single run's.
 """
 from __future__ import annotations
 
@@ -49,11 +56,39 @@ def to_device(contacts, device):
     return torch.as_tensor(contacts, device=device)
 
 
-def epoch_of(contacts, t: int):
-    """Epoch ``t`` of a ``[T, ...]`` contact window in either format."""
+def epoch_of(contacts, t: int, axis: int = 0):
+    """Epoch ``t`` of a contact window in either format: ``[T, ...]``, or
+    ``[S, T, ...]`` with ``axis=1`` (a seed-stacked window)."""
     if isinstance(contacts, SparseContacts):
-        return SparseContacts(contacts.idx[t], contacts.mask[t])
-    return contacts[t]
+        return SparseContacts(contacts.idx.select(axis, t),
+                              contacts.mask.select(axis, t))
+    return contacts.select(axis, t)
+
+
+def seed_rows(idx: Tensor) -> Tensor:
+    """Fold a seed axis into neighbour ids: ``[S, K, D]`` ids, each into its
+    own seed's K rows, -> ``[S * K, D]`` ids into the seed-major
+    ``[S * K, ...]`` rows (``s * K + id``)."""
+    s, k = idx.shape[0], idx.shape[1]
+    offsets = torch.arange(s, dtype=idx.dtype, device=idx.device) * k
+    return (idx + offsets.reshape(s, 1, 1)).reshape(s * k, idx.shape[-1])
+
+
+def seedwise_matmul(a: Tensor, b: Tensor) -> Tensor:
+    """``a[s] @ b[s]`` for every seed of ``[S, ...]`` operands, one product
+    per seed: each seed gets the very product a single run of it takes (a
+    batched product may pick other kernels and round differently, and the
+    P1 solve carries such differences from round to round)."""
+    return torch.stack([x @ y for x, y in zip(a, b)])
+
+
+def take_ids(v: Tensor, idx: Tensor) -> Tensor:
+    """``out[..., k, d] = v[..., idx[..., k, d]]``: a per-vehicle vector
+    ``[K]`` (or ``[S, K]``) read at each slot's neighbour id."""
+    if v.dim() == 1:
+        return v[idx.long()]
+    flat = torch.gather(v, -1, idx.long().flatten(-2))
+    return flat.reshape(idx.shape)
 
 
 def _self_slots(idx: Tensor, valid: Tensor) -> Tensor:
@@ -73,7 +108,13 @@ def count_edges(contacts) -> Tensor:
     always-on self loops. Accepts a dense ``[K, K]`` matrix or a single-epoch
     ``SparseContacts`` — the two agree exactly (conversion is lossless)."""
     if isinstance(contacts, SparseContacts):
+        if contacts.idx.dim() == 3:   # [S, K, D]: one count per seed
+            return (torch.sum(contacts.mask, dim=(-2, -1))
+                    - torch.sum(self_slots(contacts), dim=(-2, -1)))
         return torch.sum(contacts.mask) - torch.sum(self_slots(contacts))
+    if contacts.dim() == 3:
+        return (torch.sum(contacts, dim=(-2, -1))
+                - torch.diagonal(contacts, dim1=-2, dim2=-1).sum(-1))
     return torch.sum(contacts) - torch.trace(contacts)
 
 
@@ -83,8 +124,16 @@ def sparse_mix_array(mixing: SparseMixing, x: Tensor) -> Tensor:
     Looped over the slot axis so peak memory is one gathered ``[K, ...]``
     buffer, not the ``[K, D, ...]`` materialization. f32 accumulation, cast
     back to ``x.dtype`` (mirroring the dense ``aggregation.mix_params``).
-    ``idx`` may address fewer rows than it has (rectangular mixes).
+    ``idx`` may address fewer rows than it has (rectangular mixes). With a
+    seed axis (``idx`` ``[S, K, D]``, ``x`` ``[S, K, ...]``) the seed folds
+    into the rows (``seed_rows``).
     """
+    if mixing.idx.dim() == 3:
+        s, k = mixing.idx.shape[:2]
+        out = sparse_mix_array(
+            SparseMixing(seed_rows(mixing.idx), mixing.w.reshape(s * k, -1)),
+            x.reshape((-1,) + tuple(x.shape[2:])))
+        return out.reshape((s, k) + tuple(x.shape[2:]))
     w = mixing.w.to(torch.float32)
     idx = mixing.idx.long()
     acc = torch.zeros(tuple(idx.shape[:-1]) + tuple(x.shape[1:]),
@@ -97,9 +146,12 @@ def sparse_mix_array(mixing: SparseMixing, x: Tensor) -> Tensor:
 
 
 def mix_vector(mixing, y: Tensor) -> Tensor:
-    """``W @ y`` for a small ``[K]`` vector under either mixing type."""
+    """``W @ y`` for a small ``[K]`` vector (``[S, K]`` with a seed axis)
+    under either mixing type."""
     if isinstance(mixing, SparseMixing):
-        return torch.sum(mixing.w * y[mixing.idx.long()], dim=-1)
+        return torch.sum(mixing.w * take_ids(y, mixing.idx), dim=-1)
+    if mixing.dim() == 3:   # each seed's own matrix-vector product
+        return torch.stack([m @ v for m, v in zip(mixing, y)])
     return mixing @ y
 
 
@@ -130,6 +182,18 @@ def pad_slots(contacts: SparseContacts, d_max: int) -> SparseContacts:
         np.concatenate([idx, rows], axis=-1),
         np.concatenate([mask, np.zeros_like(mask[..., :1].repeat(extra, -1))],
                        axis=-1))
+
+
+def stack_windows(windows: list):
+    """Stack per-seed contact windows on a leading seed axis for
+    ``run_seeds`` (host-side, numpy). Dense windows stack directly; sparse
+    windows are first padded to the widest seed's D_max."""
+    if isinstance(windows[0], SparseContacts):
+        d = max(w.idx.shape[-1] for w in windows)
+        padded = [pad_slots(w, d) for w in windows]
+        return SparseContacts(np.stack([w.idx for w in padded]),
+                              np.stack([w.mask for w in padded]))
+    return np.stack([_numpy(w) for w in windows])
 
 
 def _numpy(x) -> np.ndarray:
@@ -170,6 +234,11 @@ def get_contact_format(name: str) -> ContactFormat:
 
 def available_contact_formats() -> list[str]:
     return sorted(_CONTACT_FORMATS)
+
+
+def contact_format_registry() -> dict[str, ContactFormat]:
+    """Snapshot of the registry (name -> format), for the docs tables."""
+    return dict(_CONTACT_FORMATS)
 
 
 @register_contact_format

@@ -29,15 +29,17 @@ Tensor = torch.Tensor
 
 
 def masked_update(new, old, mask: Tensor):
-    """Keep ``new`` where ``mask`` (a [K] row mask, broadcast over trailing
-    dims) is positive, ``old`` elsewhere — how RSU rows skip local training.
-    ``new`` / ``old`` are tensors, dictionaries or (named) tuples of them."""
+    """Keep ``new`` where ``mask`` (a [K] row mask — [S, K] with a seed axis
+    — broadcast over trailing dims) is positive, ``old`` elsewhere — how RSU
+    rows skip local training. ``new`` / ``old`` are tensors, dictionaries or
+    (named) tuples of them."""
     if isinstance(new, dict):
         return {name: masked_update(new[name], old[name], mask) for name in new}
     if isinstance(new, tuple):
         rows = [masked_update(n, o, mask) for n, o in zip(new, old)]
         return type(new)(*rows) if hasattr(new, "_fields") else tuple(rows)
-    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)) > 0, new, old)
+    rows = mask.reshape(tuple(mask.shape) + (1,) * (new.dim() - mask.dim()))
+    return torch.where(rows > 0, new, old)
 
 
 class FederationState(NamedTuple):

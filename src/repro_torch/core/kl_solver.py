@@ -14,6 +14,12 @@ neighbour states are either one shared ``[D, K]`` matrix (dense contacts,
 ``D = K``) or a gathered ``[V, D, K]`` tensor (neighbour lists), and each EG
 step is two batched contractions.
 
+With a leading seed axis (``run_seeds``) the dense solve is the same EG over
+``[S, K, K]`` (each contraction one product per seed, the one a single run
+takes: ``contacts.seedwise_matmul``), and the
+neighbour-list solve folds the seeds into its rows, each row against its own
+seed's target.
+
 The objective and gradient are in **nats** (the state-vector diagnostics are
 in bits; the argmin is the same).
 """
@@ -37,12 +43,21 @@ def _kl_nats(u: Tensor, g: Tensor) -> Tensor:
         torch.where(u > _EPS, u * (torch.log(uu) - torch.log(gg)), zero), dim=-1)
 
 
+def _per_row(alpha: Tensor, states: Tensor) -> bool:
+    """True when every row of ``alpha`` [V, D] has its own ``[D, K]`` states
+    (``states`` [V, D, K])."""
+    return alpha.dim() == 2 and states.dim() == 3
+
+
 def mixed_state(alpha: Tensor, states: Tensor) -> Tensor:
     """u = alpha^T S : the post-aggregation state vector. ``alpha`` [D] with
     ``states`` [D, K], or batched ``alpha`` [V, D] with ``states`` [D, K]
-    (shared) / [V, D, K] (per row)."""
-    if states.dim() == 3:
+    (shared) / [V, D, K] (per row), or ``alpha`` [S, V, D] with ``states``
+    [S, D, K] (shared within each seed)."""
+    if _per_row(alpha, states):
         return torch.bmm(alpha.unsqueeze(1), states).squeeze(1)
+    if alpha.dim() == 3:
+        return contacts_lib.seedwise_matmul(alpha, states)
     return alpha @ states
 
 
@@ -55,15 +70,19 @@ def _kl_grad(alpha: Tensor, states: Tensor, log_g: Tensor) -> Tensor:
     """Analytic gradient: d/d alpha_i = sum_j S[i,j] (log(u_j/g_j) + 1)."""
     u = torch.clamp(mixed_state(alpha, states), min=_EPS)
     r = torch.log(u) - log_g + 1.0
-    if states.dim() == 3:
+    if _per_row(alpha, states):
         return torch.bmm(states, r.unsqueeze(-1)).squeeze(-1)
+    if alpha.dim() == 3:
+        return contacts_lib.seedwise_matmul(r, states.transpose(-2, -1))
     return r @ states.T
 
 
 def _eg_solve(states: Tensor, target: Tensor, mask: Tensor, num_steps: int,
               step_size: float) -> Tensor:
     """Batched EG: ``mask`` [V, D] 0/1, ``states`` [D, K] or [V, D, K];
-    returns ``alpha`` [V, D] on the simplex, exactly zero off the mask."""
+    returns ``alpha`` [V, D] on the simplex, exactly zero off the mask.
+    ``target`` is [K], or one target per row ([V, K]; [S, 1, K] with a seed
+    axis on ``mask`` [S, V, D] and ``states`` [S, D, K])."""
     mask = mask.to(states.dtype)
     active = mask > 0
     n_active = torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1.0)
@@ -136,8 +155,18 @@ def solve_p1_all(
       body as the dense path, so the optima agree).
     """
     if isinstance(contacts, contacts_lib.SparseContacts):
+        if contacts.idx.dim() == 3:      # seed axis: fold the seeds into rows
+            s, k, d = contacts.idx.shape
+            folded = contacts_lib.SparseContacts(
+                contacts_lib.seed_rows(contacts.idx), contacts.mask.reshape(s * k, d))
+            alpha = _solve_p1_neighbours(
+                states.reshape(s * k, -1), target.repeat_interleave(k, dim=0),
+                folded, num_steps, step_size)
+            return alpha.reshape(s, k, d)
         return _solve_p1_neighbours(states, target, contacts, num_steps,
                                     step_size)
+    if target.dim() == 2:                # seed axis: [S, K] -> [S, 1, K]
+        target = target.unsqueeze(-2)
     return _eg_solve(states, target, contacts, num_steps, step_size)
 
 
@@ -152,11 +181,13 @@ P1_BLOCK = 256
 def _solve_p1_neighbours(states, target, contacts, num_steps, step_size) -> Tensor:
     """Per-vehicle EG over the neighbour slots, in row blocks of ``P1_BLOCK``
     vehicles. (The last block is simply shorter: rows are independent, so no
-    padding rows are needed.)"""
+    padding rows are needed.) ``target`` is [K], or [rows, K] — one per row."""
     idx, mask = contacts.idx.long(), contacts.mask
     k = idx.shape[0]
     block = min(P1_BLOCK, k)
-    out = [_eg_solve(states[idx[s:s + block]], target, mask[s:s + block],
-                     num_steps, step_size)
+    per_row = target.dim() == 2
+    out = [_eg_solve(states[idx[s:s + block]],
+                     target[s:s + block] if per_row else target,
+                     mask[s:s + block], num_steps, step_size)
            for s in range(0, k, block)]
     return out[0] if len(out) == 1 else torch.cat(out, dim=0)

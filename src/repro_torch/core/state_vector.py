@@ -8,7 +8,8 @@ Implements Eqs. (5)-(7) of the paper:
 
 All functions are batched over the vehicle axis (leading dim K) so the whole
 federation's state lives in one ``[K, K]`` matrix ``S`` with ``S[k, k']`` the
-contribution weight of source ``k'`` to vehicle ``k``'s model.
+contribution weight of source ``k'`` to vehicle ``k``'s model. They also take
+a leading seed axis: ``[S, K, K]`` states with ``[S, K]`` targets and masks.
 """
 from __future__ import annotations
 
@@ -36,13 +37,13 @@ def local_update(state: Tensor, lr: float, local_steps: int,
     local iterations — RSUs (paper Sec. V-C) hold no data and must not
     increase their own contribution weight.
     """
-    k = state.shape[0]
+    k = state.shape[-1]
     # the product is taken in the state's dtype, as two f32 scalars
     bump = (torch.tensor(lr, dtype=state.dtype, device=state.device)
             * torch.tensor(local_steps, dtype=state.dtype, device=state.device))
     diag = torch.eye(k, dtype=state.dtype, device=state.device)
     if update_mask is not None:
-        diag = diag * update_mask.to(state.dtype)[:, None]
+        diag = diag * update_mask.to(state.dtype).unsqueeze(-1)
     state = state + bump * diag
     return normalize(state)
 
@@ -63,6 +64,8 @@ def aggregate(state: Tensor, mixing) -> Tensor:
     """
     if isinstance(mixing, contacts_lib.SparseMixing):
         return contacts_lib.sparse_mix_array(mixing, state)
+    if mixing.dim() == 3:                   # a seed axis: a single run's product
+        return contacts_lib.seedwise_matmul(mixing, state)
     return mixing @ state
 
 
@@ -83,7 +86,7 @@ def kl_to_target(state: Tensor, target: Tensor, eps: float = 1e-12) -> Tensor:
     g = torch.clamp(target, eps, 1.0)
     zero = torch.zeros((), dtype=state.dtype, device=state.device)
     terms = torch.where(state > eps,
-                        state * (torch.log2(s) - torch.log2(g)[None, :]), zero)
+                        state * (torch.log2(s) - torch.log2(g).unsqueeze(-2)), zero)
     return torch.sum(terms, dim=-1)
 
 

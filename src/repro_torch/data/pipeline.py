@@ -52,6 +52,45 @@ def sample_batches(data: FederatedData, generator, local_steps: int,
     return data.x[idx], data.y[idx]
 
 
+def stack_federated_data(datas: list[FederatedData], seed: int = 0) -> FederatedData:
+    """Stack per-seed FederatedData along a leading seed axis for
+    ``run_seeds``.
+
+    The train tensors must be shared across seeds (one dataset, many
+    partitions) and are NOT stacked. Index tables may have different widths
+    (unbalanced partitions); short tables are padded to the common width by
+    resampling each row's own entries — the reference's numpy draw from
+    ``np.random.default_rng(seed)``, so the stacked tables are equal bit for
+    bit — the same distribution-preserving trick as partition
+    ``pad_to_uniform``.
+    """
+    x, y = datas[0].x, datas[0].y
+    if any(d.x.shape != x.shape or not torch.equal(d.y, y) for d in datas[1:]):
+        raise ValueError("stack_federated_data requires one dataset shared "
+                         "across seeds (per-seed train tensors differ)")
+    width = max(int(d.index_table.shape[1]) for d in datas)
+    rng = np.random.default_rng(seed)
+    tables = []
+    for d in datas:
+        table = d.index_table.cpu().numpy()
+        if table.shape[1] < width:
+            picks = rng.integers(0, table.shape[1],
+                                 size=(table.shape[0], width - table.shape[1]))
+            table = np.concatenate(
+                [table, np.take_along_axis(table, picks, axis=1)], axis=1)
+        tables.append(table)
+    return FederatedData(
+        x=x, y=y,
+        index_table=torch.as_tensor(np.stack(tables), device=x.device),
+        counts=torch.stack([d.counts for d in datas]),
+    )
+
+
+def seed_view(data: FederatedData, s: int) -> FederatedData:
+    """Seed ``s`` of a seed-stacked FederatedData (its table and counts)."""
+    return FederatedData(data.x, data.y, data.index_table[s], data.counts[s])
+
+
 def sample_full_batches(data: FederatedData, generator, batch_size: int,
                         picks: Tensor | None = None):
     """One batch per vehicle of ``batch_size`` samples drawn from its

@@ -94,3 +94,8 @@ def get_algorithm(name: str) -> Algorithm:
 
 def available_algorithms() -> list[str]:
     return sorted(_ALGORITHMS)
+
+
+def algorithm_registry() -> dict[str, Algorithm]:
+    """Snapshot of the registry (name -> instance), for the docs tables."""
+    return dict(_ALGORITHMS)

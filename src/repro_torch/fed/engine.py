@@ -20,21 +20,36 @@ Counterpart of ``repro.fed.engine`` (its fused scan engine, ``vmap`` backend):
   update) and evaluates accuracy + consensus distance on the epochs the eval
   mask selects.
 
+* **Seed axis** — ``run_seeds`` stacks S independent federations (their own
+  partitions, mobility traces, model inits and random generators) on a
+  leading seed axis and runs ONE window loop for all of them
+  (``stack_contexts``): the rounds take the seed axis as written out in
+  ``core``, the CNN trains the ``[S * K]`` folded stack, and each gossip-mix
+  kernel launches once per round for every seed.
+
+* **Delayed gossip** — ``overlap="delayed"`` carries ``(algorithm state,
+  stale params)`` through the window (``build_window_fn``'s
+  ``delayed_round``; ``core.vehicle_axis.delayed_gossip_mix``).
+
+``simulator.run_legacy_loop`` (``use_scan_engine=False``) is the per-epoch
+loop the engine is held against.
+
 ``SimulationConfig.device`` names where a run lives: ``"cuda"`` by default
 (raising when there is no CUDA device — nothing falls back to the CPU on its
 own), ``"cpu"`` when the caller asks for it, as the tests do.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import convert
-from ..core import aggregation, state_vector
+from ..core import aggregation, state_vector, vehicle_axis
 from ..core import contacts as contacts_lib
 from ..data import datasets as data_lib
 from ..data import pipeline
@@ -94,8 +109,11 @@ class SimulationConfig:
     mixing_backend: str = "cuda"
     # accepted for config compatibility; read only by the sharded backend
     comm_bucket_mb: float = 4.0
-    # "sync" mixes each round's own params (paper Eq. 10); "delayed" (one
-    # round stale neighbour payloads) is still to port
+    # "sync" mixes each round's own params (paper Eq. 10). "delayed" double-
+    # buffers the exchange: round t's neighbour payloads are the params that
+    # were on the air while round t trained — one round stale — while each
+    # vehicle's own contribution stays current (core.vehicle_axis
+    # .delayed_gossip_mix). A semantic knob; window engine only.
     overlap: str = "sync"
     # extensions (paper Sec. V-C / Sec. VII): data-less static RSUs join the
     # federation as relays; V2V exchanges fail with probability p_drop
@@ -103,8 +121,8 @@ class SimulationConfig:
     p_drop: float = 0.0
     # engine controls: window_size = 0 runs the whole horizon as one window;
     # > 0 chunks it (bounds host memory for the contact window on very long
-    # runs). The reference's legacy per-epoch loop (use_scan_engine=False) is
-    # not ported.
+    # runs). use_scan_engine=False runs the per-epoch loop
+    # (simulator.run_legacy_loop), the parity reference of the engine.
     use_scan_engine: bool = True
     window_size: int = 0
     # execution backend (fed.backends): "vmap" = the whole federation stacked
@@ -129,21 +147,11 @@ def resolve_device(cfg: SimulationConfig) -> torch.device:
 
 def check_supported(cfg: SimulationConfig) -> None:
     """Raise on configuration values a later slice of the port will honour."""
-    later = [
-        (cfg.overlap == "delayed",
-         "overlap='delayed' arrives with the delayed-gossip slice "
-         "(core/vehicle_axis.py::delayed_gossip_mix)"),
-        (cfg.execution == "auto",
-         "execution='auto' arrives with the cost-model slice "
-         "(roofline/scenario_cost.py)"),
-        (not cfg.use_scan_engine,
-         "use_scan_engine=False (the legacy per-epoch loop) arrives with "
-         "the seeds/sweeps slice"),
-    ]
-    for hit, message in later:
-        if hit:
-            raise NotImplementedError(f"repro_torch: {message}")
-    if cfg.overlap != "sync":
+    if cfg.execution == "auto":
+        raise NotImplementedError(
+            "repro_torch: execution='auto' arrives with the cost-model slice "
+            "(roofline/scenario_cost.py)")
+    if cfg.overlap not in ("sync", "delayed"):
         raise ValueError(f"unknown overlap {cfg.overlap!r} (sync|delayed)")
     if cfg.execution != "manual":
         raise ValueError(f"unknown execution {cfg.execution!r} (manual|auto)")
@@ -193,8 +201,10 @@ def model_payload_bytes(params_stack: dict) -> int:
 def exchange_payload_mb(ctx: "EngineContext") -> float:
     """MB one directed V2V exchange ships: the model plus the [K] state
     vector (paper Sec. V-A: vehicles exchange both every contact)."""
-    return (model_payload_bytes(ctx.setup.params_stack)
-            + ctx.total_nodes * 4) / 1e6
+    params = ctx.setup.params_stack
+    if ctx.num_seeds:                       # [S, K, ...]: one seed's stack
+        params = {name: leaf[0] for name, leaf in params.items()}
+    return (model_payload_bytes(params) + ctx.total_nodes * 4) / 1e6
 
 
 def make_local_train_fn(loss_fn, optimizer):
@@ -330,6 +340,10 @@ class EngineContext:
     parameter stack. All three are the registered algorithm's hooks bound to
     this run's ``setup`` (fed.algorithms). ``init_rng`` is the run's
     ``torch.Generator`` on ``device`` (batches, dropout).
+
+    A context with ``num_seeds = S > 0`` is S runs stacked on a leading seed
+    axis (``stack_contexts``): ``init_rng`` is then a tuple of S generators
+    and ``contacts`` the S runs' streams.
     """
     cfg: SimulationConfig
     device: torch.device
@@ -348,6 +362,7 @@ class EngineContext:
     setup: algorithms_lib.AlgorithmSetup
     execution_plan: dict | None = None
     final_state: Any = None     # the federation state a finished run left
+    num_seeds: int = 0          # S of a seed-stacked context; 0 = one run
 
     @property
     def window_fn(self) -> Callable:
@@ -437,10 +452,18 @@ def build_context(cfg: SimulationConfig, dataset=None, init_params: dict | None 
         opt_stack=opt_stack, local_mask=local_mask,
         mix_params_fn=resolve_mix_params_fn(cfg), timer=timer)
 
+    init_state = algo.init_state(setup)
+    if cfg.overlap == "delayed":
+        # the double buffer: the params each vehicle last put on the air.
+        # Round 0 mixes the identical broadcast init — what a real fleet's
+        # first in-flight exchange would carry. Carried through the windows,
+        # so trajectories stay window-chunk-invariant.
+        init_state = (init_state, params_stack)
+
     return EngineContext(
         cfg=cfg, device=device, total_nodes=total_nodes, fed_data=fed_data,
         target=target, local_mask=local_mask, contacts=contacts,
-        init_state=algo.init_state(setup), init_rng=rng,
+        init_state=init_state, init_rng=rng,
         round_fn=partial(algo.round, setup),
         sample_fn=partial(algo.sample, setup),
         model_of=partial(algo.model_of, setup),
@@ -457,32 +480,63 @@ def build_window_fn(ctx: EngineContext) -> Callable:
     accuracy / consensus rows are NaN on epochs the (host-side) mask skips.
     Nothing in the loop reads a device value back, so the host runs ahead of
     the device for the whole window.
+
+    Under ``overlap="delayed"`` the state is ``(algorithm state, stale
+    params)``. On a seed-stacked context (``num_seeds > 0``) the contacts are
+    ``[S, T, ...]`` and every per-epoch row carries the seed axis first.
     """
     round_fn, sample_fn = ctx.round_fn, ctx.sample_fn
     model_of, eval_fn = ctx.model_of, ctx.eval_fn
     payload_mb = exchange_payload_mb(ctx)
     device, timer = ctx.device, ctx.setup.timer
+    seeded = ctx.num_seeds > 0
+    lead = (ctx.num_seeds,) if seeded else ()
+    # per-seed means on a seed-stacked context, the whole mean otherwise
+    mean = partial(torch.mean, dim=-1) if seeded else torch.mean
+    delayed = ctx.cfg.overlap == "delayed"
+    if delayed:
+        algo, setup = ctx.algorithm, ctx.setup
+        delayed_mix = vehicle_axis.delayed_gossip_mix(setup.mix_params_fn)
+
+    def delayed_round(st, contacts_t, target, batch, generator, fed_data):
+        """One round under overlap="delayed": the algorithm's mix call is
+        rerouted through the stale buffer, and whatever the algorithm put on
+        the air this round (its mix input) becomes the next buffer —
+        algorithm-agnostic, whether it mixes before training (dds/dfl/d_sgd),
+        after (d_fedavg), or a bias-corrected stack (sp)."""
+        algo_st, stale = st
+        sent = {}
+
+        def mix(mixing, params):
+            sent["payload"] = params
+            return delayed_mix(mixing, params, stale)
+
+        algo_st, diags = algo.round(replace(setup, mix_params_fn=mix), algo_st,
+                                    contacts_t, target, batch, generator,
+                                    fed_data)
+        return (algo_st, sent.get("payload", stale)), diags
 
     def evaluate(st):
         model = model_of(st)
-        consensus = aggregation.consensus_distance(model)
+        consensus = aggregation.consensus_distance(model, seed_axis=seeded)
         return eval_fn(model), consensus.to(torch.float32)
 
     def skip():
-        return (torch.full((ctx.total_nodes,), float("nan"),
+        return (torch.full(lead + (ctx.total_nodes,), float("nan"),
                            dtype=torch.float32, device=device),
-                torch.full((), float("nan"), dtype=torch.float32, device=device))
+                torch.full(lead, float("nan"), dtype=torch.float32, device=device))
 
     def window(state, rng, fed_data, target, contacts, eval_mask):
         rows = []
+        step = delayed_round if delayed else round_fn
         for t, do_eval in enumerate(np.asarray(eval_mask)):
-            contacts_t = contacts_lib.epoch_of(contacts, t)
+            contacts_t = contacts_lib.epoch_of(contacts, t, axis=1 if seeded else 0)
             with phase(timer, "sample"):
                 batch = sample_fn(fed_data, rng)
-            state, diags = round_fn(state, contacts_t, target, batch, rng,
-                                    fed_data)
+            state, diags = step(state, contacts_t, target, batch, rng, fed_data)
+            algo_state = state[0] if delayed else state
             with phase(timer, "eval"):
-                accs, consensus = evaluate(state) if do_eval else skip()
+                accs, consensus = evaluate(algo_state) if do_eval else skip()
             # directed V2V exchanges this round: contact edges minus the
             # always-on self loops (the dense matrix and the neighbour list
             # count identically)
@@ -492,14 +546,94 @@ def build_window_fn(ctx: EngineContext) -> Callable:
                 "consensus": consensus,
                 "entropy": diags["entropy"],
                 "kl_divergence": diags["kl_divergence"],
-                "kl_mean": torch.mean(diags["kl_divergence"]),
+                "kl_mean": mean(diags["kl_divergence"]),
                 "comm_mb": edges.to(torch.float32) * payload_mb,
-                "loss": torch.mean(diags["loss"]),
+                "loss": mean(diags["loss"]),
             })
         traj = {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
         return state, rng, traj
 
     return window
+
+
+def _stack(trees: list):
+    """Stack a list of equally shaped trees (tensors in dictionaries and
+    (named) tuples) on a new leading axis."""
+    leaves, spec = zip(*(pytree.tree_flatten(t) for t in trees))
+    return pytree.tree_unflatten(
+        [torch.stack(column) for column in zip(*leaves)], spec[0])
+
+
+def _fold(tree):
+    """``[S, K, ...]`` -> ``[S * K, ...]`` on every tensor of a tree."""
+    return pytree.tree_map(lambda t: t.reshape((-1,) + tuple(t.shape[2:])), tree)
+
+
+def _unfold(tree, seeds: int):
+    """``[S * K, ...]`` -> ``[S, K, ...]`` on every tensor of a tree."""
+    return pytree.tree_map(
+        lambda t: t.reshape((seeds, -1) + tuple(t.shape[1:])), tree)
+
+
+def stack_contexts(ctxs: list[EngineContext], dataset) -> EngineContext:
+    """S single-run contexts (one per seed, one shared dataset) as ONE
+    context with a leading seed axis — the port's counterpart of the
+    reference's ``jax.vmap`` of the window over seeds.
+
+    States, targets, RSU masks and the stacked index tables
+    (``pipeline.stack_federated_data``) carry the seed axis; the rounds take
+    it as ``core`` writes it out, so each gossip-mix kernel launches once per
+    round for every seed. Local training, the loss and the evaluation run on
+    the folded ``[S * K]`` stack of the CNN. Each seed draws its picks and
+    dropout masks from its own generator, in the order a single run of that
+    seed draws them.
+    """
+    first = ctxs[0]
+    seeds = len(ctxs)
+    setup = first.setup
+    base_loss, base_train = setup.loss_fn, setup.local_train_fn
+
+    def loss_fn(params, x, y, generator=None):
+        return base_loss(_fold(params), _fold(x), _fold(y),
+                         generator).reshape(seeds, -1)
+
+    def local_train_fn(params, opt_state, batch, generator):
+        out = base_train(_fold(params), _fold(opt_state), _fold(batch), generator)
+        return _unfold(out, seeds)
+
+    local_mask = (None if first.local_mask is None
+                  else torch.stack([c.local_mask for c in ctxs]))
+    seed_setup = replace(
+        setup, params_stack=_stack([c.setup.params_stack for c in ctxs]),
+        opt_stack=_stack([c.setup.opt_stack for c in ctxs]),
+        local_mask=local_mask, loss_fn=loss_fn, local_train_fn=local_train_fn)
+    fed_stack = pipeline.stack_federated_data([c.fed_data for c in ctxs],
+                                              seed=first.cfg.seed)
+    algo = first.algorithm
+
+    def sample_fn(fed_data, generators):
+        return _stack([algo.sample(setup, pipeline.seed_view(fed_data, s), g)
+                       for s, g in enumerate(generators)])
+
+    _, _, accuracy_fn = cnn_lib.make_cnn_task(dataset.name)
+    eval_x = torch.as_tensor(dataset.test_x[: first.cfg.eval_samples],
+                             device=first.device)
+    eval_y = torch.as_tensor(dataset.test_y[: first.cfg.eval_samples],
+                             device=first.device).long()
+    folded_eval = make_eval_fn(accuracy_fn, eval_x, eval_y,
+                               seeds * first.total_nodes)
+
+    def eval_fn(params_stack):
+        return folded_eval(_fold(params_stack)).reshape(seeds, -1)
+
+    return replace(
+        first, fed_data=fed_stack, target=torch.stack([c.target for c in ctxs]),
+        local_mask=local_mask, contacts=[c.contacts for c in ctxs],
+        init_state=_stack([c.init_state for c in ctxs]),
+        init_rng=tuple(c.init_rng for c in ctxs),
+        round_fn=partial(algo.round, seed_setup), sample_fn=sample_fn,
+        model_of=partial(algo.model_of, seed_setup), eval_fn=eval_fn,
+        setup=seed_setup, num_seeds=seeds)
 
 
 def _default_window(cfg: SimulationConfig, progress: bool) -> int:
@@ -552,3 +686,22 @@ def run_with_context(ctx: EngineContext, progress: bool = False) -> SimulationRe
 def run(cfg: SimulationConfig, dataset=None, progress: bool = False) -> SimulationResult:
     """Build a context and run it through the engine."""
     return run_with_context(build_context(cfg, dataset=dataset), progress=progress)
+
+
+def run_seeds(cfg: SimulationConfig, seeds, dataset=None,
+              progress: bool = False) -> list[SimulationResult]:
+    """Run S independent federations (seeded partitions, mobility traces and
+    inits) on the execution backend named by ``cfg.backend`` — one window
+    loop over the seed-stacked state on the vmap backend.
+
+    The dataset is shared across seeds (loaded once from ``cfg`` when not
+    given). Returns one ``SimulationResult`` per seed, in ``seeds`` order.
+    The batch's wall time is the caller's to record (the sweep runner keeps
+    it per scenario): all seeds run as one loop, so per-seed ``wall_time``
+    stays 0, as in the reference.
+    """
+    from . import backends as backends_lib
+
+    with full_f32_matmul():
+        return backends_lib.get_backend(cfg.backend).run_seeds(
+            cfg, seeds, dataset=dataset, progress=progress)

@@ -13,6 +13,13 @@
 // in src/repro/kernels/gossip_mix/kernel.py. The Pallas function takes one
 // [K_in, P] array; a group of one leaf is that function.
 //
+// run_seeds' seed axis: S seeds of [K_out, D] lists over [S, K_in, P_l]
+// leaves in the same launch. The kernel walks the S*K_out output rows of the
+// seed-major [S*K_out, D] lists as one list and folds each row's seed into
+// its ids as it stages them (row r belongs to seed r / K_out and gathers
+// from rows (r / K_out) * K_in + id of the [S*K_in, P_l] leaves), so the
+// fold costs no launch of its own. S = 1 is the single federation.
+//
 // What bounds it on this card: bytes. Per output element it does D
 // multiply-adds, but X is small next to the L2 cache (K_in * P values), so
 // after the first touch every gathered row comes from L2 and device memory
@@ -120,7 +127,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreadsP* kRows)
     gather_mix_grouped_kernel(const __grid_constant__ LeafTable table,
                               const int* __restrict__ idx, const float* __restrict__ w,
-                              int k_out, int d) {
+                              int rows, int k_out, int k_in, int d) {
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ float4 smem_raw[];
   int* s_idx = reinterpret_cast<int*>(smem_raw);
@@ -128,16 +135,18 @@ __global__ void __launch_bounds__(kThreadsP* kRows)
 
   const int row0 = blockIdx.y * kRows;
   const int tid = threadIdx.y * kThreadsP + threadIdx.x;
-  // rows are contiguous, so the block's kRows x d slab of idx / w is one run
+  // rows are contiguous, so the block's kRows x d slab of idx / w is one run;
+  // each id moves to its seed's rows of the leaves
   for (int i = tid; i < kRows * d; i += kThreadsP * kRows) {
-    const bool in_rows = row0 + i / d < k_out;
-    s_idx[i] = in_rows ? idx[static_cast<size_t>(row0) * d + i] : 0;
+    const int r = row0 + i / d;
+    const bool in_rows = r < rows;
+    s_idx[i] = in_rows ? idx[static_cast<size_t>(row0) * d + i] + (r / k_out) * k_in : 0;
     s_w[i] = in_rows ? w[static_cast<size_t>(row0) * d + i] : 0.0f;
   }
   __syncthreads();
 
   const int row = row0 + threadIdx.y;
-  if (row >= k_out) return;
+  if (row >= rows) return;
   // the leaf that owns this column tile
   const int tile = blockIdx.x;
   int leaf = 0;
@@ -157,12 +166,13 @@ __global__ void __launch_bounds__(kThreadsP* kRows)
 }
 
 template <typename T>
-cudaError_t launch(const LeafTable& table, const int* idx, const float* w, int k_out,
-                   int d, cudaStream_t stream) {
+cudaError_t launch(const LeafTable& table, const int* idx, const float* w, int rows,
+                   int k_out, int k_in, int d, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kRows) * d * (sizeof(int) + sizeof(float));
   const dim3 block(kThreadsP, kRows);
-  const dim3 grid(table.tile_begin[table.n], (k_out + kRows - 1) / kRows);
-  gather_mix_grouped_kernel<T><<<grid, block, smem, stream>>>(table, idx, w, k_out, d);
+  const dim3 grid(table.tile_begin[table.n], (rows + kRows - 1) / kRows);
+  gather_mix_grouped_kernel<T><<<grid, block, smem, stream>>>(table, idx, w, rows, k_out,
+                                                               k_in, d);
   return cudaGetLastError();
 }
 
@@ -172,17 +182,23 @@ cudaError_t launch(const LeafTable& table, const int* idx, const float* w, int k
 extern "C" int gossip_mix_gather_max_leaves() { return kMaxLeaves; }
 
 // One launch over 1 <= n <= kMaxLeaves leaves, all of one dtype (0 =
-// float32, 1 = bfloat16): x[i] [k_in, p[i]] -> out[i] [k_out, p[i]], both
-// contiguous, every p[i] >= 1; idx / w [k_out, d], d >= 1. The column tiles
-// of the grid and each leaf's path are laid out here. Returns the launch's
-// cudaError_t (0 = ok); cudaErrorInvalidValue for arguments the kernel does
-// not take (d past the block's slot buffer) or a grid past its limits.
+// float32, 1 = bfloat16), for 1 <= seeds seeds: x[i] [seeds, k_in, p[i]] ->
+// out[i] [seeds, k_out, p[i]], both contiguous, every p[i] >= 1; idx / w
+// [seeds, k_out, d], d >= 1, the ids of seed s into its own k_in rows. The
+// column tiles of the grid and each leaf's path are laid out here. Returns
+// the launch's cudaError_t (0 = ok); cudaErrorInvalidValue for arguments the
+// kernel does not take (d past the block's slot buffer) or a grid past its
+// limits.
 extern "C" int gossip_mix_gather_grouped_launch(
     const int* idx, const float* w, const void* const* x, void* const* out,
-    const long long* p, int n, int k_out, int d, int dtype, void* stream) {
-  if (n < 1 || n > kMaxLeaves || k_out < 1 || d < 1) return cudaErrorInvalidValue;
+    const long long* p, int n, int seeds, int k_out, int k_in, int d, int dtype,
+    void* stream) {
+  if (n < 1 || n > kMaxLeaves || seeds < 1 || k_out < 1 || k_in < 1 || d < 1)
+    return cudaErrorInvalidValue;
   if (static_cast<long long>(kRows) * d * 8 > kMaxSlotBytes) return cudaErrorInvalidValue;
-  if ((k_out + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;   // grid y
+  const long long rows = static_cast<long long>(seeds) * k_out;
+  if ((rows + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;   // grid y
+  if (static_cast<long long>(seeds) * k_in >= (1LL << 31)) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const int vec = dtype == 0 ? 4 : 8;   // elements per 16 bytes
   LeafTable table = {};
@@ -203,8 +219,9 @@ extern "C" int gossip_mix_gather_grouped_launch(
   table.tile_begin[n] = static_cast<int>(tiles);
   table.n = n;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(table, idx, w, k_out, d, s);
-  return launch<__nv_bfloat16>(table, idx, w, k_out, d, s);
+  const int r = static_cast<int>(rows);
+  if (dtype == 0) return launch<float>(table, idx, w, r, k_out, k_in, d, s);
+  return launch<__nv_bfloat16>(table, idx, w, r, k_out, k_in, d, s);
 }
 
 extern "C" const char* gossip_mix_gather_error_string(int code) {

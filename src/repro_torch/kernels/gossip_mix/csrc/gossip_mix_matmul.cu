@@ -1,11 +1,18 @@
 // Dense gossip mix for Hopper (sm_90a), one launch over a group of leaves:
 //
-//     out_l = W @ X_l        for every leaf l of the group
+//     out_l[s] = W[s] @ X_l[s]    for every leaf l of the group, every seed s
 //
-//     W    [K_out, K_in]  f32 row-stochastic mixing matrix (may be rectangular)
-//     X_l  [K_in, P_l]    one flattened parameter leaf, f32 or bf16 (one dtype
-//                         per launch), P_l from 1 to ~10^5
-//     out_l[K_out, P_l]   in X's dtype, accumulated in f32
+//     W    [S, K_out, K_in]  f32 row-stochastic mixing matrices (may be
+//                            rectangular), one per seed
+//     X_l  [S, K_in, P_l]    one flattened parameter leaf, f32 or bf16 (one
+//                            dtype per launch), P_l from 1 to ~10^5
+//     out_l[S, K_out, P_l]   in X's dtype, accumulated in f32
+//
+// S = 1 is the single federation; S > 1 is run_seeds' seed axis, all seeds in
+// the same launch (blockIdx.z is the seed; each seed's W, X and out are
+// contiguous slabs, so a block only offsets its three pointers). A
+// block-diagonal [S*K, S*K] product would do S times the work and stage S
+// times the W rows.
 //
 // Replaces the Pallas TPU kernel `_mix_kernel` / `gossip_mix_matmul` in
 // src/repro/kernels/gossip_mix/kernel.py, which computes the product inside
@@ -112,6 +119,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
     mix_matmul_grouped_kernel(const __grid_constant__ LeafTable table,
                               const float* __restrict__ w, int k_out, int k_in) {
+  const long long seed = blockIdx.z;
   constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte copy
   const int kc_max = min(k_in, kKC);
   const int kc_pad_max = (kc_max + 3) & ~3;
@@ -126,8 +134,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   while (leaf + 1 < table.n && tile >= table.tile_begin[leaf + 1]) ++leaf;
   const long long p = table.p[leaf];
   const long long col0 = static_cast<long long>(tile - table.tile_begin[leaf]) * kBN;
-  const T* x = static_cast<const T*>(table.x[leaf]);
-  T* out = static_cast<T*>(table.out[leaf]);
+  const T* x = static_cast<const T*>(table.x[leaf]) + seed * k_in * p;
+  T* out = static_cast<T*>(table.out[leaf]) + seed * k_out * p;
+  w += seed * k_out * k_in;
   const int row0 = blockIdx.y * kBM;
   const bool aligned =
       (reinterpret_cast<uintptr_t>(x) % 16 == 0) && ((p * sizeof(T)) % 16 == 0);
@@ -233,8 +242,8 @@ size_t smem_bytes(int k_out, int k_in, int esize) {
 }
 
 template <typename T>
-cudaError_t launch(const LeafTable& table, const float* w, int k_out, int k_in,
-                   cudaStream_t stream) {
+cudaError_t launch(const LeafTable& table, const float* w, int seeds, int k_out,
+                   int k_in, cudaStream_t stream) {
   const size_t smem = smem_bytes(k_out, k_in, sizeof(T));
   // above 48 KB a kernel has to opt in to its dynamic shared memory, once
   // per device (the attribute belongs to the device's copy of the kernel)
@@ -253,7 +262,7 @@ cudaError_t launch(const LeafTable& table, const float* w, int k_out, int k_in,
       have = smem;
     }
   }
-  const dim3 grid(table.tile_begin[table.n], (k_out + kBM - 1) / kBM);
+  const dim3 grid(table.tile_begin[table.n], (k_out + kBM - 1) / kBM, seeds);
   mix_matmul_grouped_kernel<T><<<grid, kThreads, smem, stream>>>(table, w, k_out, k_in);
   return cudaGetLastError();
 }
@@ -270,14 +279,16 @@ extern "C" long long gossip_mix_matmul_smem_bytes(int k_out, int k_in, int dtype
 }
 
 // One launch over 1 <= n <= kMaxLeaves leaves, all of one dtype (0 =
-// float32, 1 = bfloat16): x[i] [k_in, p[i]] -> out[i] [k_out, p[i]], both
+// float32, 1 = bfloat16), for 1 <= seeds <= 65535 seeds: w [seeds, k_out,
+// k_in], x[i] [seeds, k_in, p[i]] -> out[i] [seeds, k_out, p[i]], all
 // contiguous, every p[i] >= 1. The column tiles of the grid are laid out
 // here. Returns the launch's cudaError_t (0 = ok); cudaErrorInvalidValue for
 // arguments the kernel does not take or a grid past its limits.
 extern "C" int gossip_mix_matmul_grouped_launch(
     const float* w, const void* const* x, void* const* out, const long long* p,
-    int n, int k_out, int k_in, int dtype, void* stream) {
+    int n, int seeds, int k_out, int k_in, int dtype, void* stream) {
   if (n < 1 || n > kMaxLeaves || k_out < 1 || k_in < 1) return cudaErrorInvalidValue;
+  if (seeds < 1 || seeds > 65535) return cudaErrorInvalidValue;        // grid z
   if ((k_out + kBM - 1) / kBM > 65535) return cudaErrorInvalidValue;   // grid y
   LeafTable table = {};
   long long tiles = 0;
@@ -293,8 +304,8 @@ extern "C" int gossip_mix_matmul_grouped_launch(
   table.tile_begin[n] = static_cast<int>(tiles);
   table.n = n;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(table, w, k_out, k_in, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(table, w, k_out, k_in, s);
+  if (dtype == 0) return launch<float>(table, w, seeds, k_out, k_in, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(table, w, seeds, k_out, k_in, s);
   return cudaErrorInvalidValue;
 }
 

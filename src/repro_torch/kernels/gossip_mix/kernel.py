@@ -9,6 +9,13 @@
   full f32 precision (``csrc/gossip_mix_matmul.cu``), the mix under the dense
   format; ``gossip_mix_matmul(mixing, flat)`` is the group of one leaf.
 
+Both take a leading seed axis (``run_seeds``) in the same one launch:
+``gossip_mix_matmul_grouped`` takes ``mixing`` ``[S, K_out, K_in]`` over
+``[S, K_in, P_l]`` leaves (the seed is a grid axis of the kernel), and
+``gossip_mix_gather_grouped`` takes ``[S, K_out, D]`` neighbour lists over
+``[S, K_in, P_l]`` leaves (the kernel folds each row's seed into its ids,
+``s * K_in + id`` over ``[S * K_in, P_l]``, as it stages them).
+
 Counterparts of the Pallas kernels of ``repro.kernels.gossip_mix.kernel``.
 The sources carry their design notes. They are compiled by ``nvcc`` at first
 use (``kernels.build``) and bound through ``ctypes``; importing this module
@@ -62,13 +69,13 @@ def build() -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     gather.gossip_mix_gather_grouped_launch.argtypes = [
         ptr, ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr),
-        ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, ptr]
+        ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, i32, i32, ptr]
     gather.gossip_mix_gather_grouped_launch.restype = i32
     gather.gossip_mix_gather_error_string.argtypes = [i32]
     gather.gossip_mix_gather_error_string.restype = ctypes.c_char_p
     matmul.gossip_mix_matmul_grouped_launch.argtypes = [
         ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr),
-        ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, ptr]
+        ctypes.POINTER(ctypes.c_longlong), i32, i32, i32, i32, i32, ptr]
     matmul.gossip_mix_matmul_grouped_launch.restype = i32
     matmul.gossip_mix_matmul_smem_bytes.argtypes = [i32, i32, i32]
     matmul.gossip_mix_matmul_smem_bytes.restype = ctypes.c_longlong
@@ -77,30 +84,31 @@ def build() -> None:
     _LIBS.update(zip(names, (gather, matmul)))
 
 
-def _check_flat(flat: Tensor, what: str) -> None:
+def _check_flat(flat: Tensor, what: str, dims: int = 2) -> None:
     if not flat.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {flat.device} "
                          "(CPU tensors go through kernels.gossip_mix.ops)")
     if flat.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: flat must be float32 or bfloat16, "
                         f"got {flat.dtype}")
-    if flat.dim() != 2 or not flat.is_contiguous():
-        raise ValueError(f"{what}: flat must be a contiguous [K_in, P] "
+    if flat.dim() != dims or not flat.is_contiguous():
+        raise ValueError(f"{what}: flat must be a contiguous "
+                         f"{'[S, K_in, P]' if dims == 3 else '[K_in, P]'} "
                          f"tensor, got shape {tuple(flat.shape)} "
                          f"stride {flat.stride()}")
-    if flat.shape[1] >= 2 ** 31:
-        raise ValueError(f"{what}: P = {flat.shape[1]} does not fit an int32")
+    if flat.shape[-1] >= 2 ** 31:
+        raise ValueError(f"{what}: P = {flat.shape[-1]} does not fit an int32")
 
 
 def _check_operand(t: Tensor, dtype, shape_hint: str, flat: Tensor,
-                   what: str) -> None:
+                   what: str, dims: int = 2) -> None:
     if t.device != flat.device:
         raise ValueError(f"{what}: {shape_hint} is on {t.device}, flat on "
                          f"{flat.device}")
     if t.dtype != dtype:
         raise TypeError(f"{what}: {shape_hint} must be {dtype}, got {t.dtype}")
-    if t.dim() != 2 or not t.is_contiguous():
-        raise ValueError(f"{what}: {shape_hint} must be contiguous and 2-D, "
+    if t.dim() != dims or not t.is_contiguous():
+        raise ValueError(f"{what}: {shape_hint} must be contiguous and {dims}-D, "
                          f"got shape {tuple(t.shape)} stride {t.stride()}")
 
 
@@ -149,30 +157,30 @@ def _launch_groups(name: str, flats: list[Tensor], outs: list[Tensor], before: t
     launch = getattr(_LIBS[name], f"{name}_grouped_launch")
     with torch.cuda.device(flats[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        for ids in leaf_groups([f.shape[1] for f in flats], max_leaves):
+        for ids in leaf_groups([f.shape[-1] for f in flats], max_leaves):
             n = len(ids)
             code = launch(*before,
                           (ctypes.c_void_p * n)(*(flats[i].data_ptr() for i in ids)),
                           (ctypes.c_void_p * n)(*(outs[i].data_ptr() for i in ids)),
-                          (ctypes.c_longlong * n)(*(flats[i].shape[1] for i in ids)),
+                          (ctypes.c_longlong * n)(*(flats[i].shape[-1] for i in ids)),
                           n, *after, stream)
             _raise_on(code, name)
             launch_counts[name] += 1
 
 
-def _check_group(flats: list[Tensor], name: str) -> None:
-    """The leaves of a group: CUDA, contiguous ``[K_in, P_l]``, one dtype, one
-    K_in, one device."""
+def _check_group(flats: list[Tensor], name: str, dims: int = 2) -> None:
+    """The leaves of a group: CUDA, contiguous ``[K_in, P_l]`` (``[S, K_in,
+    P_l]`` with ``dims=3``), one dtype, one K_in (and S), one device."""
     for flat in flats:
-        _check_flat(flat, name)
+        _check_flat(flat, name, dims)
         if flat.device != flats[0].device:
             raise ValueError(f"{name}: leaves on {flats[0].device} and {flat.device}")
         if flat.dtype != flats[0].dtype:
             raise TypeError(f"{name}: one dtype per group, got {flats[0].dtype} "
                             f"and {flat.dtype}")
-        if flat.shape[0] != flats[0].shape[0]:
-            raise ValueError(f"{name}: leaves of {flats[0].shape[0]} and "
-                             f"{flat.shape[0]} rows in one group")
+        if flat.shape[:-1] != flats[0].shape[:-1]:
+            raise ValueError(f"{name}: leaves of {tuple(flats[0].shape[:-1])} "
+                             f"and {tuple(flat.shape[:-1])} rows in one group")
 
 
 def gossip_mix_gather_grouped(idx: Tensor, w: Tensor, flats: list[Tensor]) -> list[Tensor]:
@@ -185,27 +193,42 @@ def gossip_mix_gather_grouped(idx: Tensor, w: Tensor, flats: list[Tensor]) -> li
     float32 or all bfloat16 on ``idx``'s device. f32 accumulation; returns
     ``[K_out, P_l]`` tensors in the leaves' dtype. One launch per
     ``gather_max_leaves()`` leaves that have a column (``leaf_groups``).
+
+    With a seed axis — idx / w ``[S, K_out, D]`` (ids into each seed's own
+    ``K_in`` rows), leaves ``[S, K_in, P_l]`` — ``out_l[s, k] = sum_d w[s, k,
+    d] * flats[l][s, idx[s, k, d]]`` for every seed in the same launches (the
+    kernel folds each row's seed into its ids as it stages them), returning
+    ``[S, K_out, P_l]``.
     """
     name = "gossip_mix_gather"
     if not flats:
         return []
-    _check_group(flats, name)
-    _check_operand(idx, torch.int32, "idx", flats[0], name)
-    _check_operand(w, torch.float32, "w", flats[0], name)
+    dims = idx.dim()
+    if dims not in (2, 3):
+        raise ValueError(f"{name}: idx must be [K_out, D] or [S, K_out, D], "
+                         f"got {tuple(idx.shape)}")
+    _check_group(flats, name, dims)
+    _check_operand(idx, torch.int32, "idx", flats[0], name, dims)
+    _check_operand(w, torch.float32, "w", flats[0], name, dims)
     if idx.shape != w.shape:
         raise ValueError(f"{name}: idx {tuple(idx.shape)} and w "
                          f"{tuple(w.shape)} differ in shape")
-    k_out, d = idx.shape
-    k_in = flats[0].shape[0]
+    lead, (k_out, d) = tuple(idx.shape[:-2]), idx.shape[-2:]
+    if tuple(flats[0].shape[:-2]) != lead:
+        raise ValueError(f"{name}: idx {tuple(idx.shape)} and flat "
+                         f"{tuple(flats[0].shape)} carry different seeds")
+    k_in = flats[0].shape[-2]
     if d == 0 or (k_in == 0 and k_out > 0):
         raise ValueError(f"{name}: needs at least one slot and one row to "
                          f"gather from (D={d}, K_in={k_in})")
-    outs = [torch.empty((k_out, f.shape[1]), dtype=f.dtype, device=f.device)
+    outs = [torch.empty(lead + (k_out, f.shape[-1]), dtype=f.dtype, device=f.device)
             for f in flats]
-    if k_out == 0:
+    seeds = lead[0] if lead else 1
+    if k_out == 0 or seeds == 0:
         return outs
     _launch_groups(name, flats, outs, (idx.data_ptr(), w.data_ptr()),
-                   (k_out, d, _DTYPE_CODE[flats[0].dtype]), gather_max_leaves())
+                   (seeds, k_out, k_in, d, _DTYPE_CODE[flats[0].dtype]),
+                   gather_max_leaves())
     return outs
 
 
@@ -227,24 +250,34 @@ def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor]) -> list[Tenso
     bfloat16 on ``mixing``'s device. Full-f32 accumulation (no TF32); returns
     ``[K_out, P_l]`` tensors in the leaves' dtype. One launch per
     ``matmul_max_leaves()`` leaves that have a column (``leaf_groups``).
+
+    With a seed axis — ``mixing`` ``[S, K_out, K_in]``, leaves ``[S, K_in,
+    P_l]`` — ``out_l[s] = mixing[s] @ flats[l][s]`` for every seed in the same
+    launches (the seed is a grid axis), returning ``[S, K_out, P_l]``.
     """
     name = "gossip_mix_matmul"
     if not flats:
         return []
-    _check_group(flats, name)
-    _check_operand(mixing, torch.float32, "mixing", flats[0], name)
-    k_out, k_in = mixing.shape
-    if flats[0].shape[0] != k_in:
+    dims = mixing.dim()
+    if dims not in (2, 3):
+        raise ValueError(f"{name}: mixing must be [K_out, K_in] or "
+                         f"[S, K_out, K_in], got {tuple(mixing.shape)}")
+    _check_group(flats, name, dims)
+    _check_operand(mixing, torch.float32, "mixing", flats[0], name, dims)
+    lead, (k_out, k_in) = tuple(mixing.shape[:-2]), mixing.shape[-2:]
+    if tuple(flats[0].shape[:-1]) != lead + (k_in,):
         raise ValueError(f"{name}: mixing {tuple(mixing.shape)} does not "
                          f"match flat {tuple(flats[0].shape)}")
     if k_in == 0 and k_out > 0:
         raise ValueError(f"{name}: K_in = 0")
-    outs = [torch.empty((k_out, f.shape[1]), dtype=f.dtype, device=f.device)
+    outs = [torch.empty(lead + (k_out, f.shape[-1]), dtype=f.dtype, device=f.device)
             for f in flats]
-    if k_out == 0:
+    seeds = lead[0] if lead else 1
+    if k_out == 0 or seeds == 0:
         return outs
     _launch_groups(name, flats, outs, (mixing.data_ptr(),),
-                   (k_out, k_in, _DTYPE_CODE[flats[0].dtype]), matmul_max_leaves())
+                   (seeds, k_out, k_in, _DTYPE_CODE[flats[0].dtype]),
+                   matmul_max_leaves())
     return outs
 
 

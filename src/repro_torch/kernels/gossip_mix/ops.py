@@ -5,7 +5,8 @@ Counterpart of ``repro.kernels.gossip_mix.ops.mix_params_pallas``. Both
 mixing representations route through here: a dense ``[K_out, K_in]`` matrix
 hits the grouped product kernel, a ``core.contacts.SparseMixing`` neighbour
 list the grouped gather kernel; either way one launch for all the leaves of
-one dtype (one launch per mix for a model of one dtype).
+one dtype (one launch per mix for a model of one dtype), and for every seed
+of a seed-stacked run (``run_seeds``).
 
 A leaf that lies on the CPU goes to the plain versions in ``ref`` — for that
 reason only. A CUDA leaf launches the kernel or raises; nothing falls back.
@@ -28,23 +29,28 @@ def mix_params_cuda(mixing, params: dict) -> dict:
     Flattens every leaf to ``[K_in, -1]``, runs the kernel, reshapes to
     ``(K_out,) + leaf.shape[1:]``. ``mixing`` may be rectangular
     ``[K_out, K_in]`` or a ``SparseMixing`` whose ids address the leaf rows.
+    With a seed axis (``[S, K_out, K_in]`` or ``[S, K_out, D]`` ids over
+    ``[S, K_in, ...]`` leaves) every seed goes through the same one launch.
     """
-    flats = {name: x.reshape(x.shape[0], -1).contiguous() for name, x in params.items()}
-    if isinstance(mixing, SparseMixing):
+    sparse = isinstance(mixing, SparseMixing)
+    lead = (mixing.idx if sparse else mixing).dim() - 1   # 2 with a seed axis
+    flats = {name: x.reshape(tuple(x.shape[:lead]) + (-1,)).contiguous()
+             for name, x in params.items()}
+    if sparse:
         idx = mixing.idx.to(torch.int32).contiguous()
         w = mixing.w.to(torch.float32).contiguous()
-        k_out = idx.shape[0]
         plain = partial(ref.gossip_mix_gather_ref, idx, w)
         grouped = partial(kernel.gossip_mix_gather_grouped, idx, w)
+        out_rows = tuple(idx.shape[:-1])
     else:
         dense = mixing.to(torch.float32).contiguous()
-        k_out = dense.shape[0]
         plain = partial(ref.gossip_mix_matmul_ref, dense)
         grouped = partial(kernel.gossip_mix_matmul_grouped, dense)
+        out_rows = tuple(dense.shape[:-1])
     mixed = {name: plain(flat) for name, flat in flats.items() if not flat.is_cuda}
     on_card = [name for name, flat in flats.items() if flat.is_cuda]
     for dtype in dict.fromkeys(flats[name].dtype for name in on_card):
         group = [name for name in on_card if flats[name].dtype == dtype]
         mixed.update(zip(group, grouped([flats[n] for n in group])))
-    return {name: mixed[name].reshape((k_out,) + tuple(x.shape[1:]))
+    return {name: mixed[name].reshape(out_rows + tuple(x.shape[lead:]))
             for name, x in params.items()}

@@ -68,10 +68,19 @@ def _dropout(x: Tensor, rate: float, mask: Tensor | None, generator,
              train: bool) -> Tensor:
     """Inverted dropout. ``mask`` (1 = keep, shaped like ``x``) is used as
     given; otherwise a keep mask is drawn from ``generator``. With neither,
-    or ``train=False``, the input passes through."""
+    or ``train=False``, the input passes through.
+
+    ``generator`` may be a tuple of S generators, one per seed of a
+    seed-stacked batch (``x``'s leading axis seed-major): each draws the mask
+    of its own equal share of the rows, as a single run of that seed would.
+    """
     if not train or rate <= 0.0 or (mask is None and generator is None):
         return x
-    if mask is None:
+    if mask is None and isinstance(generator, tuple):
+        share = (x.shape[0] // len(generator),) + tuple(x.shape[1:])
+        mask = torch.cat([torch.rand(share, generator=g, device=x.device)
+                          for g in generator]) >= rate
+    elif mask is None:
         mask = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(mask.to(torch.bool), x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))

@@ -585,3 +585,128 @@ def test_reduced_prefill_through_the_kernel_matches_the_plain_path(card):
     want, plain_state = transformer.prefill(params, tokens, cfg, cache_dtype=torch.float32)
     assert _err(got, want) <= 1e-4
     assert _err(state.kv.k, plain_state.kv.k) <= 1e-4
+
+
+# --------------------------------------------------- the seed axis (run_seeds)
+
+def _seed_case(seeds, k, d, seed, neighbour_only):
+    """S seeds' mixing, dense [S, K, K] and as neighbour lists [S, K, D]; with
+    ``neighbour_only`` the delayed-gossip part: zero diagonal, rows below one,
+    row 1 of seed 0 all zeros."""
+    r = np.random.default_rng(seed)
+    w = r.dirichlet(np.ones(k), size=(seeds, k)).astype(np.float32)
+    idx = r.integers(0, k, size=(seeds, k, d)).astype(np.int32)
+    idx[..., 0] = np.arange(k)                      # a self slot on every row
+    ws = r.random((seeds, k, d)).astype(np.float32)
+    ws[..., -1] = 0.0
+    if neighbour_only:
+        w[:, np.arange(k), np.arange(k)] = 0.0
+        w[0, 1] = 0.0
+        ws[idx == np.arange(k)[None, :, None]] = 0.0
+        ws[0, 1] = 0.0
+    return (torch.as_tensor(w), torch.as_tensor(idx), torch.as_tensor(ws))
+
+
+@pytest.mark.parametrize("neighbour_only", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seeds,k", [(3, 100), (2, 7), (4, 33)])
+def test_seed_axis_matmul_kernel_matches_plain_version(card, seeds, k, dtype, neighbour_only):
+    """W [S, K, K] over [S, K, P] leaves: one launch for every seed and leaf."""
+    w, _, _ = _seed_case(seeds, k, 3, seeds + k, neighbour_only)
+    w = w.to(card)
+    r = np.random.default_rng(k)
+    flats = [torch.as_tensor(r.normal(size=(seeds, k, p)).astype(np.float32)).to(dtype)
+             .to(card) for p in GROUP_WIDTHS]
+    before = kernel.launch_counts["gossip_mix_matmul"]
+    got = gossip_mix_matmul_grouped(w, flats)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_matmul"] == before + 1
+    for x, out in zip(flats, got):
+        assert out.shape == x.shape and out.dtype == dtype
+        assert _err(out, gossip_mix_matmul_ref(w, x)) <= ATOL[dtype]
+        if neighbour_only:
+            assert not out[0, 1].float().any()
+
+
+@pytest.mark.parametrize("neighbour_only", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seeds,k,d", [(3, 100, 9), (2, 7, 4), (4, 33, 6)])
+def test_seed_axis_gather_kernel_matches_plain_version(card, seeds, k, d, dtype,
+                                                       neighbour_only):
+    """[S, K, D] ids over [S, K, P] leaves, the seed folded into the row id:
+    one launch for every seed and leaf."""
+    from repro_torch.kernels.gossip_mix import ref
+    _, idx, ws = _seed_case(seeds, k, d, seeds + k + d, neighbour_only)
+    idx, ws = idx.to(card), ws.to(card)
+    r = np.random.default_rng(d)
+    flats = [torch.as_tensor(r.normal(size=(seeds, k, p)).astype(np.float32)).to(dtype)
+             .to(card) for p in GROUP_WIDTHS]
+    before = kernel.launch_counts["gossip_mix_gather"]
+    got = kernel.gossip_mix_gather_grouped(idx, ws, flats)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_gather"] == before + 1
+    for x, out in zip(flats, got):
+        assert out.shape == x.shape and out.dtype == dtype
+        assert _err(out, ref.gossip_mix_gather_ref(idx, ws, x)) <= ATOL[dtype]
+        if neighbour_only:
+            assert not out[0, 1].float().any()
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_mix_params_cuda_with_a_seed_axis_launches_once(card, sparse):
+    """The delayed mix of a seed-stacked model: one launch for the sync mix,
+    one for the neighbour-only mix; W = I gives the params bit for bit."""
+    from repro_torch.core import vehicle_axis
+    w, idx, ws = _seed_case(3, 6, 3, 0, False)
+    mixing = contacts.SparseMixing(idx.to(card), ws.to(card)) if sparse else w.to(card)
+    r = np.random.default_rng(1)
+    tree = {"a": torch.as_tensor(r.normal(size=(3, 6, 2, 5)).astype(np.float32)).to(card),
+            "b": torch.as_tensor(r.normal(size=(3, 6, 7)).astype(np.float32)).to(card)}
+    stale = {n: v.flip(1).contiguous() for n, v in tree.items()}
+    name = "gossip_mix_gather" if sparse else "gossip_mix_matmul"
+    kernel.reset_launch_counts()
+    got = vehicle_axis.delayed_gossip_mix(mix_params_cuda)(mixing, tree, stale)
+    want = vehicle_axis.delayed_gossip_mix(aggregation.mix_params)(mixing, tree, stale)
+    assert kernel.launch_counts[name] == 1
+    for n in tree:
+        assert got[n].shape == tree[n].shape and _err(got[n], want[n]) <= 1e-5
+    if sparse:
+        self_only = torch.zeros(idx.shape)
+        self_only[..., 0] = 1.0                     # slot 0 is each row's own id
+        ident = contacts.SparseMixing(idx.to(card), self_only.to(card))
+    else:
+        ident = torch.eye(6, device=card).expand(3, 6, 6).contiguous()
+    same = vehicle_axis.delayed_gossip_mix(mix_params_cuda)(ident, tree, stale)
+    assert all(torch.equal(same[n], tree[n]) for n in tree)
+
+
+def test_run_seeds_on_the_card_launches_once_per_round_and_matches_single_runs(card):
+    from dataclasses import replace
+    from repro_torch.fed import engine
+    ds = synthetic_mnist(n_train=1200, n_test=200)
+    for fmt, overlap in (("sparse", "sync"), ("dense", "sync"), ("sparse", "delayed")):
+        cfg = SimulationConfig(num_vehicles=8, epochs=3, eval_every=3, eval_samples=200,
+                               local_steps=2, batch_size=16, p1_steps=40, comm_range=250.0,
+                               contact_format=fmt, overlap=overlap, device="cuda")
+        kernel.reset_launch_counts()
+        batch = engine.run_seeds(cfg, [0, 1, 2], dataset=ds)
+        name = "gossip_mix_gather" if fmt == "sparse" else "gossip_mix_matmul"
+        assert kernel.launch_counts[name] == cfg.epochs
+        for seed, res in enumerate(batch):
+            single = run_simulation(replace(cfg, seed=seed), dataset=ds)
+            np.testing.assert_allclose(np.stack(res.entropy), np.stack(single.entropy),
+                                       atol=1e-5)
+            np.testing.assert_allclose(res.kl_trace, single.kl_trace, atol=1e-5)
+            np.testing.assert_allclose(res.comm_mb, single.comm_mb, atol=1e-5)
+            assert np.isfinite(res.avg_accuracy).all()
+
+
+def test_seed_axis_wrappers_raise_on_a_mismatched_seed_count(card):
+    w, idx, ws = _seed_case(3, 5, 3, 0, False)
+    x = torch.zeros(2, 5, 8, device=card)
+    with pytest.raises(ValueError):
+        gossip_mix_matmul_grouped(w.to(card), [x])
+    with pytest.raises(ValueError):
+        kernel.gossip_mix_gather_grouped(idx.to(card), ws.to(card), [x])
+    with pytest.raises(ValueError):          # a 2-D leaf under a 3-D W
+        gossip_mix_matmul_grouped(w.to(card), [x[0]])

@@ -30,7 +30,15 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_attention.ref", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.transformer",
             "repro_torch.configs.registry", "repro_torch.configs.qwen3_1_7b",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.core.vehicle_axis",
+            "repro_torch.launch.sweep", "repro_torch.launch.campaign",
+            "repro_torch.launch.results_store", "repro_torch.launch.report",
+            "repro_torch.registries", "repro_torch.figures.common",
+            "repro_torch.figures.run", "repro_torch.figures.fig2_cdf",
+            "repro_torch.figures.fig3_correlation", "repro_torch.figures.fig6_7_cifar",
+            "repro_torch.figures.fig8_mnist", "repro_torch.figures.fig9_epochs_to_target",
+            "repro_torch.figures.fig10_consensus",
+            "repro_torch.figures.fig_overlap"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -99,8 +107,7 @@ def test_serve_cli_with_device_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "shard_map"),
-    ("overlap", "delayed"), ("execution", "auto"), ("use_scan_engine", False),
+    ("backend", "shard_map"), ("execution", "auto"),
 ])
 def test_values_of_later_slices_raise_not_implemented(field, value):
     cfg = simulator.SimulationConfig(num_vehicles=4, epochs=1, device="cpu",
