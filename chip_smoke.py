@@ -18,7 +18,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the one-launch P1 solve up to the library's limit, the two mixes
                with the seed axis (S=3 seeds in one launch; also on the
                zero-diagonal mixing of delayed gossip, with a row of no
-               contact), the wrappers' refusals, and each kernel's time there (kl_simplex kernels also
+               contact), the two mixes on every rank's per-shard block at N = 2
+               and 4 (W ``[100, 50]`` / ``[100, 25]``, ids remapped and clipped
+               into ``[0, 50)`` / ``[0, 25)``; the partials sum to the global
+               mix), the wrappers' refusals, and each kernel's time there (kl_simplex kernels also
                at K = 1024; the P1 solve per 200-step solve; flash attention at
                the serving shape B=4, S=T=2048, H=16, KV=8, hd=128).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
@@ -55,6 +58,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                temporary directory): every scenario must finish with finite
                trajectories; the ordering checks are printed as n_passed /
                n_checks and do not gate the exit code.
+6c. sharded  — the shard_map backend (``run_with_context``, ``backend="shard_map"``)
+               at the same full width, 4 epochs, on N = 2 and then 4 ranks: one
+               process each, spawned after the build, all on this one card,
+               talking gloo with the collectives staged through host memory
+               (the transport is printed; one card cannot hold two NCCL ranks).
+               ``dds`` sparse, dense and sparse with ``overlap="delayed"``. Every
+               rank returns the same result; its ``kl_trace`` / ``comm_mb`` /
+               ``entropy`` / ``kl_divergence`` equal the vmap run's to 1e-5, its
+               average accuracy within 0.02; each rank launches its mix kernel
+               once per round and bucket. Per rank: seconds per epoch and the
+               phase split, ``reduce_scatter`` included. N ranks time-slicing
+               one card is a correctness run, not a scaling figure.
 7. diagnostics — ``kl_rows`` / ``entropy_rows`` through their kernels on every
                algorithm's final state matrix, held to that run's last
                ``kl_divergence`` / ``entropy`` diagnostics; then small federations
@@ -68,7 +83,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the plain-attention prefill (last logits atol 2e-3), prefill + one
                decode step against ``forward`` at B=1, S=256 (atol 2e-3), and the
                reduced config on the card against the CPU (atol 1e-4, same tokens).
-9. prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+9. prints one ``{"kernels": [...]}`` line (the two mixes also as
+   ``<name>/shard`` rows: one rank's partial mix at N = 2, N = 4 under ``n4``,
+   launches of the sharded phase), the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -82,16 +99,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import pickle
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-from dataclasses import replace
+from dataclasses import asdict, replace
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -101,7 +120,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregation, contacts as contacts_lib, dfl_dds, kl_solver  # noqa: E402
 from repro_torch.core import vehicle_axis  # noqa: E402
 from repro_torch.data import datasets as data_lib  # noqa: E402
-from repro_torch.data.synthetic import synthetic_mnist  # noqa: E402
+from repro_torch.data.synthetic import Dataset, synthetic_mnist  # noqa: E402
 from repro_torch.fed import engine, topology  # noqa: E402
 from repro_torch.fed.simulator import SimulationConfig, run_simulation  # noqa: E402
 from repro_torch.figures import common as figures_common  # noqa: E402
@@ -110,6 +129,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kl_simplex  # noqa: E402
 from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
 from repro_torch.launch import campaign as campaign_lib, serve  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
@@ -179,6 +199,24 @@ FA_SWEEP = [(2, 64, 4, 4, 32, True, None, torch.float32),
             (2, 64, 4, 4, 64, True, None, torch.bfloat16),
             (1, 257, 2, 1, 64, True, 100, torch.float32)]
 FA_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+# the sharded phase: N ranks of the shard_map backend, each a process of its
+# own, all on the one card, talking gloo through host memory (NCCL cannot run
+# two ranks on one card)
+SHARD_COUNTS = (2, 4)
+SHARD_TRANSPORT = "gloo_staged"
+# (contact format, overlap, comm_bucket_mb): 8 MiB holds a rank's 8 leaves in one
+# bucket at both rank counts (4.37 MB at N=2): one mix launch and one
+# reduce-scatter per round; the delayed run keeps the default 4 MiB, two
+# pipelined buckets at N=2 (one at N=4)
+SHARD_RUNS = (("sparse", "sync", 8.0), ("dense", "sync", 8.0), ("sparse", "delayed", 4.0))
+# average accuracy of a sharded run against the vmap run: the partial sums are
+# added in another order (1-ulp differences in the mixed parameters) and 4
+# rounds x E=8 local SGD steps amplify them (two correct mixes differ by up to
+# 1.9e-3 in a parameter after 8 steps, PERF.md); 0.02 is 40 of the 2,000 eval
+# samples of the vehicle mean. The state side is deterministic: 1e-5.
+SHARD_ACC_ATOL = 0.02
+SHARD_TIMEOUT_S = 300.0       # a collective waits this long for the other ranks
 
 
 def log(msg: str) -> None:
@@ -524,6 +562,125 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
                 / HBM_BYTES_PER_S * 1e3, t_flops),
         })
         log(f"  {name}: {json.dumps(out[name])}")
+    return out
+
+
+def _shard_blocks(mixing_sparse, mixing_dense, n: int, rank: int):
+    """Rank ``rank`` of ``n``'s part of a round's mixing, as the sharded mix
+    hands it to the kernels: the ``[K, K/n]`` column block of W, and the
+    ``[K, D]`` neighbour list remapped into ``[0, K/n)`` with the other
+    ranks' sources clipped and weighted 0."""
+    k = mixing_dense.shape[0]
+    k_local = k // n
+    start = rank * k_local
+    block = vehicle_axis.local_mixing(mixing_dense, start, k_local).contiguous()
+    local = vehicle_axis.local_mixing(mixing_sparse, start, k_local)
+    return (start, k_local, block, local.idx.to(torch.int32).contiguous(),
+            local.w.contiguous())
+
+
+def check_shard_kernels(device, mixing_sparse, mixing_dense) -> dict[str, float]:
+    """Both mixes at the sharded path's shapes: every rank's block of the
+    main path's first mixing at N = 2 and 4 (W ``[100, 50]`` / ``[100, 25]``,
+    ids clipped into ``[0, 50)`` / ``[0, 25)``) over that rank's rows of the
+    model's 8 leaves, one grouped launch each, f32 and bf16, against the
+    plain versions; the N partial mixes of f32 leaves sum to the global mix.
+    Returns the largest absolute error per kernel."""
+    k = mixing_dense.shape[0]
+    r = np.random.default_rng(21)
+    worst = {"gossip_mix_gather": 0.0, "gossip_mix_matmul": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [torch.as_tensor(r.normal(size=(k, p)).astype(np.float32)).to(device)
+                  .to(dtype) for p in LEAF_WIDTHS]
+        for n in SHARD_COUNTS:
+            sums = {name: [torch.zeros(k, p, device=device) for p in LEAF_WIDTHS]
+                    for name in worst}
+            clipped = 0
+            for rank in range(n):
+                start, k_local, block, idx, w = _shard_blocks(mixing_sparse, mixing_dense,
+                                                              n, rank)
+                clipped += int((w == 0).sum() - (mixing_sparse.w == 0).sum())
+                local = [x[start:start + k_local] for x in leaves]
+                for name, launch, plain in (
+                        ("gossip_mix_matmul",
+                         lambda: kernel.gossip_mix_matmul_grouped(block, local),
+                         lambda x: ref.gossip_mix_matmul_ref(block, x)),
+                        ("gossip_mix_gather",
+                         lambda: kernel.gossip_mix_gather_grouped(idx, w, local),
+                         lambda x: ref.gossip_mix_gather_ref(idx, w, x))):
+                    before = kernel.launch_counts[name]
+                    outs = launch()
+                    torch.cuda.synchronize()
+                    err = max(_max_err(o, plain(x)) for o, x in zip(outs, local))
+                    check(kernel.launch_counts[name] == before + 1 and err <= ATOL[dtype]
+                          and all(o.shape == (k, x.shape[1]) for o, x in zip(outs, local)),
+                          f"{name} rank {rank} of {n}: 1 launch over {len(local)} leaves "
+                          f"[{k_local}, P], {'W' if 'matmul' in name else 'ids'} "
+                          f"[{k}, {k_local if 'matmul' in name else idx.shape[1]}], "
+                          f"{dtype}, max err {err:.2e}")
+                    worst[name] = max(worst[name], err)
+                    sums[name] = [t + o.float() for t, o in zip(sums[name], outs)]
+            if dtype != torch.float32:
+                continue
+            check(clipped > 0, f"N={n}: {clipped} neighbour slots of other ranks clipped "
+                  "and weighted 0")
+            for name, plain in (("gossip_mix_matmul",
+                                 lambda x: ref.gossip_mix_matmul_ref(mixing_dense, x)),
+                                ("gossip_mix_gather",
+                                 lambda x: ref.gossip_mix_gather_ref(
+                                     mixing_sparse.idx.to(torch.int32), mixing_sparse.w, x))):
+                err = max(_max_err(t, plain(x)) for t, x in zip(sums[name], leaves))
+                check(err <= ATOL[dtype], f"{name}: the {n} ranks' partial mixes sum to "
+                      f"the global mix, max err {err:.2e}")
+    return worst
+
+
+def time_shard_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
+    """Times of one rank's partial mix, one grouped launch over the model's
+    8 leaves (rank 0's block of the main path's first mixing): at N=2 in
+    the row's keys, at N=4 under ``n4``. Bounds count this rank's work: its
+    ``[K/N, P]`` leaves read once, the ``[K, P]`` partial sums written once,
+    its W block or neighbour list read once; the gather's operations are
+    those of the slots it owns."""
+    k = mixing_dense.shape[0]
+    r = np.random.default_rng(2)
+    out = {}
+    for n in SHARD_COUNTS:
+        start, k_local, block, idx, w = _shard_blocks(mixing_sparse, mixing_dense, n, 0)
+        leaves = [torch.as_tensor(r.normal(size=(k_local, p)).astype(np.float32)).to(device)
+                  for p in LEAF_WIDTHS]
+        nnz = int((w != 0).sum())
+        csr = torch.as_tensor(contacts_lib.mixing_to_dense(
+            contacts_lib.SparseMixing(idx, w), num_cols=k_local)).to(device).to_sparse_csr()
+        leaf_bytes = sum((k_local + k) * p * 4 for p in LEAF_WIDTHS)
+        specs = {
+            "gossip_mix_gather": dict(
+                round=lambda: kernel.gossip_mix_gather_grouped(idx, w, leaves),
+                plain=lambda: [ref.gossip_mix_gather_ref(idx, w, x) for x in leaves],
+                library=lambda: [torch.sparse.mm(csr, x) for x in leaves],
+                bytes=leaf_bytes + k * idx.shape[1] * 8, flops=2 * nnz * sum(LEAF_WIDTHS),
+                work=f"one rank's partial mix at N={n}: 1 grouped launch over "
+                     f"{len(leaves)} leaves [{k_local}, P], ids [{k}, {idx.shape[1]}] "
+                     f"remapped into [0, {k_local}), {nnz} owned slots; library_ms: "
+                     f"{len(leaves)} torch.sparse.mm calls (CSR [{k}, {k_local}])"),
+            "gossip_mix_matmul": dict(
+                round=lambda: kernel.gossip_mix_matmul_grouped(block, leaves),
+                plain=lambda: [ref.gossip_mix_matmul_ref(block, x) for x in leaves],
+                library=lambda: [torch.matmul(block, x) for x in leaves],
+                bytes=leaf_bytes + k * k_local * 4,
+                flops=2 * k * k_local * sum(LEAF_WIDTHS),
+                work=f"one rank's partial mix at N={n}: 1 grouped launch over "
+                     f"{len(leaves)} leaves [{k_local}, P], W block [{k}, {k_local}]; "
+                     f"library_ms: {len(leaves)} torch.matmul calls"),
+        }
+        for name, spec in specs.items():
+            row = {"ranks": n, **_timed(spec["round"], spec["plain"], spec["library"],
+                                        spec["bytes"], spec["flops"], spec["work"])}
+            if n == SHARD_COUNTS[0]:
+                out[name] = row
+            else:
+                out[name][f"n{n}"] = row
+            log(f"  {name} per-shard block, N={n}: {json.dumps(row)}")
     return out
 
 
@@ -1283,6 +1440,160 @@ def check_delayed_anchor(full: SimulationConfig) -> None:
     check(same, "delayed anchor through run_seeds: every seed's kl_trace / comm_mb bit for bit")
 
 
+# --------------------------------------------------------------- sharded ----
+
+def _shard_rank(rank: int, n: int, workdir: str, cfg: dict, transport: str) -> None:
+    """One rank of the sharded phase, a process of its own: joins the group,
+    loads the kernels the parent built and the dataset the parent wrote, and
+    runs each of ``SHARD_RUNS`` through ``run_with_context`` on the
+    shard_map backend after a one-epoch warm-up, its launch counters zeroed
+    just before and read just after (the dataset is ``dataset.npz`` beside
+    ``workdir``). Writes what it saw to
+    ``workdir/rank{rank}.pkl``. Nothing is caught: a failure fails the
+    spawn, and the parent's join raises."""
+    torch.set_num_threads(1)
+    mesh_lib.initialize_multihost(init_method=f"file://{workdir}/store", num_processes=n,
+                                  process_id=rank, transport=transport,
+                                  timeout_s=SHARD_TIMEOUT_S)
+    full = SimulationConfig(**cfg)
+    on_card = full.device != "cpu"
+    if on_card:
+        kernels_lib.build_all()                   # loads the parent's build
+    with np.load(Path(workdir).parent / "dataset.npz") as arrays:
+        dataset = Dataset(train_x=arrays["train_x"], train_y=arrays["train_y"],
+                          test_x=arrays["test_x"], test_y=arrays["test_y"],
+                          num_classes=int(arrays["num_classes"]), name=str(arrays["name"]))
+    run_simulation(replace(full, epochs=1, backend="shard_map"), dataset=dataset)  # warm-up
+    out = {}
+    for fmt, overlap, bucket_mb in SHARD_RUNS:
+        cfg_run = replace(full, backend="shard_map", contact_format=fmt, overlap=overlap,
+                          comm_bucket_mb=bucket_mb)
+        timer = PhaseTimer(full.device)
+        ctx = engine.build_context(cfg_run, dataset=dataset, timer=timer)
+        local = [x[:full.num_vehicles // n] for x in ctx.setup.params_stack.values()]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels_lib.reset_launch_counts()
+        seconds, result = _seconds_of(lambda: engine.run_with_context(ctx), full.device)
+        launches = dict(kernel.launch_counts)
+        out[f"{fmt}/{overlap}"] = {
+            "result": result, "launches": launches, "comm_bucket_mb": bucket_mb,
+            "buckets": len(vehicle_axis.comm_buckets(local, bucket_mb * 2**20)),
+            "seconds_per_epoch": seconds / full.epochs,
+            "device_ms_per_epoch": {name: v / full.epochs
+                                    for name, v in sorted(timer.totals_ms().items())},
+            "peak_device_memory_mb": (torch.cuda.max_memory_allocated() / 2**20
+                                      if on_card else None)}
+    with open(Path(workdir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    mesh_lib.shutdown()
+
+
+SHARD_FIELDS = ("kl_trace", "comm_mb", "entropy", "kl_divergence")
+
+
+def drive_sharded(full: SimulationConfig, dataset, vmap_runs: dict) -> tuple[dict, dict]:
+    """The shard_map backend at the main path's full width: N = 2 and 4
+    ranks (spawned, one process each, all on this card), each running
+    ``SHARD_RUNS``. Every rank must return the same result; the state side
+    (``kl_trace`` / ``comm_mb`` / ``entropy`` / ``kl_divergence``) must equal
+    the vmap run's to 1e-5 and the average accuracy to ``SHARD_ACC_ATOL``;
+    each rank launches its mix kernel once per round and bucket. Returns the
+    report and the mix launches per kernel (all ranks, all runs)."""
+    device = full.device
+    transport = "gloo" if device == "cpu" else SHARD_TRANSPORT
+    log(f"[sharded] transport: {transport} ({'CPU ranks' if device == 'cpu' else 'N ranks share this one card; collectives staged through host memory'})")
+    report, launches = {}, {"gossip_mix_gather": 0, "gossip_mix_matmul": 0}
+    # the spread between two correct mixes for scale: the vmap run through the
+    # plain-torch mix (another summation order) against the kernel-mix run
+    spread = {}
+    for fmt, overlap, _ in SHARD_RUNS:
+        case = f"{fmt}/{overlap}"
+        other = run_simulation(replace(full, contact_format=fmt, overlap=overlap,
+                                       mixing_backend="torch"), dataset=dataset)
+        want = vmap_runs[case]
+        spread[case] = {
+            "avg_accuracy": float(np.abs(np.asarray(other.avg_accuracy)
+                                         - np.asarray(want.avg_accuracy)).max()),
+            "vehicle_accuracy": float(np.abs(np.stack(other.vehicle_accuracy)
+                                             - np.stack(want.vehicle_accuracy)).max())}
+        log(f"  vmap {case}, torch mix vs kernel mix (two correct mixes): average "
+            f"accuracy {spread[case]['avg_accuracy']:.4f}, per-vehicle "
+            f"{spread[case]['vehicle_accuracy']:.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "dataset.npz", train_x=dataset.train_x, train_y=dataset.train_y,
+                 test_x=dataset.test_x, test_y=dataset.test_y,
+                 num_classes=dataset.num_classes, name=dataset.name)
+        for n in SHARD_COUNTS:
+            workdir = Path(tmp) / f"n{n}"
+            workdir.mkdir()
+            log(f"[sharded] N={n} ranks, runs {[f'{f}/{o}' for f, o, _ in SHARD_RUNS]}")
+            t0 = time.perf_counter()
+            procs = mp.start_processes(_shard_rank, args=(n, str(workdir), asdict(full),
+                                                          transport),
+                                       nprocs=n, join=False, start_method="spawn")
+            deadline = time.monotonic() + 2 * SHARD_TIMEOUT_S
+            while not procs.join(timeout=1):
+                if time.monotonic() > deadline:
+                    for proc in procs.processes:
+                        proc.kill()
+                    raise SystemExit(f"FAILED: the {n}-rank sharded phase did not finish")
+            wall = time.perf_counter() - t0
+            ranks = [pickle.loads((workdir / f"rank{r}.pkl").read_bytes()) for r in range(n)]
+            for case, first in ranks[0].items():
+                res = first["result"]
+                want = vmap_runs[case]
+                same = all(np.array_equal(np.asarray(getattr(o[case]["result"], f), float),
+                                          np.asarray(getattr(res, f), float))
+                           for o in ranks[1:] for f in SHARD_FIELDS + (
+                               "avg_accuracy", "vehicle_accuracy", "consensus_distance"))
+                check(same, f"N={n} {case}: every rank returns the same result")
+                diffs = {f: float(np.abs(np.asarray(getattr(res, f), np.float64)
+                                         - np.asarray(getattr(want, f), np.float64)).max())
+                         for f in SHARD_FIELDS}
+                check(max(diffs.values()) <= 1e-5 and res.epochs_evaluated == want.epochs_evaluated,
+                      f"N={n} {case}: sharded vs vmap, "
+                      + ", ".join(f"{f} {v:.2e}" for f, v in diffs.items()) + " (atol 1e-5)")
+                acc = float(np.abs(np.asarray(res.avg_accuracy) - np.asarray(want.avg_accuracy)).max())
+                veh = float(np.abs(np.stack(res.vehicle_accuracy) - np.stack(want.vehicle_accuracy)).max())
+                cons = float(np.max(np.abs(np.asarray(res.consensus_distance)
+                                           - np.asarray(want.consensus_distance))
+                                    / np.abs(np.asarray(want.consensus_distance))))
+                check(acc <= SHARD_ACC_ATOL and np.isfinite(res.avg_accuracy).all(),
+                      f"N={n} {case}: average accuracy vs vmap max diff {acc:.4f} "
+                      f"(tolerance {SHARD_ACC_ATOL}); per-vehicle {veh:.4f}, consensus "
+                      f"relative {cons:.2e} (reported)")
+                used = "gossip_mix_gather" if case.startswith("sparse") else "gossip_mix_matmul"
+                other = next(name for name in launches if name != used)
+                for rank, o in enumerate(ranks):
+                    check("reduce_scatter" in o[case]["device_ms_per_epoch"],
+                          f"N={n} {case} rank {rank}: the sharded mix ran (reduce_scatter "
+                          f"{o[case]['device_ms_per_epoch'].get('reduce_scatter', 0):.2f} "
+                          "ms/epoch)")
+                    got = o[case]["launches"]
+                    want_n = full.epochs * o[case]["buckets"]
+                    if device != "cpu":
+                        check(got[used] == want_n and got[other] == 0,
+                              f"N={n} {case} rank {rank}: {used} launched {got[used]} times = "
+                              f"{full.epochs} rounds x {o[case]['buckets']} bucket(s) of "
+                              f"{o[case]['comm_bucket_mb']} MiB; {other} {got[other]}")
+                    launches[used] += got[used]
+                report[f"N={n} {case}"] = {
+                    "ranks": n, "transport": transport, "epochs": full.epochs,
+                    "buckets": first["buckets"], "comm_bucket_mb": first["comm_bucket_mb"],
+                    "max_diff_vs_vmap": diffs, "avg_accuracy_diff": acc,
+                    "vehicle_accuracy_diff": veh, "consensus_rel_diff": cons,
+                    "two_correct_mixes_spread": spread[case],
+                    "per_rank": [{"seconds_per_epoch": o[case]["seconds_per_epoch"],
+                                  "device_ms_per_epoch": o[case]["device_ms_per_epoch"],
+                                  "peak_device_memory_mb": o[case]["peak_device_memory_mb"],
+                                  "launches": o[case]["launches"]} for o in ranks]}
+                log(f"  {json.dumps(report[f'N={n} {case}'])}")
+            log(f"[sharded] N={n}: {wall:.1f} s for the spawn, start-up and warm-up included")
+    return report, launches
+
+
 def drive_campaign(device: str, rehearsal: bool) -> dict:
     """The port's default figure set at the smoke tier, forced, into a store
     in a temporary directory (never the tree). Fails if a scenario raises or
@@ -1555,6 +1866,7 @@ def main() -> int:
 
     # -- 3. kernels ---------------------------------------------------------
     timings, worst = {}, {name: None for name in KERNELS}
+    shard_timings, shard_worst = {}, {}
     if not rehearsal:
         log("[kernels] against the plain versions on the card")
         with engine.full_f32_matmul():
@@ -1569,10 +1881,13 @@ def main() -> int:
             log(f"[kernels] the mixes with the seed axis (S={len(SEEDS)}) on the card")
             for name, err in check_seed_kernels(device, seeds_sparse, seeds_dense).items():
                 worst[name] = max(worst[name], err)
+            log(f"[kernels] the mixes on per-shard blocks (N={SHARD_COUNTS}) on the card")
+            shard_worst = check_shard_kernels(device, mixing_sparse, mixing_dense)
             log("[kernels] times at the main path's shapes (ms, CUDA events, median)")
             timings = time_kernels(device, mixing_sparse, mixing_dense)
             for name, row in time_seed_kernels(device, seeds_sparse, seeds_dense).items():
                 timings[name]["seed_axis"] = row
+            shard_timings = time_shard_kernels(device, mixing_sparse, mixing_dense)
             timings.update(time_kl_kernels(device, full.num_vehicles, full.p1_steps))
         fa_errors = check_flash_attention(device)
         worst["flash_attention"] = fa_errors.pop("max_abs_err")
@@ -1635,6 +1950,12 @@ def main() -> int:
     check_delayed_anchor(full)
     campaign = drive_campaign(device, rehearsal)
 
+    # -- 6c. sharded: the shard_map backend on N = 2 and 4 ranks ------------
+    vmap_runs = {"sparse/sync": results["sparse"], "dense/sync": results["dense"],
+                 "sparse/delayed": run_simulation(replace(full, overlap="delayed"),
+                                                  dataset=dataset)}
+    sharded_report, shard_launches = drive_sharded(full, dataset, vmap_runs)
+
     # -- 7. diagnostics kernels on every final state; card against the CPU --
     log("[diagnostics] kl_rows / entropy_rows on each run's final state matrix")
     launches.update(check_diagnostics(finals, device))
@@ -1658,6 +1979,10 @@ def main() -> int:
         if name in seed_launches:
             check(seed_launches[name] > 0, f"the seeds path launched {name}")
             rows[-1]["seed_axis"]["launches"] = seed_launches[name]
+    for name, count in shard_launches.items():
+        check(count > 0, f"the sharded path launched {name}")
+        rows.append({"name": f"{name}/shard", **KERNELS[name], "launches": count,
+                     "max_abs_err": shard_worst[name], **shard_timings[name]})
     log(f"[seeds] campaign {campaign['n_passed']}/{campaign['n_checks']} ordering checks "
         f"passed in {campaign['wall_s']:.1f} s")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

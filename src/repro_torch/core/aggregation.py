@@ -113,10 +113,17 @@ def mix_params(mixing, params: dict) -> dict:
     return {name: mix_leaf(x) for name, x in params.items()}
 
 
-def consensus_distance(params: dict, seed_axis: bool = False) -> Tensor:
-    """Xi_t^2 = (1/K) sum_k || w_bar - w_k ||^2 over a stacked dictionary
-    (the whole federation on one device); ``seed_axis`` gives one distance
-    per seed of ``[S, K, ...]`` leaves -> ``[S]``."""
+def consensus_distance(params: dict, seed_axis: bool = False, shard=None) -> Tensor:
+    """Xi_t^2 = (1/K) sum_k || w_bar - w_k ||^2 over a stacked dictionary;
+    ``seed_axis`` gives one distance per seed of ``[S, K, ...]`` leaves ->
+    ``[S]``.
+
+    With a sharded ``shard`` (``core.vehicle_axis.VehicleSharding``), the
+    leading axis of every leaf is this shard's row block of a federation
+    sharded over its group (shard_map backend): the global mean and the
+    squared deviations are completed by all-reduces over the group. The
+    global path is unchanged.
+    """
     if seed_axis:
         seeds = next(iter(params.values())).shape[0]
         return torch.stack([
@@ -124,9 +131,19 @@ def consensus_distance(params: dict, seed_axis: bool = False) -> Tensor:
             for s in range(seeds)])
     leaves = list(params.values())
     k = leaves[0].shape[0]
+    if shard is None or not shard.is_sharded:
+        total = 0.0
+        for leaf in leaves:
+            flat = leaf.reshape(k, -1).to(torch.float32)
+            mean = torch.mean(flat, dim=0, keepdim=True)
+            total = total + torch.sum((flat - mean) ** 2)
+        return total / k
+
+    k_global = k * shard.num_shards
+    flats = [leaf.reshape(k, -1).to(torch.float32) for leaf in leaves]
+    # every leaf's column sums in one all-reduce (the sum is elementwise)
+    sums = shard.psum(torch.cat([torch.sum(flat, dim=0) for flat in flats]))
     total = 0.0
-    for leaf in leaves:
-        flat = leaf.reshape(k, -1).to(torch.float32)
-        mean = torch.mean(flat, dim=0, keepdim=True)
-        total = total + torch.sum((flat - mean) ** 2)
-    return total / k
+    for flat, col_sum in zip(flats, sums.split([f.shape[1] for f in flats])):
+        total = total + torch.sum((flat - col_sum / k_global) ** 2)
+    return shard.psum(total) / k_global

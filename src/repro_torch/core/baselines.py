@@ -20,11 +20,13 @@ State vectors are also tracked for the baselines (they do not influence the
 baselines' aggregation — they are needed to reproduce the paper's diversity
 measurements, Figs. 2-3).
 
-Every round also takes a leading seed axis (``run_seeds``; see
-``core.aggregation``). Counterpart of ``repro.core.baselines`` in its global
-(unsharded) regime:
-the whole federation on one device, no ``shard`` argument. The reference's
-quirks are kept: ``d_fedavg_round`` bumps the state vectors before it
+Every round takes a ``shard`` (core.vehicle_axis.VehicleSharding): the big
+[K, ...] stacks (params, optimizer state, batches) carry only this shard's
+rows while the small [K, K] matrices stay replicated, so the same round body
+runs under the vmap backend and the shard_map backend. In the global regime
+every round also takes a leading seed axis (``run_seeds``; see
+``core.aggregation``). Counterpart of ``repro.core.baselines``; the
+reference's quirks are kept: ``d_fedavg_round`` bumps the state vectors before it
 aggregates them, and ``sp_round`` bumps every row, RSUs included (it takes
 no ``local_mask``).
 """
@@ -37,6 +39,7 @@ import torch
 from . import aggregation, state_vector
 from . import contacts as contacts_lib
 from .dfl_dds import FederationState, masked_update
+from .vehicle_axis import GLOBAL, VehicleSharding
 
 Tensor = torch.Tensor
 
@@ -58,6 +61,7 @@ def gossip_round(
     local_steps: int,
     mix_params_fn: Callable = aggregation.mix_params,
     local_mask: Tensor | None = None,
+    shard: VehicleSharding = GLOBAL,
 ) -> tuple[FederationState, dict]:
     """The shared mix-then-train gossip iteration, parametrized by a
     precomputed row-stochastic ``mixing`` (dense ``[K, K]`` or a
@@ -68,10 +72,11 @@ def gossip_round(
     """
     params = mix_params_fn(mixing, fed.params)
     new_params, opt_state, metrics = local_train_fn(
-        params, fed.opt_state, batches, generator)
+        params, fed.opt_state, batches, shard.local_generator(generator))
     if local_mask is not None:
-        params = masked_update(new_params, params, local_mask)
-        opt_state = masked_update(opt_state, fed.opt_state, local_mask)
+        row_mask = shard.local_rows(local_mask)
+        params = masked_update(new_params, params, row_mask)
+        opt_state = masked_update(opt_state, fed.opt_state, row_mask)
     else:
         params = new_params
 
@@ -86,32 +91,37 @@ def dfl_round(fed: FederationState, contact_matrix, target: Tensor, batches,
               generator, local_train_fn: Callable, *, sample_counts: Tensor,
               lr: float, local_steps: int,
               mix_params_fn: Callable = aggregation.mix_params,
-              local_mask: Tensor | None = None) -> tuple[FederationState, dict]:
+              local_mask: Tensor | None = None,
+              shard: VehicleSharding = GLOBAL) -> tuple[FederationState, dict]:
     """Decentralized FedAvg: alpha proportional to sample population [6]."""
     mixing = aggregation.sample_size_mixing(contact_matrix, sample_counts)
     return gossip_round(fed, mixing, target, batches, generator, local_train_fn,
                         lr=lr, local_steps=local_steps,
-                        mix_params_fn=mix_params_fn, local_mask=local_mask)
+                        mix_params_fn=mix_params_fn, local_mask=local_mask,
+                        shard=shard)
 
 
 def d_sgd_round(fed: FederationState, contact_matrix, target: Tensor, batches,
                 generator, local_train_fn: Callable, *, lr: float,
                 local_steps: int,
                 mix_params_fn: Callable = aggregation.mix_params,
-                local_mask: Tensor | None = None) -> tuple[FederationState, dict]:
+                local_mask: Tensor | None = None,
+                shard: VehicleSharding = GLOBAL) -> tuple[FederationState, dict]:
     """Decentralized gossip SGD: Metropolis-Hastings consensus weights —
     symmetric and doubly stochastic on the undirected contact graph."""
     mixing = aggregation.metropolis_mixing(contact_matrix)
     return gossip_round(fed, mixing, target, batches, generator, local_train_fn,
                         lr=lr, local_steps=local_steps,
-                        mix_params_fn=mix_params_fn, local_mask=local_mask)
+                        mix_params_fn=mix_params_fn, local_mask=local_mask,
+                        shard=shard)
 
 
 def d_fedavg_round(fed: FederationState, contact_matrix, target: Tensor, batches,
                    generator, local_train_fn: Callable, *, sample_counts: Tensor,
                    lr: float, local_steps: int,
                    mix_params_fn: Callable = aggregation.mix_params,
-                   local_mask: Tensor | None = None) -> tuple[FederationState, dict]:
+                   local_mask: Tensor | None = None,
+                   shard: VehicleSharding = GLOBAL) -> tuple[FederationState, dict]:
     """Train-then-aggregate decentralized FedAvg: E local iterations first,
     then the sample-size-weighted gossip average — the DFedAvg ordering.
 
@@ -120,10 +130,11 @@ def d_fedavg_round(fed: FederationState, contact_matrix, target: Tensor, batches
     made before its neighbours average it in.
     """
     new_params, opt_state, metrics = local_train_fn(
-        fed.params, fed.opt_state, batches, generator)
+        fed.params, fed.opt_state, batches, shard.local_generator(generator))
     if local_mask is not None:
-        new_params = masked_update(new_params, fed.params, local_mask)
-        opt_state = masked_update(opt_state, fed.opt_state, local_mask)
+        row_mask = shard.local_rows(local_mask)
+        new_params = masked_update(new_params, fed.params, row_mask)
+        opt_state = masked_update(opt_state, fed.opt_state, row_mask)
 
     mixing = aggregation.sample_size_mixing(contact_matrix, sample_counts)
     params = mix_params_fn(mixing, new_params)
@@ -188,12 +199,17 @@ def sp_round(
     *,
     lr: float,
     mix_params_fn: Callable = aggregation.mix_params,
+    shard: VehicleSharding = GLOBAL,
 ) -> tuple[PushSumState, dict]:
     """One subgradient-push global iteration.
 
     ``grad_fn(params, batch, generator) -> (grads, metrics)`` computes the
     full-batch subgradients at the de-biased models z = x/y for the whole
     stack (``[K, ...]`` in, ``[K, ...]`` out; ``metrics["loss"]`` is ``[K]``).
+
+    Under a sharded vehicle axis, ``x`` carries this shard's rows; the tiny
+    push-sum weight vector ``y`` [K] stays replicated (its mix is a [K, K] @
+    [K] product every shard repeats).
     """
     mixing = push_sum_mixing(contact_matrix)
 
@@ -202,7 +218,8 @@ def sp_round(
     y = contacts_lib.mix_vector(mixing, ps.y)
 
     # de-biased model and one subgradient step on x
-    grads, metrics = grad_fn(_divide_rows(x, y), full_batches, generator)
+    grads, metrics = grad_fn(_divide_rows(x, shard.local_rows(y)), full_batches,
+                             shard.local_generator(generator))
     x = {name: xl - lr * grads[name].to(xl.dtype) for name, xl in x.items()}
 
     # state vectors: SP mixes with B then bumps once (one local iteration),
@@ -214,6 +231,7 @@ def sp_round(
     return out, {**_diagnostics(state, target), "push_weights": y, **metrics}
 
 
-def sp_model(ps: PushSumState) -> dict:
-    """The models SP evaluates: z_k = x_k / y_k."""
-    return _divide_rows(ps.x, ps.y)
+def sp_model(ps: PushSumState, shard: VehicleSharding = GLOBAL) -> dict:
+    """The models SP evaluates: z_k = x_k / y_k (rows of y matching the
+    shard's rows of x)."""
+    return _divide_rows(ps.x, shard.local_rows(ps.y))

@@ -14,7 +14,11 @@ K), the whole federation on one device:
 metrics)`` performs the E local updates for ALL K vehicles at once, over the
 stacked ``[K, ...]`` parameters and ``[K, E, B, ...]`` batches.
 
-Counterpart of ``repro.core.dfl_dds`` in its global (unsharded) regime.
+Counterpart of ``repro.core.dfl_dds``. ``shard`` selects the vehicle-axis
+regime (``core.vehicle_axis``): params / opt_state / batches carry this
+shard's rows while the [K, K] state and mixing matrices stay replicated, so
+the same round body serves the single-device vmap backend and the shard_map
+backend; every shard solves P1 for all K rows from the replicated state.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from ..profiling import PhaseTimer, phase
 from . import aggregation, kl_solver, state_vector
+from .vehicle_axis import GLOBAL, VehicleSharding
 
 Tensor = torch.Tensor
 
@@ -74,6 +79,7 @@ def dds_round(
     mix_params_fn: Callable = aggregation.mix_params,
     local_mask: Tensor | None = None,
     timer: PhaseTimer | None = None,
+    shard: VehicleSharding = GLOBAL,
 ) -> tuple[FederationState, dict]:
     """One DFL-DDS global iteration for the whole federation.
 
@@ -81,7 +87,8 @@ def dds_round(
     ``SparseContacts`` neighbour list. ``local_mask`` [K] marks participants
     that run local iterations; RSUs (paper Sec. V-C — static, data-less
     relays) carry 0 and only mix. ``generator`` feeds the local training's
-    dropout (None: no dropout).
+    dropout (None: no dropout); its masks are drawn at global K and then
+    row-sliced, so the per-vehicle streams are the same in both regimes.
     """
     # -- steps 1-2: alpha from P1 on the exchanged state vectors ------------
     with phase(timer, "p1_solve"):
@@ -98,10 +105,11 @@ def dds_round(
     # -- step 4: E local iterations per vehicle -----------------------------
     with phase(timer, "local_train"):
         new_params, opt_state, metrics = local_train_fn(
-            params, fed.opt_state, batches, generator)
+            params, fed.opt_state, batches, shard.local_generator(generator))
         if local_mask is not None:
-            params = masked_update(new_params, params, local_mask)
-            opt_state = masked_update(opt_state, fed.opt_state, local_mask)
+            row_mask = shard.local_rows(local_mask)
+            params = masked_update(new_params, params, row_mask)
+            opt_state = masked_update(opt_state, fed.opt_state, row_mask)
         else:
             params = new_params
 

@@ -42,13 +42,31 @@ def sample_batches(data: FederatedData, generator, local_steps: int,
     ``torch.Generator`` on the data's device — unless ``picks`` injects it
     (how a test feeds two stacks the same batches).
     """
+    return sample_batches_sliced(data, generator, local_steps, batch_size,
+                                 picks=picks)
+
+
+def sample_batches_sliced(data: FederatedData, generator, local_steps: int,
+                          batch_size: int, take_rows=None,
+                          picks: Tensor | None = None):
+    """``sample_batches`` with an optional vehicle-row slice.
+
+    ``take_rows`` maps a [K, ...] tensor to the caller's rows — identity
+    (None) on the single-device path, this shard's row block under the
+    shard_map backend. The FULL [K, E, B] pick tensor is always drawn before
+    slicing, so every backend consumes the same random stream and the
+    per-vehicle batches match across them; only the gather is per-shard.
+    """
     k, w = data.index_table.shape
     if picks is None:
         picks = torch.randint(0, w, (k, local_steps, batch_size),
                               generator=generator, device=data.x.device)
     picks = picks.to(data.x.device).long()
-    rows = torch.arange(k, device=data.x.device)
-    idx = data.index_table[rows[:, None, None], picks]  # [K, E, B]
+    table = data.index_table
+    if take_rows is not None:
+        picks, table = take_rows(picks), take_rows(table)
+    rows = torch.arange(table.shape[0], device=data.x.device)
+    idx = table[rows[:, None, None], picks]  # [K_rows, E, B]
     return data.x[idx], data.y[idx]
 
 
@@ -98,9 +116,21 @@ def sample_full_batches(data: FederatedData, generator, batch_size: int,
     uses all local samples; we draw ``batch_size`` >= typical partition size,
     with self-resampling padding preserving the distribution). Returns
     (x, y) of shape [K, B, ...]; ``picks`` [K, B] injects the positions."""
+    return sample_full_batches_sliced(data, generator, batch_size, picks=picks)
+
+
+def sample_full_batches_sliced(data: FederatedData, generator, batch_size: int,
+                               take_rows=None, picks: Tensor | None = None):
+    """``sample_full_batches`` with an optional vehicle-row slice (see
+    ``sample_batches_sliced`` — full pick tensor first, slice after, so the
+    random stream is the same under every backend)."""
     k, w = data.index_table.shape
     if picks is None:
         picks = torch.randint(0, w, (k, batch_size), generator=generator,
                               device=data.x.device)
-    idx = torch.gather(data.index_table, 1, picks.to(data.x.device).long())
+    picks = picks.to(data.x.device).long()
+    table = data.index_table
+    if take_rows is not None:
+        picks, table = take_rows(picks), take_rows(table)
+    idx = torch.gather(table, 1, picks)
     return data.x[idx], data.y[idx]

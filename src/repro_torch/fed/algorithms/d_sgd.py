@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from ...core import baselines, dfl_dds
-from .base import Algorithm, AlgorithmSetup, register_algorithm
+from .base import Algorithm, AlgorithmSetup, federation_state_spec, register_algorithm
 
 
 @register_algorithm
@@ -25,7 +25,11 @@ class DSGD(Algorithm):
         return baselines.d_sgd_round(
             state, contacts_t, target, batch, generator, setup.local_train_fn,
             lr=cfg.lr, local_steps=cfg.local_steps,
-            mix_params_fn=setup.mix_params_fn, local_mask=setup.local_mask)
+            mix_params_fn=setup.mix_params_fn, local_mask=setup.local_mask,
+            shard=setup.shard)
 
     def model_of(self, setup, state):
         return state.params
+
+    def state_spec(self, setup):
+        return federation_state_spec(setup)

@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 from ...core import dfl_dds
-from .base import Algorithm, AlgorithmSetup, register_algorithm
+from .base import Algorithm, AlgorithmSetup, federation_state_spec, register_algorithm
 
 
 @register_algorithm
@@ -25,7 +25,11 @@ class DDS(Algorithm):
             state, contacts_t, target, batch, generator, setup.local_train_fn,
             lr=cfg.lr, local_steps=cfg.local_steps, p1_steps=cfg.p1_steps,
             p1_step_size=cfg.p1_step_size, mix_params_fn=setup.mix_params_fn,
-            local_mask=setup.local_mask, timer=setup.timer)
+            local_mask=setup.local_mask, timer=setup.timer,
+            shard=setup.shard)
 
     def model_of(self, setup, state):
         return state.params
+
+    def state_spec(self, setup):
+        return federation_state_spec(setup)

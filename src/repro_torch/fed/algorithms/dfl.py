@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 from ...core import baselines, dfl_dds
-from .base import Algorithm, AlgorithmSetup, register_algorithm
+from .base import Algorithm, AlgorithmSetup, federation_state_spec, register_algorithm
 
 
 @register_algorithm
@@ -26,7 +26,11 @@ class DFL(Algorithm):
             state, contacts_t, target, batch, generator, setup.local_train_fn,
             sample_counts=fed_data.counts.to(torch.float32), lr=cfg.lr,
             local_steps=cfg.local_steps, mix_params_fn=setup.mix_params_fn,
-            local_mask=setup.local_mask)
+            local_mask=setup.local_mask,
+            shard=setup.shard)
 
     def model_of(self, setup, state):
         return state.params
+
+    def state_spec(self, setup):
+        return federation_state_spec(setup)

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from ...core import baselines
+from ...core.vehicle_axis import REPLICATED, ROW
 from ...data import pipeline
 from .base import Algorithm, AlgorithmSetup, register_algorithm
 
@@ -45,7 +46,8 @@ class SP(Algorithm):
         return baselines.sp_round(state, contacts_t, target, batch, generator,
                                   grad_fn=make_grad_fn(setup.loss_fn),
                                   lr=setup.cfg.lr,
-                                  mix_params_fn=setup.mix_params_fn)
+                                  mix_params_fn=setup.mix_params_fn,
+                                  shard=setup.shard)
 
     def sample(self, setup, fed_data, generator):
         # SP uses the full local dataset per iteration (paper Sec. VI-A.5);
@@ -53,7 +55,15 @@ class SP(Algorithm):
         # resampled-from-own-partition samples — an unbiased full-batch
         # estimate, as in the reference
         full_bs = min(int(fed_data.index_table.shape[-1]), FULL_BATCH_CAP)
+        if setup.shard.is_sharded:
+            return pipeline.sample_full_batches_sliced(
+                fed_data, generator, full_bs, take_rows=setup.shard.local_rows)
         return pipeline.sample_full_batches(fed_data, generator, full_bs)
 
     def model_of(self, setup, state):
-        return baselines.sp_model(state)
+        return baselines.sp_model(state, shard=setup.shard)
+
+    def state_spec(self, setup):
+        # [K] push-sum weights: tiny, replicated
+        return baselines.PushSumState(x=ROW, y=REPLICATED, state_matrix=REPLICATED,
+                                      epoch=REPLICATED)

@@ -1,6 +1,6 @@
-"""The simulation engine: whole epoch windows of DFL-DDS rounds on one device.
+"""The simulation engine: whole epoch windows of DFL-DDS rounds.
 
-Counterpart of ``repro.fed.engine`` (its fused scan engine, ``vmap`` backend):
+Counterpart of ``repro.fed.engine`` (its fused scan engine):
 
 * **Contact-window precompute** — the mobility process stays host-side (it
   is inherently sequential) but is batched up front: ``ContactStream.window(T)``
@@ -30,6 +30,13 @@ Counterpart of ``repro.fed.engine`` (its fused scan engine, ``vmap`` backend):
 * **Delayed gossip** — ``overlap="delayed"`` carries ``(algorithm state,
   stale params)`` through the window (``build_window_fn``'s
   ``delayed_round``; ``core.vehicle_axis.delayed_gossip_mix``).
+
+* **Vehicle-sharded runs** — under the shard_map backend
+  (``fed.backends.ShardMapBackend``) each process holds a row block of the
+  vehicle axis: ``EngineContext.bind`` wraps the mix in
+  ``core.vehicle_axis.sharded_mix`` and cuts the initial state by the
+  algorithm's ``state_spec``, and the window computes consensus over the
+  group and all-gathers the per-vehicle accuracy rows.
 
 ``simulator.run_legacy_loop`` (``use_scan_engine=False``) is the per-epoch
 loop the engine is held against.
@@ -107,7 +114,9 @@ class SimulationConfig:
     # reference's "jnp") | "torch" (core.aggregation.mix_params, plain tensor
     # operations). On a CPU run "cuda" takes the kernels' plain versions.
     mixing_backend: str = "cuda"
-    # accepted for config compatibility; read only by the sharded backend
+    # the shard_map backend's reduce-scatter buckets: MiB of a rank's own
+    # parameter rows packed into one collective (core.vehicle_axis
+    # .sharded_mix); 0 = one per leaf. The vmap backend never reads it.
     comm_bucket_mb: float = 4.0
     # "sync" mixes each round's own params (paper Eq. 10). "delayed" double-
     # buffers the exchange: round t's neighbour payloads are the params that
@@ -126,7 +135,9 @@ class SimulationConfig:
     use_scan_engine: bool = True
     window_size: int = 0
     # execution backend (fed.backends): "vmap" = the whole federation stacked
-    # on one device (the name is the reference's); "shard_map" is still to port
+    # on one device; "shard_map" = the vehicle axis split over the processes
+    # of a torch.distributed group, one row block each (the names are the
+    # reference's)
     backend: str = "vmap"
     # "manual" runs the knobs above exactly as set; the cost-model "auto" is
     # still to port
@@ -368,23 +379,50 @@ class EngineContext:
     def window_fn(self) -> Callable:
         return build_window_fn(self)
 
+    def state_spec(self):
+        """Which leaves of the run's state are row-sharded under the
+        shard_map backend (the algorithm's ``state_spec``; under
+        ``overlap="delayed"`` the stale params shard like the live ones)."""
+        spec = self.algorithm.state_spec(self.setup)
+        return (spec, vehicle_axis.ROW) if self.cfg.overlap == "delayed" else spec
 
-def make_eval_fn(accuracy_fn, eval_x: Tensor, eval_y: Tensor, total_nodes: int):
-    """Accuracy of every vehicle's model on the shared eval set -> ``[K]``.
-    The eval set is walked in chunks of ``EVAL_CHUNK`` samples, each
-    broadcast over the K stacked models."""
+    def bind(self, shard: vehicle_axis.VehicleSharding) -> "EngineContext":
+        """Rebind the run to a vehicle-axis sharding regime
+        (``core.vehicle_axis.VehicleSharding``): the gossip mix becomes the
+        sharded partial product + reduce-scatter, the hooks slice
+        per-vehicle rows to this shard, and the initial state keeps this
+        shard's rows of every ``ROW`` leaf."""
+        setup = replace(
+            self.setup, shard=shard,
+            mix_params_fn=vehicle_axis.sharded_mix(
+                self.setup.mix_params_fn, shard, comm_bucket_mb=self.cfg.comm_bucket_mb,
+                timer=self.setup.timer))
+        algo = self.algorithm
+        init_state = vehicle_axis.shard_state(self.state_spec(), self.init_state, shard)
+        return replace(
+            self, setup=setup,
+            init_state=pytree.tree_map(torch.clone, init_state),
+            round_fn=partial(algo.round, setup),
+            sample_fn=partial(algo.sample, setup),
+            model_of=partial(algo.model_of, setup))
+
+
+def make_eval_fn(accuracy_fn, eval_x: Tensor, eval_y: Tensor):
+    """Accuracy of every stacked model on the shared eval set -> ``[K]`` (one
+    entry per row of the stack it is given: the whole federation, a shard's
+    rows, or a folded seed stack). The eval set is walked in chunks of
+    ``EVAL_CHUNK`` samples, each broadcast over the stacked models."""
     n = eval_x.shape[0]
 
     @torch.no_grad()
     def eval_fn(params_stack: dict) -> Tensor:
-        correct = torch.zeros(total_nodes, dtype=torch.float32,
-                              device=eval_x.device)
+        rows = next(iter(params_stack.values())).shape[0]
+        correct = torch.zeros(rows, dtype=torch.float32, device=eval_x.device)
         for s in range(0, n, EVAL_CHUNK):
             x = eval_x[s:s + EVAL_CHUNK]
             y = eval_y[s:s + EVAL_CHUNK]
-            acc = accuracy_fn(params_stack,
-                              x.expand((total_nodes,) + tuple(x.shape)),
-                              y.expand(total_nodes, -1))
+            acc = accuracy_fn(params_stack, x.expand((rows,) + tuple(x.shape)),
+                              y.expand(rows, -1))
             correct += acc * x.shape[0]
         return correct / max(n, 1)
 
@@ -444,7 +482,7 @@ def build_context(cfg: SimulationConfig, dataset=None, init_params: dict | None 
 
     eval_x = torch.as_tensor(ds.test_x[: cfg.eval_samples], device=device)
     eval_y = torch.as_tensor(ds.test_y[: cfg.eval_samples], device=device).long()
-    eval_fn = make_eval_fn(accuracy_fn, eval_x, eval_y, total_nodes)
+    eval_fn = make_eval_fn(accuracy_fn, eval_x, eval_y)
 
     setup = algorithms_lib.AlgorithmSetup(
         cfg=cfg, total_nodes=total_nodes, loss_fn=loss_fn,
@@ -483,12 +521,17 @@ def build_window_fn(ctx: EngineContext) -> Callable:
 
     Under ``overlap="delayed"`` the state is ``(algorithm state, stale
     params)``. On a seed-stacked context (``num_seeds > 0``) the contacts are
-    ``[S, T, ...]`` and every per-epoch row carries the seed axis first.
+    ``[S, T, ...]`` and every per-epoch row carries the seed axis first. On a
+    context bound to a shard (``EngineContext.bind``) the state holds this
+    shard's rows; consensus and the loss are completed over the group and the
+    window's accuracy rows are all-gathered to ``[T, K]`` on every shard.
     """
     round_fn, sample_fn = ctx.round_fn, ctx.sample_fn
     model_of, eval_fn = ctx.model_of, ctx.eval_fn
     payload_mb = exchange_payload_mb(ctx)
     device, timer = ctx.device, ctx.setup.timer
+    shard = ctx.setup.shard
+    rows_here = vehicle_axis.local_nodes(ctx.total_nodes, shard)
     seeded = ctx.num_seeds > 0
     lead = (ctx.num_seeds,) if seeded else ()
     # per-seed means on a seed-stacked context, the whole mean otherwise
@@ -496,7 +539,7 @@ def build_window_fn(ctx: EngineContext) -> Callable:
     delayed = ctx.cfg.overlap == "delayed"
     if delayed:
         algo, setup = ctx.algorithm, ctx.setup
-        delayed_mix = vehicle_axis.delayed_gossip_mix(setup.mix_params_fn)
+        delayed_mix = vehicle_axis.delayed_gossip_mix(setup.mix_params_fn, shard)
 
     def delayed_round(st, contacts_t, target, batch, generator, fed_data):
         """One round under overlap="delayed": the algorithm's mix call is
@@ -518,11 +561,11 @@ def build_window_fn(ctx: EngineContext) -> Callable:
 
     def evaluate(st):
         model = model_of(st)
-        consensus = aggregation.consensus_distance(model, seed_axis=seeded)
+        consensus = aggregation.consensus_distance(model, seed_axis=seeded, shard=shard)
         return eval_fn(model), consensus.to(torch.float32)
 
     def skip():
-        return (torch.full(lead + (ctx.total_nodes,), float("nan"),
+        return (torch.full(lead + (rows_here,), float("nan"),
                            dtype=torch.float32, device=device),
                 torch.full(lead, float("nan"), dtype=torch.float32, device=device))
 
@@ -548,9 +591,11 @@ def build_window_fn(ctx: EngineContext) -> Callable:
                 "kl_divergence": diags["kl_divergence"],
                 "kl_mean": mean(diags["kl_divergence"]),
                 "comm_mb": edges.to(torch.float32) * payload_mb,
-                "loss": mean(diags["loss"]),
+                # per-shard mean of equal row counts -> pmean == global mean
+                "loss": shard.pmean(mean(diags["loss"])),
             })
         traj = {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
+        traj["accuracy"] = shard.gather_rows(traj["accuracy"], dim=-1)
         return state, rng, traj
 
     return window
@@ -620,8 +665,7 @@ def stack_contexts(ctxs: list[EngineContext], dataset) -> EngineContext:
                              device=first.device)
     eval_y = torch.as_tensor(dataset.test_y[: first.cfg.eval_samples],
                              device=first.device).long()
-    folded_eval = make_eval_fn(accuracy_fn, eval_x, eval_y,
-                               seeds * first.total_nodes)
+    folded_eval = make_eval_fn(accuracy_fn, eval_x, eval_y)
 
     def eval_fn(params_stack):
         return folded_eval(_fold(params_stack)).reshape(seeds, -1)

@@ -47,6 +47,7 @@ import numpy as np
 from ..data import datasets as data_lib
 from ..fed import metrics
 from ..fed.engine import SimulationConfig
+from . import mesh as mesh_lib
 from . import report as report_lib
 from . import sweep as sweep_lib
 from .results_store import ResultsStore, jsonable
@@ -289,7 +290,8 @@ def run_campaign(spec: CampaignSpec, force: bool = False,
             sr = sweep_lib.run_sweep(cell, dataset=ds, progress=progress)[0]
             row = scenario_row(key, cfg, spec.seeds, sr,
                                dataset_signature(ds), h)
-            store.append(row)
+            if mesh_lib.is_rank_zero():      # one writer under torchrun
+                store.append(row)
             cached[h] = row
         elif progress:
             print(f"## campaign {spec.name}: cached  {'/'.join(key)} "
@@ -305,7 +307,7 @@ def run_campaign(spec: CampaignSpec, force: bool = False,
             spec=fig, table=table, checks=checks,
             scenario_rows=[rows[k] for k in fig.scenario_keys()]))
 
-    if spec.results_md:
+    if spec.results_md and mesh_lib.is_rank_zero():
         report_lib.write_results(spec, results, spec.results_md)
     return results
 

@@ -15,6 +15,14 @@ CLI (installed package; add PYTHONPATH=src from a bare checkout):
       --vehicles 100 --epochs 300                      # paper scale, on the card
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device.
+
+Vehicle-sharded runs (``--backend shard_map``) start one process per shard
+under ``torchrun``; every rank runs the same sweep and rank 0 prints the
+summary. ``--transport`` names how the ranks talk (``launch.mesh``): ``nccl``
+(the default, a card per rank), ``gloo`` (CPU ranks) or ``gloo_staged``:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.sweep --backend shard_map \
+      --transport gloo --device cpu --vehicles 8 --epochs 4
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from ..fed import engine
 from ..fed import topology as topology_lib
 from ..fed.algorithms import available_algorithms
 from ..fed.engine import SimulationConfig, SimulationResult
+from . import mesh as mesh_lib
 
 
 @dataclass
@@ -86,7 +95,7 @@ def run_sweep(spec: SweepSpec, dataset=None, progress: bool = False) -> list[Sce
     ds = dataset or data_lib.load_dataset(spec.base.dataset, seed=spec.base.seed)
     out = []
     for cfg in spec.scenarios():
-        if progress:
+        if progress and mesh_lib.is_rank_zero():
             print(f"## scenario road_net={cfg.road_net} "
                   f"distribution={cfg.distribution} algorithm={cfg.algorithm} "
                   f"seeds={list(spec.seeds)}", flush=True)
@@ -141,7 +150,12 @@ def main(argv: Sequence[str] | None = None) -> list[str]:
     ap.add_argument("--device", default="cuda",
                     help="where the runs live: cuda (the default; raises "
                          "without a CUDA device) or cpu")
+    ap.add_argument("--transport", default="nccl", choices=mesh_lib.TRANSPORTS,
+                    help="how the ranks of a torchrun launch talk (shard_map "
+                         "backend): nccl (a card per rank), gloo (CPU ranks), "
+                         "gloo_staged (ranks sharing a card)")
     args = ap.parse_args(argv)
+    mesh_lib.initialize_multihost(transport=args.transport)
 
     base = SimulationConfig(
         dataset=args.dataset, num_vehicles=args.vehicles, epochs=args.epochs,
@@ -154,9 +168,10 @@ def main(argv: Sequence[str] | None = None) -> list[str]:
 
     t0 = time.time()
     rows = summary_rows(run_sweep(spec, progress=True))
-    print("\n".join(rows), flush=True)
-    print(f"# sweep done: {len(spec.scenarios())} scenarios x "
-          f"{len(spec.seeds)} seeds in {time.time() - t0:.1f}s", flush=True)
+    if mesh_lib.is_rank_zero():
+        print("\n".join(rows), flush=True)
+        print(f"# sweep done: {len(spec.scenarios())} scenarios x "
+              f"{len(spec.seeds)} seeds in {time.time() - t0:.1f}s", flush=True)
     return rows
 
 

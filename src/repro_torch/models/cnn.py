@@ -25,6 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.vehicle_axis import RowBlockGenerator
+
 Tensor = torch.Tensor
 
 
@@ -73,10 +75,15 @@ def _dropout(x: Tensor, rate: float, mask: Tensor | None, generator,
     ``generator`` may be a tuple of S generators, one per seed of a
     seed-stacked batch (``x``'s leading axis seed-major): each draws the mask
     of its own equal share of the rows, as a single run of that seed would.
+    It may be a ``RowBlockGenerator`` (one shard of a vehicle-sharded run):
+    the mask is drawn for every shard's rows and this shard keeps its block,
+    as the global run draws it.
     """
     if not train or rate <= 0.0 or (mask is None and generator is None):
         return x
-    if mask is None and isinstance(generator, tuple):
+    if mask is None and isinstance(generator, RowBlockGenerator):
+        mask = generator.rand_rows(x.shape, x.device) >= rate
+    elif mask is None and isinstance(generator, tuple):
         share = (x.shape[0] // len(generator),) + tuple(x.shape[1:])
         mask = torch.cat([torch.rand(share, generator=g, device=x.device)
                           for g in generator]) >= rate

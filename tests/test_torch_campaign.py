@@ -197,9 +197,10 @@ def test_sweep_cli_on_the_cpu():
 def test_registries_match_the_reference_by_name():
     ours, theirs = registries.registry_entries(), ref_registries.registry_entries()
     assert list(ours) == list(theirs)
-    for title in ("algorithms", "road networks", "mobility models", "contact formats"):
+    for title in ("algorithms", "road networks", "mobility models", "contact formats",
+                  "execution backends"):
         assert [n for n, _ in ours[title]] == [n for n, _ in theirs[title]], title
-    assert [n for n, _ in ours["execution backends"]] == ["vmap"]
+    assert [n for n, _ in ours["execution backends"]] == ["shard_map", "vmap"]
     assert [n for n, _ in ours["campaign figures"]] == [n for n, _ in theirs["campaign figures"]]
     assert all(summary for _, summary in ours["campaign figures"])
     md = registries.render_markdown()

@@ -710,3 +710,91 @@ def test_seed_axis_wrappers_raise_on_a_mismatched_seed_count(card):
         kernel.gossip_mix_gather_grouped(idx.to(card), ws.to(card), [x])
     with pytest.raises(ValueError):          # a 2-D leaf under a 3-D W
         gossip_mix_matmul_grouped(w.to(card), [x[0]])
+
+
+# ----------------------------------------------- per-shard blocks (shard_map) ----
+
+SHARD_WIDTHS = [250, 10, 5000, 20, 16000, 50, 500, 10]   # the MNIST CNN's 8 leaves
+
+
+def _shard_mixing(k, seed, p=0.1):
+    """A row-stochastic mixing on a random contact graph of K vehicles, dense
+    and as a neighbour list with two padding slots (own id, weight 0)."""
+    r = np.random.default_rng(seed)
+    c = np.triu(r.random((k, k)) < p, 1)
+    c = (c | c.T | np.eye(k, dtype=bool)).astype(np.float32)
+    dense = c * r.random((k, k)).astype(np.float32)
+    dense /= dense.sum(1, keepdims=True)
+    d = int(c.sum(1).max()) + 2
+    idx = np.tile(np.arange(k, dtype=np.int32)[:, None], (1, d))
+    w = np.zeros((k, d), np.float32)
+    for row in range(k):
+        nbrs = np.nonzero(c[row])[0]
+        idx[row, :len(nbrs)] = nbrs
+        w[row, :len(nbrs)] = dense[row, nbrs]
+    return dense, idx, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_matmul_kernel_on_per_shard_blocks(card, n, dtype):
+    """The dense mix of one shard: W[:, block] [100, 100/n] over [100/n, P_l]
+    leaves in one launch; the n partials sum to the global mix."""
+    from repro_torch.core import vehicle_axis
+    k, k_local = 100, 100 // n
+    dense, _, _ = _shard_mixing(k, 11)
+    r = np.random.default_rng(12)
+    leaves = [torch.as_tensor(r.normal(size=(k, p)).astype(np.float32)).to(dtype).to(card)
+              for p in SHARD_WIDTHS]
+    w = torch.as_tensor(dense).to(card)
+    total = [torch.zeros(k, p, device=card) for p in SHARD_WIDTHS]
+    for rank in range(n):
+        start = rank * k_local
+        block = vehicle_axis.local_mixing(w, start, k_local).contiguous()
+        local = [x[start:start + k_local] for x in leaves]
+        before = kernel.launch_counts["gossip_mix_matmul"]
+        outs = gossip_mix_matmul_grouped(block, local)
+        torch.cuda.synchronize()
+        assert kernel.launch_counts["gossip_mix_matmul"] == before + 1
+        for o, x in zip(outs, local):
+            assert o.shape == (k, x.shape[1]) and o.dtype == dtype
+            assert _err(o, gossip_mix_matmul_ref(block, x)) <= ATOL[dtype]
+        total = [t + o.float() for t, o in zip(total, outs)]
+    for t, x in zip(total, leaves):
+        assert _err(t, gossip_mix_matmul_ref(w, x)) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_gather_kernel_on_remapped_shard_ids(card, n, dtype):
+    """The sparse mix of one shard: [100, D] ids remapped into [0, 100/n),
+    clipped where the source is another shard's (weight zeroed), over
+    [100/n, P_l] leaves in one launch; the n partials sum to the global mix."""
+    from repro_torch.core import vehicle_axis
+    k, k_local = 100, 100 // n
+    _, idx, w = _shard_mixing(k, 13)
+    mixing = contacts.SparseMixing(torch.as_tensor(idx).to(card), torch.as_tensor(w).to(card))
+    r = np.random.default_rng(14)
+    leaves = [torch.as_tensor(r.normal(size=(k, p)).astype(np.float32)).to(dtype).to(card)
+              for p in SHARD_WIDTHS]
+    total = [torch.zeros(k, p, device=card) for p in SHARD_WIDTHS]
+    clipped = 0
+    for rank in range(n):
+        start = rank * k_local
+        local_mix = vehicle_axis.local_mixing(mixing, start, k_local)
+        ids = local_mix.idx.to(torch.int32).contiguous()
+        assert int(ids.min()) >= 0 and int(ids.max()) < k_local
+        clipped += int(((mixing.idx < start) | (mixing.idx >= start + k_local)).sum())
+        local = [x[start:start + k_local] for x in leaves]
+        before = kernel.launch_counts["gossip_mix_gather"]
+        outs = kernel.gossip_mix_gather_grouped(ids, local_mix.w.contiguous(), local)
+        torch.cuda.synchronize()
+        assert kernel.launch_counts["gossip_mix_gather"] == before + 1
+        for o, x in zip(outs, local):
+            assert o.shape == (k, x.shape[1]) and o.dtype == dtype
+            assert _err(o, gossip_mix_gather_ref(ids, local_mix.w, x)) <= ATOL[dtype]
+        total = [t + o.float() for t, o in zip(total, outs)]
+    assert clipped > 0
+    want_ids = mixing.idx.contiguous()
+    for t, x in zip(total, leaves):
+        assert _err(t, gossip_mix_gather_ref(want_ids, mixing.w, x)) <= ATOL[dtype]

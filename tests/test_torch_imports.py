@@ -33,6 +33,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.core.vehicle_axis",
             "repro_torch.launch.sweep", "repro_torch.launch.campaign",
             "repro_torch.launch.results_store", "repro_torch.launch.report",
+            "repro_torch.launch.mesh",
             "repro_torch.registries", "repro_torch.figures.common",
             "repro_torch.figures.run", "repro_torch.figures.fig2_cdf",
             "repro_torch.figures.fig3_correlation", "repro_torch.figures.fig6_7_cifar",
@@ -107,13 +108,24 @@ def test_serve_cli_with_device_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "shard_map"), ("execution", "auto"),
+    ("execution", "auto"),
 ])
 def test_values_of_later_slices_raise_not_implemented(field, value):
     cfg = simulator.SimulationConfig(num_vehicles=4, epochs=1, device="cpu",
                                      **{field: value})
     with pytest.raises(NotImplementedError):
         engine.build_context(cfg)
+
+
+def test_shard_map_backend_builds_a_context():
+    """``backend="shard_map"`` is ported: it builds a context and, with no
+    process group up, runs the global path."""
+    from repro_torch.data.synthetic import synthetic_mnist
+    cfg = simulator.SimulationConfig(num_vehicles=4, epochs=1, device="cpu",
+                                     backend="shard_map", eval_samples=20)
+    ctx = engine.build_context(cfg, dataset=synthetic_mnist(n_train=200, n_test=20))
+    assert "shard_map" in backends.available_backends()
+    assert backends.get_backend("shard_map").shard_for(cfg, ctx.total_nodes).is_sharded is False
 
 
 @pytest.mark.parametrize("field,value", [
@@ -131,6 +143,6 @@ def test_unknown_values_raise_value_error(field, value):
 def test_registries():
     from repro_torch.fed import algorithms
     assert algorithms.available_algorithms() == ["d_fedavg", "d_sgd", "dds", "dfl", "sp"]
-    assert backends.available_backends() == ["vmap"]
+    assert backends.available_backends() == ["shard_map", "vmap"]
     for name in algorithms.available_algorithms():
         assert algorithms.get_algorithm(name).name == name
