@@ -70,6 +70,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                once per round and bucket. Per rank: seconds per epoch and the
                phase split, ``reduce_scatter`` included. N ranks time-slicing
                one card is a correctness run, not a scaling figure.
+6d. cost model — ``roofline.scenario_cost`` and ``execution="auto"`` on the card:
+               the constants of the committed ``H100`` profile as this run
+               measures them (the main path's spans and wall time, the gather
+               and matmul rows, the eager P1's host time per device event, the
+               contact stream timed on the host, the sharded phase's
+               reduce-scatters), printed beside the committed ones; the plan
+               ``resolve_auto`` makes at K=100 and its predicted epochs/s beside
+               the measured s/epoch of the candidate it chose; an auto
+               ``run_simulation`` against the manual run it resolved to (1e-5);
+               sparse against dense predicted and measured at K=100 (the main
+               path's two runs) and at the reference's scale workload
+               (``bench_scale_config``, K=1024, ``scale_grid`` of side 32, 8,192
+               synthetic MNIST samples, 2 epochs after a 1-epoch warm-up, with
+               its phase split), as the table ``predicted_vs_measured_table``
+               renders — a ranking ``MISMATCH`` fails the run, as the
+               reference's cost-model CLI exits 1 on one; then ``python -m
+               repro_torch.launch.train --arch mnist-cnn --vehicles 100 --epochs
+               2 --eval-every 1`` into a temporary checkpoint directory, the
+               checkpoint restored and held to the history the run printed.
 7. diagnostics — ``kl_rows`` / ``entropy_rows`` through their kernels on every
                algorithm's final state matrix, held to that run's last
                ``kl_divergence`` / ``entropy`` diagnostics; then small federations
@@ -93,12 +112,14 @@ read just after. Times are CUDA-event times on the card the script ran on;
 the bound of a kernel is the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s for f32 (flash attention's f32: three TF32 products
 per product over 495 TFLOP/s; 989 TFLOP/s for bf16 inputs: the tensor
-cores' rate) — published peaks of one H100 SXM at its full power limit.
+cores' rate) — published peaks of one H100 SXM at its full power limit, read
+from ``repro_torch.roofline.hw``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pickle
 import statistics
 import subprocess
@@ -133,11 +154,8 @@ from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
+from repro_torch.roofline import hw, scenario_cost  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
-F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores, published
-BF16_FLOP_PER_S = 989e12      # H100 SXM, bf16 on the tensor cores, dense, published
-TF32_FLOP_PER_S = 495e12      # H100 SXM, TF32 on the tensor cores, dense, published
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 EPOCHS = 4                    # depth of the main-path runs: two evals at eval_every=2
 BASELINE_EPOCHS = 2           # depth of each baseline run, evaluated every epoch
@@ -217,6 +235,12 @@ SHARD_RUNS = (("sparse", "sync", 8.0), ("dense", "sync", 8.0), ("sparse", "delay
 # samples of the vehicle mean. The state side is deterministic: 1e-5.
 SHARD_ACC_ATOL = 0.02
 SHARD_TIMEOUT_S = 300.0       # a collective waits this long for the other ranks
+
+# the cost-model phase: the reference's scale workload (BENCH_scale.json,
+# benchmarks/engine_scale.py) at K=1024, 2 timed epochs after a 1-epoch warm-up,
+# on 8,192 synthetic MNIST training samples
+SCALE_K, SCALE_EPOCHS, SCALE_N_TRAIN = 1024, 2, 8192
+SRC = Path(__file__).resolve().parent / "src"
 
 
 def log(msg: str) -> None:
@@ -480,14 +504,14 @@ def check_seed_kernels(device, mixing_sparse, mixing_dense) -> dict[str, float]:
 
 
 def _timed(fn, plain, library, nbytes: int, flops: int, work: str,
-           flop_rate: float = F32_FLOP_PER_S, **time_kw) -> dict:
+           flop_rate: float = hw.F32_FLOP_PER_S, **time_kw) -> dict:
     """The timing keys of one kernels-line row: the kernel and its plain
     version in turns (plain, kernel, kernel, plain, within this call), the
     library call where there is one, and the bound — the larger of the bytes
     the function must move over the memory rate and its operations over the
     rate of their type (f32 unless ``flop_rate`` says otherwise).
     ``time_kw`` goes to ``time_ms``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / hw.HBM_BYTES_PER_S * 1e3
     t_flops = flops / flop_rate * 1e3
     plain_a = time_ms(plain, **time_kw)
     ms_a = time_ms(fn, **time_kw)
@@ -551,7 +575,7 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
     for name, s in specs.items():
         out[name] = _timed(s["round"], per_leaf(s["plain"]), per_leaf(s["library"]),
                            s["bytes"], s["flops"], s["work"])
-        t_flops = s["flops"] / F32_FLOP_PER_S * 1e3
+        t_flops = s["flops"] / hw.F32_FLOP_PER_S * 1e3
         out[name].update({
             "whole_model_ms": time_ms(lambda: s["one"](whole)),
             "whole_model_plain_ms": time_ms(lambda: s["plain"](whole)),
@@ -559,7 +583,7 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
             "whole_model_bound_ms": max(
                 (2 * k * whole.shape[1] * esize
                  + (k * d * 8 if name.endswith("gather") else k * k * 4))
-                / HBM_BYTES_PER_S * 1e3, t_flops),
+                / hw.HBM_BYTES_PER_S * 1e3, t_flops),
         })
         log(f"  {name}: {json.dumps(out[name])}")
     return out
@@ -1042,12 +1066,13 @@ def time_flash_attention(device) -> dict:
                      nbytes, 3 * flops if f32 else flops,
                      f"one launch (one layer's prefill attention): B={b}, S=T={s}, H={h}, "
                      f"KV={kv}, hd={hd}, causal, window={win}, {dtype}",
-                     flop_rate=TF32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
-        row["bound_design"] = ("3xTF32: 3 TF32 products per product at 495 TFLOP/s" if f32
-                               else "bf16 tensor cores at 989 TFLOP/s")
+                     flop_rate=hw.TF32_FLOP_PER_S if f32 else hw.BF16_FLOP_PER_S)
+        row["bound_design"] = (
+            f"3xTF32: 3 TF32 products per product at {hw.TF32_FLOP_PER_S / 1e12:g} TFLOP/s"
+            if f32 else f"bf16 tensor cores at {hw.BF16_FLOP_PER_S / 1e12:g} TFLOP/s")
         if f32:
-            row["cuda_core_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                                            flops / F32_FLOP_PER_S) * 1e3
+            row["cuda_core_bound_ms"] = max(nbytes / hw.HBM_BYTES_PER_S,
+                                            flops / hw.F32_FLOP_PER_S) * 1e3
         row["library_max_abs_err"] = sdpa_err
         row["tflop_per_s"] = flops / row["ms"] / 1e9
         if label == "f32":
@@ -1716,7 +1741,8 @@ def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix,
     eager solver. Prints, as facts, the wall time and device events of the
     one-launch solve, of the per-step loop at the same K, of that loop
     replayed from a CUDA graph, and of the eager solve. Returns the launches
-    of the full-width solve's kernel and of the per-step case's."""
+    of the full-width solve's kernel and of the per-step case's, and the
+    facts (None off the card)."""
     alpha, eager_alpha, first = _check_p1(cfg, states, target, contact_matrix, "eg_solve")
     big = _p1_case(k_past_limit, k_past_limit, seed, states.device, empty_row=False)
     if states.is_cuda:
@@ -1726,7 +1752,7 @@ def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix,
     _, _, second = _check_p1(cfg, *big, "eg_step")
     launches = {"eg_solve": first["eg_solve"], "eg_step": second["eg_step"]}
     if not states.is_cuda:
-        return launches
+        return launches, None
     s = states.to(torch.float32).contiguous()
     g = target.to(torch.float32).contiguous()
     m = contact_matrix.to(torch.float32).contiguous()
@@ -1744,7 +1770,7 @@ def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix,
     facts["K"] = states.shape[0]
     facts["one_launch_vs_eager_alpha_max_abs_diff"] = _max_err(alpha, eager_alpha)
     log(f"  facts: {json.dumps(facts)}")
-    return launches
+    return launches, facts
 
 
 # --------------------------------------------------------- baselines ----
@@ -1797,6 +1823,260 @@ def check_diagnostics(finals: list, device) -> dict[str, int]:
         check(all(c == len(finals) for c in launches.values()),
               f"kl_rows / entropy_rows launched once per final state matrix: {launches}")
     return launches
+
+# --------------------------------------------------------- cost model ----
+
+def _mean(xs) -> float:
+    xs = list(xs)
+    return sum(xs) / len(xs)
+
+
+def _contact_stream_s(cfg: SimulationConfig, net) -> float:
+    """Host seconds per epoch of ``cfg``'s contact stream (mobility and the
+    contact format's packing), one window of ``cfg.epochs`` as a run makes it."""
+    stream = engine.ContactStream(cfg, net)
+    t0 = time.perf_counter()
+    stream.window(cfg.epochs)
+    return (time.perf_counter() - t0) / cfg.epochs
+
+
+def fit_h100_profile(full: SimulationConfig, d_max: int, reports: list, timings: dict,
+                     p1_facts: dict, sharded: dict, scale: dict) -> dict:
+    """The constants of ``scenario_cost.H100`` as this run measures them:
+    from the DDS main path's two runs (``reports``: wall s/epoch and phase
+    spans), the kernels line's gather and matmul rows, the P1 facts (the
+    eager solve's wall time over its device events), the contact stream timed
+    on the host at the main path's K and at the scale workload's (``scale``,
+    ``drive_scale_pair``'s report), and the sharded phase (gloo staged
+    through host memory, N ranks sharing this card)."""
+    stats = scenario_cost.local_train_stats(full.dataset, full.local_steps, full.batch_size)
+    k, p = full.num_vehicles + full.num_rsus, stats["params"]
+    spans = [r["device_ms_per_epoch"] for r in reports]
+    # the model's per-sample forward cost; the eval span per evaluating epoch
+    per_sample_fwd = stats["flops"] / (3.0 * full.local_steps * full.batch_size)
+    eval_s = _mean(r["device_ms_per_epoch"]["eval"] * r["epochs"] / len(r["avg_accuracy"])
+                   for r in reports) / 1e3
+    gather, matmul = timings["gossip_mix_gather"], timings["gossip_mix_matmul"]
+    eager = p1_facts["eager"]
+    net = topology.make_road_network(full.road_net, seed=full.seed)
+    contact_s = {fmt: _contact_stream_s(replace(full, contact_format=fmt, d_max=d_max), net)
+                 for fmt in ("sparse", "dense")}
+    fit = {
+        "train_flops_per_s": k * stats["flops"] / (_mean(s["local_train"] for s in spans) / 1e3),
+        "eval_flops_per_s": k * full.eval_samples * per_sample_fwd / eval_s,
+        "gemm_flops_per_s": 2.0 * k * k * p / (matmul["ms"] / 1e3),
+        "gemm_dispatch_s": eager["wall_s"] / eager["device_events"],
+        "stream_bytes_per_s": (scenario_cost.MIX_SLOT_BYTES * k * d_max * p
+                               / (gather["plain_ms"] / 1e3)),
+        "epoch_overhead_s": _mean(r["seconds_per_epoch"]
+                                  - sum(r["device_ms_per_epoch"].values()) / 1e3
+                                  - contact_s[r["contact_format"]] for r in reports),
+
+        "cuda_mix_gain": gather["plain_ms"] / gather["ms"],
+        "p1_step_host_s": _mean(s["p1_solve"] for s in spans) / 1e3 / full.p1_steps,
+    }
+    # one reduce-scatter per round at 8 MiB buckets: t(N) = launch + bytes(N) / rate
+    # from N = 2 and 4 (the larger N ships more: (N-1)/N of the partials)
+    t, b = {}, {}
+    for n in SHARD_COUNTS:
+        row = sharded[f"N={n} sparse/sync"]
+        t[n] = statistics.median(o["device_ms_per_epoch"]["reduce_scatter"]
+                                 for o in row["per_rank"]) / 1e3 / row["buckets"]
+        b[n] = vehicle_axis.psum_scatter_bytes(k, 4 * p, n)
+    n2, n4 = SHARD_COUNTS
+    rate = (b[n4] - b[n2]) / (t[n4] - t[n2]) if t[n4] > t[n2] else 0.0
+    launch = t[n2] - b[n2] / rate if rate > 0 else -1.0
+    if launch < 0:                  # the two points do not separate them
+        launch, rate = 0.0, b[n2] / t[n2]
+    fit["collective_launch_s"], fit["collective_bytes_per_s"] = launch, rate
+    # contact stream per epoch: per vehicle + per pair, from K and the scale K
+    k2 = scale["num_vehicles"]
+    t1 = _mean(contact_s.values())
+    t2 = _mean(scale[fmt]["contact_stream_s_per_epoch"] for fmt in ("sparse", "dense"))
+    pair = max(0.0, (t2 / k2 - t1 / k) / (k2 - k))
+    fit["contact_host_s_per_vehicle"], fit["contact_host_s_per_pair"] = t1 / k - pair * k, pair
+    # Amdahl fraction at N=2: the vmap epoch against a rank's epoch less its
+    # collectives (ranks sharing one card: no speedup, clamped at 0)
+    row = sharded[f"N={n2} sparse/sync"]
+    rank_s = (statistics.median(o["seconds_per_epoch"] for o in row["per_rank"])
+              - t[n2] * row["buckets"])
+    speedup = reports[0]["seconds_per_epoch"] / rank_s
+    fit["shard_parallel_fraction"] = min(1.0, max(0.0, (1 - 1 / speedup) / (1 - 1 / n2)))
+    fit["inputs"] = {"p1_s_per_step": {r["contact_format"]: r["device_ms_per_epoch"]["p1_solve"]
+                                       / 1e3 / full.p1_steps for r in reports},
+                     "reduce_scatter_s": {str(n): t[n] for n in SHARD_COUNTS},
+                     "shard_speedup_n2": speedup, "eval_s_per_evaluating_epoch": eval_s,
+                     "contact_stream_s_per_epoch": {"K": k, **contact_s},
+                     "scale_contact_stream_s_per_epoch": {"K": k2, "mean": t2},
+                     "eager_p1": eager, "flops_per_vehicle_round": stats["flops"]}
+    return fit
+
+
+def drive_scale_pair(device: str, rehearsal: bool):
+    """The reference's scale workload (``bench_scale_config``) at K=1024, once
+    per contact format, through ``run_with_context`` after a 1-epoch warm-up:
+    its sparse and dense epochs per second beside the H100 profile's
+    prediction. The road net ``scale_grid`` is registered as
+    ``benchmarks/engine_scale.py`` registers it (grid side round(sqrt(K)))."""
+    k = 16 if rehearsal else SCALE_K
+    side = max(3, int(round(k ** 0.5)))
+
+    @topology.register_road_network("scale_grid")
+    def scale_grid(seed: int = 0) -> topology.RoadNetwork:
+        """Paper-density grid scaled with the fleet (side = sqrt(K))."""
+        return topology.grid_net(side=side)
+
+    ds = synthetic_mnist(n_train=512 if rehearsal else SCALE_N_TRAIN, n_test=256)
+    base = replace(scenario_cost.bench_scale_config(k, "sparse", SCALE_EPOCHS), device=device)
+    net = topology.make_road_network("scale_grid", seed=base.seed)
+    d_max = engine.probe_d_max(base, net)
+    runs, predicted, report = {}, {}, {"num_vehicles": k, "d_max": d_max, "grid_side": side}
+    for fmt in ("sparse", "dense"):
+        cfg = replace(scenario_cost.bench_scale_config(k, fmt, SCALE_EPOCHS, d_max=d_max),
+                      device=device)
+        run_simulation(replace(cfg, epochs=1), dataset=ds)            # warm-up
+        timer = PhaseTimer(device)
+        ctx = engine.build_context(cfg, dataset=ds, timer=timer)
+        kernels_lib.reset_launch_counts()
+        res, seconds = _seconds(lambda: engine.run_with_context(ctx))
+        launches = dict(kernel.launch_counts)
+        runs[fmt] = res
+        predicted[fmt] = scenario_cost.predict_scenario(cfg, d_max=d_max,
+                                                        host=scenario_cost.H100)
+        report[fmt] = {"seconds_per_epoch": seconds / cfg.epochs, "launches": launches,
+                       "device_ms_per_epoch": {n: v / cfg.epochs for n, v
+                                               in sorted(timer.totals_ms().items())},
+                       "contact_stream_s_per_epoch": _contact_stream_s(cfg, net),
+                       "predicted": predicted[fmt].jsonable()}
+        check(all(np.isfinite(np.asarray(t)).all()
+                  for t in (res.kl_trace, res.comm_mb, res.avg_accuracy)),
+              f"K={k} {fmt}: finite traces")
+        if device != "cpu":
+            used = "gossip_mix_gather" if fmt == "sparse" else "gossip_mix_matmul"
+            check(launches[used] == cfg.epochs,
+                  f"K={k} {fmt}: {used} launched {launches[used]} times = {cfg.epochs} rounds")
+    err = max(np.abs(np.asarray(runs["sparse"].kl_trace) - np.asarray(runs["dense"].kl_trace)).max(),
+              np.abs(np.asarray(runs["sparse"].comm_mb) - np.asarray(runs["dense"].comm_mb)).max())
+    check(err <= 1e-5, f"K={k}: dense and sparse give the same kl_trace / comm_mb "
+          f"(max diff {err:.2e})")
+    row = scenario_cost.pair_row(
+        f"sparse-vs-dense K={k}", 1 / report["sparse"]["seconds_per_epoch"],
+        1 / report["dense"]["seconds_per_epoch"], predicted["sparse"], predicted["dense"],
+        num_vehicles=k, d_max=d_max)
+    return row, report
+
+
+def drive_train_cli(device: str, rehearsal: bool) -> dict:
+    """``python -m repro_torch.launch.train --arch mnist-cnn`` at K=100, 2
+    epochs evaluated every epoch, into a temporary checkpoint directory; the
+    checkpoint restored (``repro_torch.checkpoint``) must hold the history the
+    run printed."""
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "mnist-cnn",
+            "--vehicles", "100", "--epochs", "2", "--eval-every", "1", "--device", device]
+    if rehearsal:
+        argv[argv.index("100")] = "8"
+        argv += ["--local-steps", "1", "--batch-size", "8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+        out = subprocess.run(argv + ["--checkpoint-dir", tmp], capture_output=True, text=True,
+                             timeout=600, cwd=str(SRC.parent), env=env)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            log(out.stdout[-4000:])
+            log(out.stderr[-4000:])
+        check(out.returncode == 0, f"the train CLI exits 0 ({wall:.1f} s, process start included)")
+        printed = [float(line.split("avg_acc=")[1].split()[0])
+                   for line in out.stdout.splitlines() if "avg_acc=" in line]
+        from repro_torch import checkpoint as ckpt_lib
+        mgr = ckpt_lib.CheckpointManager(tmp)
+        history, step = mgr.restore_latest(
+            {"avg_accuracy": torch.zeros(2, dtype=torch.float64)})
+        restored = history["avg_accuracy"].tolist()
+        check(step == 2 and len(printed) == 2
+              and np.allclose(restored, printed, atol=5e-5, rtol=0),
+              f"checkpoint ckpt_{step}.npz restores the printed history: {restored} vs {printed}")
+        meta = ckpt_lib.metadata(os.path.join(tmp, f"ckpt_{step}.npz"))
+    return {"argv": argv[1:], "wall_s": wall, "printed": printed, "restored": restored,
+            "metadata": meta}
+
+
+def drive_cost_model(full: SimulationConfig, d_max: int, dataset, reports: list,
+                     timings: dict, p1_facts, sharded: dict, rehearsal: bool) -> dict:
+    """The cost model and ``execution="auto"`` on this card: the H100 profile's
+    constants measured in this run beside the committed ones, the plan
+    ``resolve_auto`` makes at the paper's configuration, an auto run against
+    the manual run of the configuration it resolved to, the sparse-vs-dense
+    pairs at K=100 (the main path's two runs) and K=1024 (the reference's
+    scale workload) predicted against measured, and the train CLI with its
+    checkpoint. A ranking MISMATCH fails the phase, as the reference's
+    cost-model CLI exits 1 on one."""
+    device = full.device
+    h100 = scenario_cost.H100
+    report = {}
+    log(f"[cost model] the reference's scale workload, K={16 if rehearsal else SCALE_K}")
+    scale_row, report["scale"] = drive_scale_pair(device, rehearsal)
+    log(f"  {json.dumps(report['scale'])}")
+    if not rehearsal:
+        fit = fit_h100_profile(full, d_max, reports, timings, p1_facts, sharded,
+                               report["scale"])
+        log("[cost model] H100 profile: measured in this run | committed")
+        for name, value in fit.items():
+            if name != "inputs":
+                log(f"  {name}: {value:.6g} | {getattr(h100, name):.6g}")
+        log(f"  fit inputs: {json.dumps(fit['inputs'])}")
+        report["fit"] = fit
+
+    # the plan at the paper's K=100 configuration
+    by_format = {r["contact_format"]: r for r in reports}
+    resolved, plan = engine.resolve_execution(replace(full, execution="auto"))
+    chosen = by_format[resolved.contact_format]
+    log(f"[cost model] plan at K={full.num_vehicles}: {json.dumps(plan)}")
+    log(f"  chose {resolved.backend}/{resolved.contact_format}/{resolved.mixing_backend}: "
+        f"predicted {plan['predicted_epochs_per_s']:.4f} epochs/s "
+        f"({1 / plan['predicted_epochs_per_s']:.5f} s/epoch); measured "
+        f"{chosen['seconds_per_epoch']:.5f} s/epoch ({1 / chosen['seconds_per_epoch']:.4f} epochs/s)")
+    check(plan["host_profile"] == ("ci_host" if rehearsal else "h100")
+          and resolved.execution == "manual" and plan["device_count"] == 1,
+          f"resolve_auto on {device} uses the {plan['host_profile']} profile, one rank")
+    report["plan"] = plan
+
+    # execution="auto" through run_simulation against the manual run it resolved to
+    auto = run_simulation(replace(full, execution="auto", epochs=2), dataset=dataset)
+    manual = run_simulation(auto.config, dataset=dataset)
+    diff = max(float(np.abs(np.asarray(getattr(auto, f)) - np.asarray(getattr(manual, f))).max())
+               for f in ("avg_accuracy", "kl_trace", "comm_mb"))
+    check(auto.execution_plan is not None and auto.execution_plan["requested"] == "auto"
+          and manual.execution_plan is None and diff <= 1e-5,
+          f"execution='auto' run_simulation stamps its plan and follows the manual run of "
+          f"{auto.config.contact_format}/{auto.config.mixing_backend} (max diff {diff:.2e})")
+
+    # sparse against dense: K=100 from the main path's runs; K=1024 the scale workload
+    predicted = {fmt: scenario_cost.predict_scenario(replace(full, contact_format=fmt),
+                                                      d_max=d_max, host=h100)
+                 for fmt in ("sparse", "dense")}
+    rows = [scenario_cost.pair_row(
+        f"sparse-vs-dense K={full.num_vehicles}", 1 / by_format["sparse"]["seconds_per_epoch"],
+        1 / by_format["dense"]["seconds_per_epoch"], predicted["sparse"], predicted["dense"],
+        num_vehicles=full.num_vehicles, d_max=d_max)]
+    log(f"  K={full.num_vehicles} predicted: "
+        + json.dumps({f: b.jsonable() for f, b in predicted.items()}))
+    rows.append(scale_row)
+    table = scenario_cost.predicted_vs_measured_table([], rows, profile=h100.name)
+    for line in table.splitlines():
+        log(f"  {line}")
+    report["pairs"] = rows
+    bad = [r["pair"] for r in rows if r["verdict"] == "MISMATCH"]
+    if rehearsal:
+        log(f"  rehearsal: CPU times against the H100 profile, not gated ({bad or 'no MISMATCH'})")
+    else:
+        check(not bad, f"no ranking MISMATCH on {[r['pair'] for r in rows]}")
+
+    log("[cost model] the train CLI at K=100, its checkpoint restored")
+    report["train_cli"] = drive_train_cli(device, rehearsal)
+    log(f"  {json.dumps(report['train_cli'])}")
+    return report
 
 
 def nvidia_smi_line() -> str:
@@ -1932,8 +2212,9 @@ def main() -> int:
     # -- 5. the P1 entry point at full width (the dense run's last state) ---
     log("[P1] solve_p1_all_fused vs core.kl_solver.solve_p1_all")
     with engine.full_f32_matmul():
-        launches.update(check_fused_p1(full, ctx.final_state.state_matrix, ctx.target,
-                                       next_contacts, P1_K_PAST_LIMIT, args.seed))
+        p1_launches, p1_facts = check_fused_p1(full, ctx.final_state.state_matrix, ctx.target,
+                                               next_contacts, P1_K_PAST_LIMIT, args.seed)
+    launches.update(p1_launches)
     if timings:
         timings["eg_step"]["solve_launches"] = launches["eg_solve"]
     del ctx
@@ -1955,6 +2236,12 @@ def main() -> int:
                  "sparse/delayed": run_simulation(replace(full, overlap="delayed"),
                                                   dataset=dataset)}
     sharded_report, shard_launches = drive_sharded(full, dataset, vmap_runs)
+
+    # -- 6d. the cost model, execution="auto" and the train CLI -------------
+    t0 = time.perf_counter()
+    drive_cost_model(full, d_max, dataset, reports, timings, p1_facts, sharded_report,
+                     rehearsal)
+    log(f"[cost model] phase took {time.perf_counter() - t0:.1f} s")
 
     # -- 7. diagnostics kernels on every final state; card against the CPU --
     log("[diagnostics] kl_rows / entropy_rows on each run's final state matrix")

@@ -139,8 +139,9 @@ class SimulationConfig:
     # of a torch.distributed group, one row block each (the names are the
     # reference's)
     backend: str = "vmap"
-    # "manual" runs the knobs above exactly as set; the cost-model "auto" is
-    # still to port
+    # "manual" runs the knobs above exactly as set; "auto" resolves backend /
+    # contact_format / mixing_backend / d_max from the analytical cost model
+    # (roofline.scenario_cost) before anything runs — trajectory-neutral
     execution: str = "manual"
     # where the run lives: "cuda" (or "cuda:N") | "cpu". Never falls back.
     device: str = "cuda"
@@ -157,15 +158,24 @@ def resolve_device(cfg: SimulationConfig) -> torch.device:
 
 
 def check_supported(cfg: SimulationConfig) -> None:
-    """Raise on configuration values a later slice of the port will honour."""
-    if cfg.execution == "auto":
-        raise NotImplementedError(
-            "repro_torch: execution='auto' arrives with the cost-model slice "
-            "(roofline/scenario_cost.py)")
+    """Raise on configuration values the engine does not know."""
     if cfg.overlap not in ("sync", "delayed"):
         raise ValueError(f"unknown overlap {cfg.overlap!r} (sync|delayed)")
-    if cfg.execution != "manual":
+    if cfg.execution not in ("manual", "auto"):
         raise ValueError(f"unknown execution {cfg.execution!r} (manual|auto)")
+
+
+def resolve_execution(cfg: SimulationConfig) -> tuple[SimulationConfig, dict | None]:
+    """Resolve ``execution="auto"`` to a concrete configuration via the
+    analytical cost model (roofline.scenario_cost) — no-op for "manual".
+    Returns ``(resolved config, plan)``; the plan records the choice and is
+    stamped on results / campaign rows."""
+    check_supported(cfg)
+    if cfg.execution != "auto":
+        return cfg, None
+    from ..roofline import scenario_cost
+
+    return scenario_cost.resolve_auto(cfg)
 
 
 def resolve_mix_params_fn(cfg: SimulationConfig) -> Callable:
@@ -193,7 +203,7 @@ class SimulationResult:
     kl_trace: list[float] = field(default_factory=list)
     comm_mb: list[float] = field(default_factory=list)
     wall_time: float = 0.0
-    execution_plan: dict | None = None   # set by execution="auto" (not ported)
+    execution_plan: dict | None = None   # set by execution="auto"
 
     def final_accuracy(self) -> float:
         return self.avg_accuracy[-1] if self.avg_accuracy else float("nan")
@@ -439,8 +449,12 @@ def build_context(cfg: SimulationConfig, dataset=None, init_params: dict | None 
     tensors or numpy arrays in the reference's names and layouts) in place
     of the seeded init — how a test starts both stacks from the same point.
     ``timer`` attaches per-phase timing to the rounds (``profiling``).
+
+    ``execution="auto"`` configs are resolved here, before anything else
+    (cost-model backend / format selection); the plan rides on
+    ``ctx.execution_plan``.
     """
-    check_supported(cfg)
+    cfg, execution_plan = resolve_execution(cfg)
     device = resolve_device(cfg)
     from . import backends as backends_lib
 
@@ -505,7 +519,8 @@ def build_context(cfg: SimulationConfig, dataset=None, init_params: dict | None 
         round_fn=partial(algo.round, setup),
         sample_fn=partial(algo.sample, setup),
         model_of=partial(algo.model_of, setup),
-        eval_fn=eval_fn, algorithm=algo, setup=setup)
+        eval_fn=eval_fn, algorithm=algo, setup=setup,
+        execution_plan=execution_plan)
 
 
 def build_window_fn(ctx: EngineContext) -> Callable:
@@ -743,9 +758,18 @@ def run_seeds(cfg: SimulationConfig, seeds, dataset=None,
     The batch's wall time is the caller's to record (the sweep runner keeps
     it per scenario): all seeds run as one loop, so per-seed ``wall_time``
     stays 0, as in the reference.
+
+    ``execution="auto"`` is resolved HERE, before backend dispatch — the
+    backend name itself is one of the knobs the cost model picks — and the
+    plan is stamped on every result.
     """
     from . import backends as backends_lib
 
+    cfg, plan = resolve_execution(cfg)
     with full_f32_matmul():
-        return backends_lib.get_backend(cfg.backend).run_seeds(
+        results = backends_lib.get_backend(cfg.backend).run_seeds(
             cfg, seeds, dataset=dataset, progress=progress)
+    if plan is not None:
+        for r in results:
+            r.execution_plan = plan
+    return results

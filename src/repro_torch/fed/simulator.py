@@ -29,8 +29,8 @@ from .engine import (  # noqa: F401
 
 def run_simulation(cfg: SimulationConfig, dataset=None,
                    progress: bool = False) -> SimulationResult:
-    ctx = engine_lib.build_context(cfg, dataset=dataset)
-    if cfg.use_scan_engine:
+    ctx = engine_lib.build_context(cfg, dataset=dataset)   # resolves "auto"
+    if ctx.cfg.use_scan_engine:
         return engine_lib.run_with_context(ctx, progress=progress)
     with full_f32_matmul():
         return run_legacy_loop(ctx, progress=progress)
@@ -45,7 +45,7 @@ def run_legacy_loop(ctx: EngineContext, progress: bool = False) -> SimulationRes
             "overlap='delayed' needs the scan engine's double-buffered carry "
             "(set use_scan_engine=True)")
     t0 = time.time()
-    result = SimulationResult(config=cfg)
+    result = SimulationResult(config=cfg, execution_plan=ctx.execution_plan)
     state, rng = ctx.init_state, ctx.init_rng
     payload_mb = engine_lib.exchange_payload_mb(ctx)
 

@@ -15,6 +15,8 @@ CLI (installed package; add PYTHONPATH=src from a bare checkout):
       --vehicles 100 --epochs 300                      # paper scale, on the card
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device.
+``--execution auto`` lets the cost model pick the backend, contact format,
+mixing backend and slot budget of every scenario (``roofline.scenario_cost``).
 
 Vehicle-sharded runs (``--backend shard_map``) start one process per shard
 under ``torchrun``; every rank runs the same sweep and rank 0 prints the
@@ -150,6 +152,11 @@ def main(argv: Sequence[str] | None = None) -> list[str]:
     ap.add_argument("--device", default="cuda",
                     help="where the runs live: cuda (the default; raises "
                          "without a CUDA device) or cpu")
+    ap.add_argument("--execution", default="manual",
+                    choices=["manual", "auto"],
+                    help="auto picks backend/contact_format/mixing_backend/"
+                         "d_max from the analytical cost model "
+                         "(roofline.scenario_cost)")
     ap.add_argument("--transport", default="nccl", choices=mesh_lib.TRANSPORTS,
                     help="how the ranks of a torchrun launch talk (shard_map "
                          "backend): nccl (a card per rank), gloo (CPU ranks), "
@@ -162,7 +169,8 @@ def main(argv: Sequence[str] | None = None) -> list[str]:
         local_steps=args.local_steps, batch_size=args.batch_size,
         eval_every=args.eval_every, p1_steps=args.p1_steps,
         window_size=args.window_size, backend=args.backend,
-        mixing_backend=args.mixing_backend, device=args.device)
+        mixing_backend=args.mixing_backend, execution=args.execution,
+        device=args.device)
     spec = SweepSpec(road_nets=args.road_nets, distributions=args.distributions,
                      algorithms=args.algorithms, seeds=args.seeds, base=base)
 

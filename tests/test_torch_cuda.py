@@ -798,3 +798,24 @@ def test_gather_kernel_on_remapped_shard_ids(card, n, dtype):
     want_ids = mixing.idx.contiguous()
     for t, x in zip(total, leaves):
         assert _err(t, gossip_mix_gather_ref(want_ids, mixing.w, x)) <= ATOL[dtype]
+
+
+def test_resolve_auto_on_a_cuda_config_uses_the_h100_profile(card):
+    """``execution="auto"`` on the card predicts with the H100 profile, and
+    the run it resolves to goes through the mix kernel of its format."""
+    from repro_torch.fed import engine
+    from repro_torch.roofline import scenario_cost
+    cfg = SimulationConfig(num_vehicles=8, epochs=2, eval_every=1, eval_samples=40,
+                           local_steps=1, batch_size=4, p1_steps=5, contact_density=0.5,
+                           execution="auto", device="cuda")
+    resolved, plan = engine.resolve_execution(cfg)
+    assert plan["host_profile"] == scenario_cost.H100.name == "h100"
+    assert plan["device_count"] == 1 and resolved.execution == "manual"
+    assert resolved.backend == "vmap" and resolved.mixing_backend == "cuda"
+    kernel.reset_launch_counts()
+    res = run_simulation(cfg, dataset=synthetic_mnist(n_train=400, n_test=40))
+    torch.cuda.synchronize()
+    assert res.execution_plan == plan
+    used = ("gossip_mix_gather" if resolved.contact_format == "sparse"
+            else "gossip_mix_matmul")
+    assert kernel.launch_counts[used] == cfg.epochs

@@ -280,8 +280,9 @@ def test_delayed_gossip_requires_scan_engine(tiny_ds):
 def test_check_supported_takes_this_slice_and_names_the_next():
     engine.check_supported(_cfg(overlap="delayed"))
     engine.check_supported(_cfg(use_scan_engine=False))
-    with pytest.raises(NotImplementedError, match="cost-model"):
-        engine.check_supported(_cfg(execution="auto"))
+    engine.check_supported(_cfg(execution="auto"))
+    with pytest.raises(ValueError, match="manual|auto"):
+        engine.check_supported(_cfg(execution="nope"))
     with pytest.raises(ValueError, match="delayed"):
         engine.check_supported(_cfg(overlap="nope"))
     assert "dds" in algorithms.available_algorithms()

@@ -39,7 +39,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.figures.fig3_correlation", "repro_torch.figures.fig6_7_cifar",
             "repro_torch.figures.fig8_mnist", "repro_torch.figures.fig9_epochs_to_target",
             "repro_torch.figures.fig10_consensus",
-            "repro_torch.figures.fig_overlap"} <= set(names)
+            "repro_torch.figures.fig_overlap", "repro_torch.roofline.hw",
+            "repro_torch.roofline.flop_cost", "repro_torch.roofline.bench_schema",
+            "repro_torch.roofline.scenario_cost", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.train"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -107,14 +110,22 @@ def test_serve_cli_with_device_cuda_without_a_card_raises():
     assert "generated ids" not in run.stdout
 
 
-@pytest.mark.parametrize("field,value", [
-    ("execution", "auto"),
+@pytest.mark.parametrize("entry,arch", [
+    ("launch.train", "qwen3-1.7b"),
+    ("models.transformer", "mixtral-8x7b"),
 ])
-def test_values_of_later_slices_raise_not_implemented(field, value):
-    cfg = simulator.SimulationConfig(num_vehicles=4, epochs=1, device="cpu",
-                                     **{field: value})
-    with pytest.raises(NotImplementedError):
-        engine.build_context(cfg)
+def test_values_of_later_slices_raise_not_implemented(entry, arch):
+    """What a later slice ports raises, naming the module it waits for."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    if entry == "launch.train":
+        with pytest.raises(NotImplementedError, match="launch/steps.py"):
+            train.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    else:
+        with pytest.raises(NotImplementedError, match="moe"):
+            transformer.init_params(torch.Generator(), get_config(arch).reduced())
 
 
 def test_shard_map_backend_builds_a_context():
