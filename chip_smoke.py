@@ -23,7 +23,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                into ``[0, 50)`` / ``[0, 25)``; the partials sum to the global
                mix), the wrappers' refusals, and each kernel's time there (kl_simplex kernels also
                at K = 1024; the P1 solve per 200-step solve; flash attention at
-               the serving shape B=4, S=T=2048, H=16, KV=8, hd=128).
+               the serving shape B=4, S=T=2048, H=16, KV=8, hd=128); flash attention
+               also at the zoo's prefill shapes (hd 64 with G = 1, 2, 5; hd 128 with
+               G = 6; prefixes of 64 / 256 positions; mixtral's 4,096 window).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
                full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
@@ -102,6 +104,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the plain-attention prefill (last logits atol 2e-3), prefill + one
                decode step against ``forward`` at B=1, S=256 (atol 2e-3), and the
                reduced config on the card against the CPU (atol 1e-4, same tokens).
+8b. zoo      — every other family through ``launch.serve.generate`` at full width
+               (d_model, heads, d_ff, experts and vocabulary as published; random
+               f32 weights from a seeded generator on the card), each freed before
+               the next: granite-moe-1b-a400m (24 layers), rwkv6-3b (32), hymba-1.5b
+               (32), musicgen-large (48, 64 prefix positions), mixtral-8x7b (4 of 32
+               layers) and internvl2-26b (8 of 48, 256 prefix positions) -- depth cut
+               only where the f32 weights do not fit on the card, and printed. B=2
+               prompts of 1,024 tokens after the frontend prefix, 16 greedy steps;
+               ``flash_attention`` once per attention layer of the prefill and never
+               in decode (none for rwkv6); the kernel-path prefill against the
+               plain-attention prefill (last logits atol 2e-3); prefill + one decode
+               step against ``forward`` at B=1, S=256 (atol 2e-3; rwkv6-3b on its
+               first 8 layers, its full depth reported beside its rounding noise);
+               the reduced config on the card against the CPU (atol 1e-4, same
+               tokens); for granite-moe the ragged MoE against the dense one on the
+               card (atol 1e-4). Per model one ``[zoo]`` line: prefill s and
+               tokens/s, decode ms/token, peak memory, launches, the differences.
 9. prints one ``{"kernels": [...]}`` line (the two mixes also as
    ``<name>/shard`` rows: one rank's partial mix at N = 2, N = 4 under ``n4``,
    launches of the sharded phase), the card's name and power limit,
@@ -151,7 +170,7 @@ from repro_torch.kernels import kl_simplex  # noqa: E402
 from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
 from repro_torch.launch import campaign as campaign_lib, serve  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
-from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.models import layers, multimodal, transformer  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
 from repro_torch.roofline import hw, scenario_cost  # noqa: E402
@@ -207,6 +226,19 @@ KERNELS = {
 # the serving path: qwen3-1.7b at full width, B prompts of S tokens, GEN greedy steps
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# the zoo phase: every other family at full width, B prompts of S tokens (after the
+# frontend prefix of a VLM / audio config), GEN greedy steps. Per architecture: the
+# depth run (None: all layers) -- cut only where the f32 weights do not fit on one
+# 80 GB card with the phase's working set (mixtral 174 GiB, internvl2 74 GiB whole) --
+# and the depth of the prefill -> decode handoff check (None: the depth run). rwkv6-3b
+# with random weights amplifies rounding with depth: at 32 layers a change of 8 f32
+# ulps of its embeddings moves the logits by more than the check's 2e-3 (the phase
+# measures and prints that noise), so its handoff is held on the first 8 of its
+# full-width layers and reported beside the noise at full depth.
+ZOO = (("granite-moe-1b-a400m", None, None), ("rwkv6-3b", None, 8),
+       ("hymba-1.5b", None, None), ("musicgen-large", None, None),
+       ("mixtral-8x7b", 4, None), ("internvl2-26b", 8, None))
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 2, 1024, 16
 # flash attention: the reference's sweep (tests/test_kernels.py), b, s, h, kv, hd,
 # causal, window, dtype; its tolerances
 FA_SWEEP = [(2, 64, 4, 4, 32, True, None, torch.float32),
@@ -217,6 +249,14 @@ FA_SWEEP = [(2, 64, 4, 4, 32, True, None, torch.float32),
             (2, 64, 4, 4, 64, True, None, torch.bfloat16),
             (1, 257, 2, 1, 64, True, 100, torch.float32)]
 FA_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# flash attention at the zoo's prefill shapes, f32: b, s (prefix included), h, kv, hd,
+# window -- hd=64 with G=2 (granite-moe 16/8), G=5 (hymba 25/5: one q-head per block)
+# and G=1 after a 64-position prefix (musicgen 32/32); hd=128 with G=6 after a
+# 256-position prefix (internvl2 48/8); mixtral's 4,096 window (32/8) at S=1,024 and
+# past it at S=4,200
+ZOO_FA_SHAPES = [(2, 1024, 16, 8, 64, None), (2, 1024, 25, 5, 64, None),
+                 (2, 64 + 1024, 32, 32, 64, None), (2, 256 + 1024, 48, 8, 128, None),
+                 (2, 1024, 32, 8, 128, 4096), (1, 4200, 32, 8, 128, 4096)]
 
 # the sharded phase: N ranks of the shard_map backend, each a process of its
 # own, all on the one card, talking gloo through host memory (NCCL cannot run
@@ -986,6 +1026,11 @@ def check_flash_attention(device) -> dict[str, float]:
         for dtype in (f32, bf16):
             q, k, v = _qkv(2, 150, h, kv, 64, dtype, h * 10 + kv, device)
             seen(q, _fa_case(q, k, v, f"[2,150,{h}/{kv},64] G={h // kv} {dtype}"))
+    for b, s, h, kv, hd, win in ZOO_FA_SHAPES:
+        q, k, v = _qkv(b, s, h, kv, hd, f32, s + h, device)
+        seen(q, _fa_case(q, k, v, f"zoo shape [{b},{s},{h}/{kv},{hd}] G={h // kv} f32 "
+                                    f"causal window={win}", True, win))
+        del q, k, v
     # a query row with no kept key gives 0 (the plain version gives NaN there)
     q, k, v = _qkv(1, 100, 2, 1, 64, f32, 3, device, t=10)
     got = fa.flash_attention(q, k, v, causal=False, window=5)
@@ -1178,6 +1223,200 @@ def drive_serve(device: str, seed: int, rehearsal: bool) -> tuple[int, dict]:
           f"{err:.2e} (atol 1e-4), same {want.tokens.shape[1]} tokens: {same_tokens}")
     log(f"[serve] {json.dumps(report)}")
     return launches, report
+
+
+# ---------------------------------------------------------------------- zoo ----
+
+def _zoo_prefix(cfg, b: int, generator, device):
+    """The frontend stub's prefix of a VLM / audio config (None otherwise):
+    seeded raw features through ``multimodal.frontend_embeddings``."""
+    if not cfg.embed_input:
+        return None
+    raw = torch.randn((b, cfg.frontend_tokens, multimodal.frontend_feature_dim(cfg)),
+                      generator=generator, device=device)
+    return multimodal.frontend_embeddings(cfg, raw)
+
+
+def _first_layers(params: dict, cfg, depth: int):
+    """The first ``depth`` layers of a model: its stacked block leaves sliced
+    (views) and the config cut to match."""
+    def cut(tree):
+        return {k: cut(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:depth]
+    return {**params, "blocks": cut(params["blocks"])}, replace(cfg, num_layers=depth)
+
+
+def _handoff(params: dict, cfg, tokens, prefix, impl) -> tuple[float, float]:
+    """Prefill of ``tokens[:, :-1]`` then one decode step, against ``forward``
+    of all of ``tokens`` at the last two positions: the two max abs diffs."""
+    p = 0 if prefix is None else prefix.shape[1]
+    s1 = tokens.shape[1] - 1
+    with torch.no_grad(), full_f32_matmul():
+        full = transformer.forward(params, tokens, cfg, prefix_embeds=prefix)
+        last, state = transformer.prefill(params, tokens[:, :s1], cfg, prefix_embeds=prefix,
+                                          attn_impl=impl, cache_dtype=torch.float32)
+        step, _ = transformer.decode_step(params, tokens[:, s1:], serve.pad_cache(
+            state, cfg, tokens.shape[0], p + s1 + 1), cfg)
+    return _max_err(last, full[:, p + s1 - 1]), _max_err(step, full[:, p + s1])
+
+
+def _rounding_noise(params: dict, cfg, tokens, prefix) -> float:
+    """How far a rounding-sized change of the input moves this model's
+    logits: ``forward`` with the embedding table scaled by ``1 + 1e-6 z`` (z
+    standard normal, seeded: about 8 f32 ulps) against ``forward``, at the
+    last two positions."""
+    gen = torch.Generator(device=tokens.device).manual_seed(0)
+    z = torch.randn(params["embed"].shape, generator=gen, device=tokens.device)
+    nudged = {**params, "embed": params["embed"] * (1 + 1e-6 * z)}
+    del z
+    with torch.no_grad(), full_f32_matmul():
+        a = transformer.forward(params, tokens, cfg, prefix_embeds=prefix)[:, -2:]
+        b = transformer.forward(nudged, tokens, cfg, prefix_embeds=prefix)[:, -2:]
+    return _max_err(a, b)
+
+
+def drive_zoo_model(arch: str, depth: int | None, handoff_depth: int | None, device: str,
+                    seed: int, rehearsal: bool) -> tuple[int, dict]:
+    """One architecture through ``launch.serve.generate`` at full width (the
+    main path of this phase, counters zeroed just before and read just after),
+    then the agreement checks. Returns the flash-attention launches of the
+    main path and the report."""
+    on_card = device != "cpu"
+    whole = get_config(arch)
+    cfg = whole if depth is None else replace(whole, num_layers=depth)
+    b, s, gen = ZOO_BATCH, ZOO_PROMPT, ZOO_GEN
+    if rehearsal:
+        cfg, b, s, gen = whole.reduced(), 2, 70, 4
+        handoff_depth = None if handoff_depth is None else 1
+    L = cfg.num_layers
+    attn_layers = 0 if cfg.attn_free else L
+    p = cfg.frontend_tokens if cfg.embed_input else 0
+    weights_gib = cfg.param_count() * 4 / 2**30
+    depth_note = (f"all {L} layers" if cfg.num_layers == whole.num_layers else
+                  f"depth cut to {L} of {whole.num_layers} layers (f32 weights "
+                  f"{whole.param_count() * 4 / 2**30:.1f} GiB whole)")
+    log(f"[zoo] {cfg.name} [{cfg.family}]: {depth_note}; d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"experts {cfg.num_experts}/top-{cfg.top_k}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters ({weights_gib:.1f} GiB f32); "
+        f"B={b}, prefix {p} + prompt {s}, {gen} steps")
+    generator = torch.Generator(device=device).manual_seed(seed)
+    params, init_s = _seconds(lambda: transformer.init_params(generator, cfg, device=device))
+    tokens = torch.randint(0, cfg.true_vocab_size, (b, s), generator=generator, device=device)
+    prefix = _zoo_prefix(cfg, b, generator, device)
+    impl = fa.make_attn_impl(window=cfg.sliding_window)
+    serve.generate(params, tokens[:1, :64], cfg, gen=2, attn_impl=impl,     # warm-up
+                   prefix_embeds=None if prefix is None else prefix[:1])
+
+    # -- the main path
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels_lib.reset_launch_counts()
+    res = serve.generate(params, tokens, cfg, gen=gen, attn_impl=impl, prefix_embeds=prefix)
+    launches = fa.kernel.launch_counts["flash_attention"]
+    report = {
+        "arch": cfg.name, "family": cfg.family, "layers": L,
+        "layers_whole": whole.num_layers, "batch": b, "prefix": p, "prompt": s, "gen": gen,
+        "weights_gib": weights_gib, "init_s": init_s, "prefill_s": res.prefill_s,
+        "prefill_tokens_per_s": b * (p + s) / res.prefill_s, "decode_s": res.decode_s,
+        "decode_ms_per_token": res.decode_s / gen * 1e3,
+        "peak_device_memory_mb": (torch.cuda.max_memory_allocated() / 2**20
+                                  if on_card else None),
+        "flash_attention_launches": launches, "generated_ids_0": res.tokens[0, :8].tolist()}
+    check(res.tokens.shape == (b, gen) and bool(torch.isfinite(res.last_logits).all())
+          and bool(torch.isfinite(res.prefill_logits).all())
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.true_vocab_size)).all())
+          and res.cache_len == p + s + gen,
+          f"{cfg.name} generate: {gen} greedy tokens per prompt in range, finite logits, "
+          f"decode position {p + s + gen}")
+    if on_card:
+        check(launches == attn_layers, f"{cfg.name}: flash_attention launched {launches} "
+              f"times in prefill + {gen} decode steps = {attn_layers} (one per attention "
+              "layer in the prefill, none in decode)")
+
+    with torch.no_grad(), full_f32_matmul():
+        # -- the kernel-path prefill (the main path's) against the plain-attention prefill
+        if attn_layers:
+            (lg_plain, _), t_plain = _seconds(lambda: transformer.prefill(
+                params, tokens, cfg, prefix_embeds=prefix, attn_impl=None,
+                cache_dtype=torch.float32))
+            err = _max_err(res.prefill_logits, lg_plain)
+            report.update({"prefill_plain_s": t_plain, "prefill_logits_max_abs_diff": err})
+            check(err <= 2e-3, f"{cfg.name} prefill through the kernel vs plain attention: "
+                  f"last logits max diff {err:.2e} (atol 2e-3)")
+            del lg_plain
+
+    # -- prefill + one decode step against forward at position P + S
+    s1 = min(256, s - 1)
+    tok, pre1 = tokens[:1, :s1 + 1], None if prefix is None else prefix[:1]
+    held = params, cfg
+    if handoff_depth is not None:
+        held = _first_layers(params, cfg, handoff_depth)
+        full_p, full_d = _handoff(params, cfg, tok, pre1, impl)
+        report.update({"handoff_full_depth_max_abs_diff": [full_p, full_d],
+                       "rounding_noise_full_depth": _rounding_noise(params, cfg, tok, pre1)})
+        log(f"  {cfg.name} at all {L} layers: handoff {full_p:.2e} / {full_d:.2e} beside a "
+            f"rounding noise of {report['rounding_noise_full_depth']:.2e} (not held)")
+    err_p, err_d = _handoff(*held, tok, pre1, impl)
+    report.update({"handoff_layers": held[1].num_layers, "handoff_prefill_max_abs_diff": err_p,
+                   "handoff_decode_max_abs_diff": err_d,
+                   "rounding_noise": _rounding_noise(*held, tok, pre1)})
+    check(max(err_p, err_d) <= 2e-3, f"{cfg.name} B=1, P={p}, S={s1}, {held[1].num_layers} "
+          f"layers: prefill (kernel) then one decode step vs forward: {err_p:.2e} / "
+          f"{err_d:.2e} (atol 2e-3; rounding noise {report['rounding_noise']:.2e})")
+    del held, params, res, prefix, tokens
+
+    # -- the reduced config on the card against the CPU: same weights, same inputs
+    small = whole.reduced()
+    cpu_params = transformer.init_params(torch.Generator().manual_seed(seed), small)
+    cpu_gen = torch.Generator().manual_seed(seed + 1)
+    cpu_tokens = torch.randint(0, small.true_vocab_size, (2, 70), generator=cpu_gen)
+    cpu_prefix = _zoo_prefix(small, 2, cpu_gen, "cpu")
+    small_impl = fa.make_attn_impl(window=small.sliding_window)
+    want = serve.generate(cpu_params, cpu_tokens, small, gen=8, attn_impl=small_impl,
+                          prefix_embeds=cpu_prefix)
+    card_params = convert.transformer_params_from_numpy(cpu_params, device)
+    got = serve.generate(card_params, cpu_tokens.to(device), small, gen=8,
+                         attn_impl=small_impl,
+                         prefix_embeds=None if cpu_prefix is None else cpu_prefix.to(device))
+    err = max(_max_err(got.prefill_logits.cpu(), want.prefill_logits),
+              _max_err(got.last_logits.cpu(), want.last_logits))
+    same_tokens = bool(torch.equal(got.tokens.cpu(), want.tokens))
+    report["reduced_card_vs_cpu_max_abs_diff"] = err
+    check(err <= 1e-4 and same_tokens, f"{small.name} on {device} vs cpu: logits max diff "
+          f"{err:.2e} (atol 1e-4), same {want.tokens.shape[1]} tokens: {same_tokens}")
+
+    # -- MoE: the ragged path against the dense one at the reduced size, on the card
+    if arch == "granite-moe-1b-a400m":
+        with torch.no_grad(), full_f32_matmul():
+            tok = cpu_tokens.to(device)
+            dense = transformer.forward(card_params, tok, small)
+            ragged = transformer.forward(card_params, tok, replace(small, moe_impl="ragged"))
+        err = _max_err(ragged, dense)
+        report["ragged_vs_dense_max_abs_diff"] = err
+        check(err <= 1e-4, f"{small.name} on {device}: moe_impl='ragged' vs 'dense' forward "
+              f"max diff {err:.2e} (atol 1e-4)")
+    del card_params, cpu_params
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[zoo] {json.dumps(report)}")
+    return launches, report
+
+
+def drive_zoo(device: str, seed: int, rehearsal: bool) -> tuple[int, list]:
+    """Every architecture of ``ZOO`` in turn, each freed before the next.
+    Returns the flash-attention launches of the main paths and the reports."""
+    t0 = time.perf_counter()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    launches, reports = 0, []
+    for arch, depth, handoff_depth in ZOO:
+        n, report = drive_zoo_model(arch, depth, handoff_depth, device, seed, rehearsal)
+        launches += n
+        reports.append(report)
+    log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s; flash_attention {launches} "
+        "launches over the six prefills")
+    return launches, reports
 
 
 # --------------------------------------------------------------- main path ----
@@ -2252,6 +2491,10 @@ def main() -> int:
 
     # -- 8. the serving path: qwen3-1.7b prefill + greedy decode ------------
     launches["flash_attention"], _ = drive_serve(device, args.seed, rehearsal)
+
+    # -- 8b. the zoo: every other family's serving path at full width -------
+    zoo_launches, _ = drive_zoo(device, args.seed, rehearsal)
+    launches["flash_attention"] += zoo_launches
 
     # -- 9. the record ------------------------------------------------------
     if rehearsal:

@@ -1,18 +1,22 @@
 """Serving entry point: prefill a batch of prompts, then decode greedily.
 
-Counterpart of ``repro.launch.serve``. ``generate`` is the path: one prefill
-of ``tokens [B, S]`` through ``attn_impl`` (on CUDA tensors the flash
-attention kernel, one launch per layer), the cache padded to ``S + gen``
-positions, then ``gen`` greedy decode steps (plain attention over the
-cache). Weights are random, drawn from ``--seed``; nothing is downloaded.
+Counterpart of ``repro.launch.serve``, for every architecture of the
+registry. ``generate`` is the path: one prefill of ``tokens [B, S]`` (after
+the frontend prefix ``[B, P, d]`` of a VLM / audio config) through
+``attn_impl`` (on CUDA tensors the flash attention kernel, one launch per
+attention layer; none for rwkv6), the decode state padded to ``P + S + gen``
+positions, then ``gen`` greedy decode steps (plain attention over the cache;
+the recurrent states of rwkv6 and of the hybrid's SSM branch carried over).
+Weights are random, drawn from ``--seed``; nothing is downloaded.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --reduced \\
       --device cpu --batch 2 --prompt-len 32 --gen 16
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device; it never
 falls back to the CPU. ``main`` prefills through
-``kernels.flash_attention.make_attn_impl(window=--window)``, the counterpart
-of the reference's ``build_prefill_step(attn_impl=...)`` on the TPU.
+``kernels.flash_attention.make_attn_impl`` with ``--window``, or the config's
+own sliding window (mixtral) when none is given: the counterpart of the
+reference's ``build_prefill_step(attn_impl=...)`` on the TPU.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 
 from ..configs.registry import ARCHITECTURES, get_config
 from ..kernels.flash_attention import make_attn_impl
-from ..models import transformer
+from ..models import multimodal, transformer
 from ..precision import full_f32_matmul
 
 Tensor = torch.Tensor
@@ -36,7 +40,7 @@ class ServeResult(NamedTuple):
     last_logits: Tensor     # [B, V] logits of the last decode step (prefill's if gen == 0)
     prefill_s: float        # host clock around the prefill, synchronised
     decode_s: float         # host clock around the gen decode steps, synchronised
-    cache_len: int          # tokens in the KV cache at the end: S + gen
+    cache_len: int          # decode position at the end: P + S + gen
 
 
 def _sync(device) -> None:
@@ -46,35 +50,42 @@ def _sync(device) -> None:
 
 def pad_cache(state: transformer.DecodeState, cfg, batch: int, max_len: int,
               cache_dtype=torch.float32) -> transformer.DecodeState:
-    """The prefill's state in a cache of ``max_len`` positions (as the
-    reference's serve pads it for generation headroom)."""
+    """The prefill's state with a KV cache of ``max_len`` positions (as the
+    reference's serve pads it for generation headroom); the recurrent
+    states (rwkv6, the hybrid's SSM) are carried over as they are."""
     device = state.position.device
     full = transformer.init_decode_state(cfg, batch, max_len, cache_dtype=cache_dtype,
                                          device=device)
-    pl = state.kv.k.shape[2]
-    full.kv.k[:, :, :pl] = state.kv.k
-    full.kv.v[:, :, :pl] = state.kv.v
-    kv = full.kv._replace(length=state.kv.length.expand(full.kv.length.shape).clone())
-    return full._replace(kv=kv, position=state.position)
+    kv = None
+    if state.kv is not None:
+        pl = state.kv.k.shape[2]
+        full.kv.k[:, :, :pl] = state.kv.k
+        full.kv.v[:, :, :pl] = state.kv.v
+        kv = full.kv._replace(length=state.kv.length.expand(full.kv.length.shape).clone())
+    return full._replace(kv=kv, rwkv=state.rwkv, ssm=state.ssm, position=state.position)
 
 
 @torch.no_grad()
 def generate(params: dict, tokens: Tensor, cfg, *, gen: int, window: int | None = None,
-             attn_impl=None, cache_dtype=torch.float32) -> ServeResult:
-    """Prefill ``tokens [B, S]`` (through ``attn_impl``; the plain attention
-    when None), pad the cache to ``S + gen``, decode ``gen`` greedy steps.
-    f32 matrix products run in full f32 (no TF32)."""
+             attn_impl=None, cache_dtype=torch.float32,
+             prefix_embeds: Tensor | None = None) -> ServeResult:
+    """Prefill ``prefix_embeds [B, P, d]`` (when given) and ``tokens [B, S]``
+    (through ``attn_impl``; the plain attention when None), pad the cache to
+    ``P + S + gen``, decode ``gen`` greedy steps. f32 matrix products run in
+    full f32 (no TF32)."""
     b, s = tokens.shape
+    p = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     device = tokens.device
     with full_f32_matmul():
         _sync(device)
         t0 = time.perf_counter()
-        logits, state = transformer.prefill(params, tokens, cfg, window=window,
-                                            attn_impl=attn_impl, cache_dtype=cache_dtype)
+        logits, state = transformer.prefill(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                                            window=window, attn_impl=attn_impl,
+                                            cache_dtype=cache_dtype)
         _sync(device)
         prefill_s = time.perf_counter() - t0
         prefill_logits = logits
-        state = pad_cache(state, cfg, b, s + gen, cache_dtype)
+        state = pad_cache(state, cfg, b, p + s + gen, cache_dtype)
 
         out_tokens = []
         cur = torch.argmax(logits, dim=-1)[:, None]
@@ -90,7 +101,7 @@ def generate(params: dict, tokens: Tensor, cfg, *, gen: int, window: int | None 
                  else torch.zeros((b, 0), dtype=torch.long, device=device))
     return ServeResult(tokens=generated, prefill_logits=prefill_logits, last_logits=logits,
                        prefill_s=prefill_s, decode_s=decode_s,
-                       cache_len=int(state.kv.length[0]))
+                       cache_len=int(state.position))
 
 
 def resolve_device(device: str) -> torch.device:
@@ -122,10 +133,16 @@ def main(argv: list[str] | None = None) -> ServeResult:
     params = transformer.init_params(gen, cfg, device=device)
     b, s = args.batch, args.prompt_len
     tokens = torch.randint(0, cfg.true_vocab_size, (b, s), generator=gen, device=device)
+    prefix = None
+    if cfg.embed_input:
+        raw = torch.randn((b, cfg.frontend_tokens, multimodal.frontend_feature_dim(cfg)),
+                          generator=gen, device=device)
+        prefix = multimodal.frontend_embeddings(cfg, raw)
 
+    window = args.window if args.window is not None else cfg.sliding_window
     res = generate(params, tokens, cfg, gen=args.gen, window=args.window,
-                   attn_impl=make_attn_impl(window=args.window))
-    print(f"prefill[{b}x{s}]: {res.prefill_s:.2f}s (cache pos={s})")
+                   attn_impl=make_attn_impl(window=window), prefix_embeds=prefix)
+    print(f"prefill[{b}x{s}]: {res.prefill_s:.2f}s (cache pos={res.cache_len - args.gen})")
     dt = res.decode_s
     print(f"decode {args.gen} steps: {dt:.2f}s ({dt / max(args.gen, 1) * 1000:.0f} ms/tok)")
     print("generated ids:", res.tokens[0][:16].tolist())

@@ -12,8 +12,9 @@ The ``[S, S]`` mask is built for the plain ``_sdpa`` only: an ``attn_impl``
 gets ``None`` there and takes the causal (+ window) structure from its own
 flags, as the flash adapter does (the reference builds the mask and the
 adapter drops it; eager PyTorch would pay for it in every layer).
-``blocked_sdpa`` / ``make_blocked_impl`` of the reference (the pure-jnp twin
-of the flash kernel, used by ``launch/variants.py``) are not ported yet.
+``blocked_sdpa`` / ``make_blocked_impl`` are the reference's plain twin of the
+flash kernel (an online softmax over q and kv blocks): an ``attn_impl`` for
+tests and for ``launch/variants.py``; no path on the card runs them.
 
 Decode writes the new token's k/v into the cache **in place** (the returned
 ``KVCache`` shares the input's tensors): the reference's
@@ -98,6 +99,58 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(f32), v.to(f32))
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def blocked_sdpa(q: Tensor, k: Tensor, v: Tensor, mask, scale: float,
+                 block: int = 512, window: int | None = None) -> Tensor:
+    """Flash-style blocked attention in plain torch: an online softmax over
+    kv blocks inside each q block, never the whole ``[S, T]`` logits or mask.
+
+    ``mask`` is accepted for ``_sdpa``'s signature and ignored: masking is
+    structural (causal, plus ``window`` when given). The running max starts
+    at the finite sentinel -1e30 (not -inf), so a block with no kept key
+    leaves the statistics finite. The last q and kv blocks are partial where
+    the reference pads: padded keys are masked and padded rows dropped there,
+    so the kept arithmetic is the same.
+    """
+    del mask
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    f32 = torch.float32
+    qs = (q.reshape(b, s, kv, group, hd) * scale).to(f32)
+    out = torch.empty((b, s, kv, group, hd), dtype=f32, device=q.device)
+    for q0 in range(0, s, block):
+        qblk = qs[:, q0:q0 + block]
+        bq = qblk.shape[1]
+        q_pos = torch.arange(q0, q0 + bq, device=q.device)[:, None]
+        m_run = torch.full((b, kv, group, bq), -1e30, dtype=f32, device=q.device)
+        l_run = torch.zeros((b, kv, group, bq), dtype=f32, device=q.device)
+        acc = torch.zeros((b, kv, group, bq, hd), dtype=f32, device=q.device)
+        for k0 in range(0, t, block):
+            kblk, vblk = k[:, k0:k0 + block].to(f32), v[:, k0:k0 + block].to(f32)
+            k_pos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)[None, :]
+            valid = k_pos <= q_pos
+            if window is not None:
+                valid = valid & (k_pos > q_pos - window)
+            logits = torch.einsum("bskgd,btkd->bkgst", qblk, kblk)
+            logits = torch.where(valid, logits, -1e30)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = torch.where(valid, torch.exp(logits - m_new[..., None]), 0.0)
+            alpha = torch.exp(m_run - m_new)
+            l_run = alpha * l_run + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, vblk)
+            m_run = m_new
+        blk = acc / torch.clamp(l_run, min=1e-30)[..., None]        # [b, kv, g, bq, hd]
+        out[:, q0:q0 + bq] = blk.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def make_blocked_impl(window: int | None = None, block: int = 512):
+    """``attn_impl`` factory for the blocked (flash-style) plain path."""
+    def impl(q, k, v, mask, scale):
+        return blocked_sdpa(q, k, v, mask, scale, block=block, window=window)
+    return impl
 
 
 def _positions(b: int, s: int, device) -> Tensor:

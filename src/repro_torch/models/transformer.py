@@ -1,18 +1,31 @@
-"""Decoder assembly, dense family: pre-norm GQA attention + pre-norm SwiGLU MLP.
+"""Decoder assembly for every architecture family of the registry.
 
-Counterpart of ``repro.models.transformer`` for ``family == "dense"``
-(qwen3-1.7b, qwen2.5-3b, qwen1.5-4b, granite-34b). Per-layer parameters are
-stacked on a leading ``[L, ...]`` axis as in the reference, so weights
-convert leaf by leaf (``convert.transformer_params_from_numpy``); the layer
-stack is a Python loop where the reference runs ``lax.scan``.
+Counterpart of ``repro.models.transformer``. Families:
 
-The other families raise ``NotImplementedError`` naming the module they
-wait for (MoE ``models/moe.py``, rwkv6 ``models/rwkv6.py``, hybrid
-``models/ssm.py``, VLM / audio prefixes ``models/multimodal.py``).
-``forward_with_aux`` / ``lm_loss`` belong to the training slice.
+  dense / vlm / audio : pre-norm GQA attention + pre-norm SwiGLU MLP
+  moe                 : pre-norm GQA attention + pre-norm MoE FFN (``models/moe``)
+  ssm (rwkv6)         : time-mix + channel-mix, LayerNorm with bias, token shift
+                        (``models/rwkv6``)
+  hybrid (hymba)      : parallel {attention, selective SSM} branches, each
+                        ``rms_norm``ed, averaged; + SwiGLU MLP (``models/ssm``)
 
-``decode_step`` writes each layer's new k/v into ``state.kv`` in place (see
-``attention.decode_attention``); the returned state shares its tensors.
+VLM / audio take ``prefix_embeds [B, P, d]`` (the frontend stub's output,
+``models/multimodal``), put before the token embeddings: logits are
+``[B, P + S, V]`` and the prefix holds positions 0..P-1 of the causal
+structure and of the rotary phases.
+
+Per-layer parameters are stacked on a leading ``[L, ...]`` axis as in the
+reference, so weights convert leaf by leaf
+(``convert.transformer_params_from_numpy``); the layer stack is a Python
+loop where the reference runs ``lax.scan``. ``forward_with_aux`` / ``lm_loss``
+belong to the training slice: ``forward`` drops the MoE aux loss, as the
+reference's does.
+
+``decode_step`` updates ``state`` in place: each layer's new k/v are written
+into ``state.kv`` (see ``attention.decode_attention``) and the recurrent
+states ``state.rwkv`` / ``state.ssm`` are overwritten with the step's; the
+returned state shares every tensor with ``state`` but ``position`` and the
+cache ``length``.
 """
 from __future__ import annotations
 
@@ -21,30 +34,9 @@ from typing import Any, NamedTuple
 import torch
 
 from ..configs.base import ArchConfig
-from . import attention, layers
+from . import attention, layers, moe, rwkv6, ssm
 
 Tensor = torch.Tensor
-
-_LATER = {"moe": "models/moe.py", "ssm": "models/rwkv6.py", "hybrid": "models/ssm.py",
-          "vlm": "models/multimodal.py", "audio": "models/multimodal.py",
-          "cnn": "fed/simulator (the paper's CNNs train there, not in a decoder)"}
-
-
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder, the family this slice ports."""
-    if cfg.is_moe:
-        family = "moe"
-    elif cfg.hybrid:
-        family = "hybrid"
-    elif cfg.embed_input:
-        family = cfg.family if cfg.family in ("vlm", "audio") else "vlm"
-    else:
-        family = cfg.family
-    if family == "dense":
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: family {family!r} needs {_LATER.get(family, 'its own module')}; "
-        "repro_torch's transformer ports the dense family only")
 
 
 # ------------------------------------------------------------- init ---------
@@ -53,31 +45,43 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32
                 device=None) -> dict:
     """Random weights drawn from ``generator`` on ``device`` (the generator's
     device when not given): the reference's tree and layouts — ``embed``
-    ``[V, d]``, ``blocks`` with ``[L, ...]`` leaves, ``final_norm``, and
-    ``lm_head`` ``[d, V]`` unless embeddings are tied."""
-    check_dense(cfg)
+    ``[V, d]``, ``blocks`` with ``[L, ...]`` leaves, ``final_norm`` (and
+    ``final_norm_b`` for rwkv6), and ``lm_head`` ``[d, V]`` unless embeddings
+    are tied."""
     device = generator.device if device is None else device
     L, d = cfg.num_layers, cfg.d_model
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=device)
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
 
     def linear(d_in, d_out):
         return layers.init_linear(generator, (L, d_in, d_out), scale=d_in ** -0.5,
                                   device=device)
 
-    blocks = {
-        "norm1": ones(L, d), "norm2": ones(L, d),
-        "attn": attention.init_attn(generator, cfg, device=device, num_layers=L),
-        "mlp": {"w_gate": linear(d, cfg.d_ff), "w_up": linear(d, cfg.d_ff),
-                "w_down": linear(cfg.d_ff, d)},
-    }
+    blocks = {"norm1": const(1.0, L, d), "norm2": const(1.0, L, d)}
+    if cfg.family == "ssm":   # rwkv6: LayerNorm has a bias
+        blocks["norm1_b"], blocks["norm2_b"] = const(0.0, L, d), const(0.0, L, d)
+        blocks["time_mix"] = rwkv6.init_time_mix(generator, cfg, device, num_layers=L)
+        blocks["channel_mix"] = rwkv6.init_channel_mix(generator, cfg, device, num_layers=L)
+    else:
+        blocks["attn"] = attention.init_attn(generator, cfg, device=device, num_layers=L)
+        if cfg.hybrid:
+            blocks["ssm"] = ssm.init_ssm(generator, cfg, device, num_layers=L)
+            blocks["branch_norm_attn"] = const(1.0, L, d)
+            blocks["branch_norm_ssm"] = const(1.0, L, d)
+        if cfg.is_moe:
+            blocks["moe"] = moe.init_moe(generator, cfg, device, num_layers=L)
+        else:
+            blocks["mlp"] = {"w_gate": linear(d, cfg.d_ff), "w_up": linear(d, cfg.d_ff),
+                             "w_down": linear(cfg.d_ff, d)}
     params = {
         "embed": 0.02 * torch.randn((cfg.vocab_size, d), generator=generator,
                                     dtype=torch.float32, device=device),
         "blocks": blocks,
-        "final_norm": ones(d),
+        "final_norm": const(1.0, d),
     }
+    if cfg.family == "ssm":
+        params["final_norm_b"] = const(0.0, d)
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.init_linear(generator, (d, cfg.vocab_size), scale=0.02,
                                                device=device)
@@ -95,122 +99,211 @@ def layer_params(blocks: dict, i: int) -> dict:
     return _tree_map(lambda x: x[i], blocks)
 
 
-def _head(params: dict, cfg: ArchConfig) -> Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _embed(params: dict, tokens: Tensor, prefix_embeds: Tensor | None) -> Tensor:
+    x = layers.embed(tokens, params["embed"])
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
-def _mlp(p: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
+def _logits(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
+    if cfg.family == "ssm":
+        x = layers.layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
+    else:
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return layers.unembed(x, head, cfg.true_vocab_size)
+
+
+def _ffn(p: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """The second half of an attention-family block: pre-norm MLP or MoE."""
     h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.is_moe:
+        out, _ = moe.moe_ffn(p["moe"], h, cfg)
+        return x + out
     return x + layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+
+
+def _mix_branches(p: dict, a: Tensor, s: Tensor, cfg: ArchConfig) -> Tensor:
+    """The hybrid block's average of the two ``rms_norm``ed branches."""
+    return 0.5 * (layers.rms_norm(a, p["branch_norm_attn"], cfg.norm_eps)
+                  + layers.rms_norm(s, p["branch_norm_ssm"], cfg.norm_eps))
+
+
+def _rwkv_block(p: dict, x: Tensor, cfg: ArchConfig, time_mix, cm_shift: Tensor):
+    """An rwkv6 block around ``time_mix(h) -> (out, {shift, wkv})``. Returns
+    (x, the block's recurrent state)."""
+    h = layers.layer_norm(x, p["norm1"], p["norm1_b"], cfg.norm_eps)
+    tm, tm_state = time_mix(h)
+    x = x + tm
+    h = layers.layer_norm(x, p["norm2"], p["norm2_b"], cfg.norm_eps)
+    cm, cm_shift = rwkv6.channel_mix(p["channel_mix"], h, cm_shift)
+    return x + cm, {"shift": tm_state["shift"], "wkv": tm_state["wkv"], "cm_shift": cm_shift}
 
 
 # --------------------------------------------------------- forward ----------
 
 def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
-            window: int | None = None, attn_impl=None) -> Tensor:
-    """Train / prefill forward: tokens [B, S] -> logits [B, S, V]."""
-    check_dense(cfg)
-    x = layers.embed(tokens, params["embed"])
+            prefix_embeds: Tensor | None = None, window: int | None = None,
+            attn_impl=None) -> Tensor:
+    """Train / prefill forward: tokens [B, S] -> logits [B, P + S, V]."""
+    x = _embed(params, tokens, prefix_embeds)
     for i in range(cfg.num_layers):
         p = layer_params(params["blocks"], i)
+        if cfg.family == "ssm":
+            x, _ = _rwkv_block(p, x, cfg, lambda h: rwkv6.time_mix(p["time_mix"], h, cfg),
+                               torch.zeros_like(x[:, 0]))
+            continue
         h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + attention.attention(p["attn"], h, cfg, window=window, attn_impl=attn_impl)
-        x = _mlp(p, x, cfg)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.unembed(x, _head(params, cfg), cfg.true_vocab_size)
+        a = attention.attention(p["attn"], h, cfg, window=window, attn_impl=attn_impl)
+        if cfg.hybrid:
+            s, _ = ssm.ssm_forward(p["ssm"], h, cfg)
+            a = _mix_branches(p, a, s, cfg)
+        x = _ffn(p, x + a, cfg)
+    return _logits(params, x, cfg)
 
 
 # ---------------------------------------------------------- prefill ---------
 
 def _block_prefill(p: dict, x: Tensor, cfg: ArchConfig, *, window: int | None,
-                   attn_impl=None) -> tuple[Tensor, Tensor, Tensor]:
-    """Full-sequence block that also returns the layer's cache entries: the
-    whole sequence, or the last ``win`` positions rolled into ring order."""
+                   attn_impl=None) -> tuple[Tensor, dict]:
+    """Full-sequence block that also returns the layer's decode state: ``kv``
+    (k, v — the whole sequence, or the last ``win`` positions rolled into ring
+    order), ``rwkv`` or ``ssm``."""
+    if cfg.family == "ssm":
+        x, rk = _rwkv_block(p, x, cfg, lambda h: rwkv6.time_mix(p["time_mix"], h, cfg),
+                            torch.zeros_like(x[:, 0]))
+        return x, {"rwkv": rk}
     s = x.shape[1]
+    state = {}
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     win = window if window is not None else cfg.sliding_window
     a, k, v = attention.attention_prefill(p["attn"], h, cfg, window=win,
                                           attn_impl=attn_impl)
-    x = x + a
+    if cfg.hybrid:
+        sout, state["ssm"] = ssm.ssm_forward(p["ssm"], h, cfg)
+        a = _mix_branches(p, a, sout, cfg)
     if win is not None and s > win:
         r = s % win
         k = torch.roll(k[:, s - win:], r, dims=1)
         v = torch.roll(v[:, s - win:], r, dims=1)
-    return _mlp(p, x, cfg), k, v
+    state["kv"] = {"k": k, "v": v}
+    return _ffn(p, x + a, cfg), state
+
+
+def _stack_into(stacked: dict | None, i: int, L: int, leaves: dict, dtype=None) -> dict:
+    """Write layer ``i``'s ``leaves`` into ``[L, ...]`` buffers (made at
+    layer 0, in ``dtype`` or the leaf's own)."""
+    if stacked is None:
+        stacked = {name: torch.empty((L,) + tuple(t.shape), dtype=dtype or t.dtype,
+                                     device=t.device) for name, t in leaves.items()}
+    for name, t in leaves.items():
+        stacked[name][i] = t
+    return stacked
 
 
 def prefill(params: dict, tokens: Tensor, cfg: ArchConfig, *,
-            window: int | None = None, attn_impl=None,
-            cache_dtype=torch.bfloat16) -> tuple[Tensor, "DecodeState"]:
-    """Prefill: returns (last-position logits [B, V], DecodeState)."""
-    check_dense(cfg)
-    x = layers.embed(tokens, params["embed"])
-    s = tokens.shape[1]
-    L = cfg.num_layers
-    cache_k = cache_v = None
+            prefix_embeds: Tensor | None = None, window: int | None = None,
+            attn_impl=None, cache_dtype=torch.bfloat16) -> tuple[Tensor, "DecodeState"]:
+    """Prefill: returns (last-position logits [B, V], DecodeState). The state
+    holds ``kv`` (None for rwkv6; leaves ``[L, B, T, KV, hd]`` in
+    ``cache_dtype``), ``rwkv`` {shift, wkv, cm_shift} or ``ssm`` {conv, h},
+    each stacked on ``[L]``, and ``position`` = P + S."""
+    x = _embed(params, tokens, prefix_embeds)
+    s_total, L = x.shape[1], cfg.num_layers
+    kv = rk = sm = None
     for i in range(L):
-        x, k, v = _block_prefill(layer_params(params["blocks"], i), x, cfg,
-                                 window=window, attn_impl=attn_impl)
-        if cache_k is None:   # one [L, ...] buffer, filled layer by layer
-            cache_k = torch.empty((L,) + tuple(k.shape), dtype=cache_dtype, device=k.device)
-            cache_v = torch.empty_like(cache_k)
-        cache_k[i] = k
-        cache_v[i] = v
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    last_logits = layers.unembed(x[:, -1], _head(params, cfg), cfg.true_vocab_size)
-    kv = attention.KVCache(k=cache_k, v=cache_v,
-                           length=torch.full((L,), s, dtype=torch.int32, device=x.device))
-    return last_logits, DecodeState(kv=kv, rwkv=None, ssm=None,
-                                    position=torch.tensor(s, dtype=torch.int32,
-                                                          device=x.device))
+        x, st = _block_prefill(layer_params(params["blocks"], i), x, cfg, window=window,
+                               attn_impl=attn_impl)
+        if "kv" in st:
+            kv = _stack_into(kv, i, L, st["kv"], cache_dtype)
+        if "rwkv" in st:
+            rk = _stack_into(rk, i, L, st["rwkv"])
+        if "ssm" in st:
+            sm = _stack_into(sm, i, L, st["ssm"])
+    last_logits = _logits(params, x[:, -1], cfg)
+    device = x.device
+    cache = None if kv is None else attention.KVCache(
+        k=kv["k"], v=kv["v"], length=torch.full((L,), s_total, dtype=torch.int32,
+                                                device=device))
+    return last_logits, DecodeState(kv=cache, rwkv=rk, ssm=sm, position=torch.tensor(
+        s_total, dtype=torch.int32, device=device))
 
 
 # ----------------------------------------------------------- decode ---------
 
 class DecodeState(NamedTuple):
-    """Per-layer recurrent state stacked on a leading [L, ...] axis. ``rwkv``
-    and ``ssm`` are None for the dense family (kept for the reference's
-    structure)."""
-    kv: Any          # attention.KVCache, leaves [L, B, T, KV, hd] and length [L]
-    rwkv: Any
-    ssm: Any
-    position: Tensor  # int32, 0-d
+    """Per-layer decode state stacked on a leading [L, ...] axis."""
+    kv: Any           # attention.KVCache, leaves [L, B, T, KV, hd] and length [L]; or None
+    rwkv: Any         # {"shift" [L,B,d], "wkv" [L,B,H,D,D], "cm_shift" [L,B,d]} or None
+    ssm: Any          # {"conv" [L,B,K-1,d], "h" [L,B,d,N]} or None
+    position: Tensor  # int32, 0-d: tokens (prefix included) seen so far
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16, device=None) -> DecodeState:
-    check_dense(cfg)
     L = cfg.num_layers
-    eff_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (L, batch, eff_len, cfg.num_kv_heads, cfg.head_dim)
-    kv = attention.KVCache(
-        k=torch.zeros(shape, dtype=cache_dtype, device=device),
-        v=torch.zeros(shape, dtype=cache_dtype, device=device),
-        length=torch.zeros((L,), dtype=torch.int32, device=device))
-    return DecodeState(kv=kv, rwkv=None, ssm=None,
-                       position=torch.zeros((), dtype=torch.int32, device=device))
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    kv = rk = sm = None
+    if not cfg.attn_free:
+        eff_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+        shape = (L, batch, eff_len, cfg.num_kv_heads, cfg.head_dim)
+        kv = attention.KVCache(k=zeros(*shape, dtype=cache_dtype),
+                               v=zeros(*shape, dtype=cache_dtype),
+                               length=zeros(L, dtype=torch.int32))
+    if cfg.family == "ssm":
+        h = rwkv6.num_heads(cfg)
+        rk = {"shift": zeros(L, batch, cfg.d_model),
+              "wkv": zeros(L, batch, h, cfg.head_dim, cfg.head_dim),
+              "cm_shift": zeros(L, batch, cfg.d_model)}
+    if cfg.hybrid:
+        sm = {"conv": zeros(L, batch, ssm.CONV_K - 1, cfg.d_model),
+              "h": zeros(L, batch, cfg.d_model, cfg.ssm_state)}
+    return DecodeState(kv=kv, rwkv=rk, ssm=sm, position=zeros(dtype=torch.int32))
 
 
-def _block_decode(p: dict, x: Tensor, cfg: ArchConfig,
-                  cache: attention.KVCache) -> tuple[Tensor, attention.KVCache]:
+def _layer_state(tree: dict, i: int) -> dict:
+    return {name: t[i] for name, t in tree.items()}
+
+
+def _write_back(tree: dict, i: int, new: dict) -> None:
+    for name, t in new.items():
+        tree[name][i].copy_(t)
+
+
+def _block_decode(p: dict, x: Tensor, cfg: ArchConfig, state: DecodeState,
+                  i: int) -> Tensor:
+    """Layer ``i`` of one decode step; writes the layer's new state into
+    ``state`` in place."""
+    if cfg.family == "ssm":
+        carry = _layer_state(state.rwkv, i)
+        x, rk = _rwkv_block(p, x, cfg, lambda h: rwkv6.time_mix_decode(
+            p["time_mix"], h, cfg, {"shift": carry["shift"], "wkv": carry["wkv"]}),
+            carry["cm_shift"])
+        _write_back(state.rwkv, i, rk)
+        return x
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    cache = attention.KVCache(k=state.kv.k[i], v=state.kv.v[i], length=state.kv.length[i])
     # no window here, as in the reference (transformer.py's _block_decode):
     # only cfg.sliding_window reaches decode_attention
-    a, cache = attention.decode_attention(p["attn"], h, cache, cfg)
-    return _mlp(p, x + a, cfg), cache
+    a, _ = attention.decode_attention(p["attn"], h, cache, cfg)
+    if cfg.hybrid:
+        s, sm = ssm.ssm_decode(p["ssm"], h, cfg, _layer_state(state.ssm, i))
+        _write_back(state.ssm, i, sm)
+        a = _mix_branches(p, a, s, cfg)
+    return _ffn(p, x + a, cfg)
 
 
 def decode_step(params: dict, tokens: Tensor, state: DecodeState,
                 cfg: ArchConfig) -> tuple[Tensor, DecodeState]:
     """One decode step: tokens [B, 1] -> logits [B, V], updated state (its
-    cache tensors are ``state``'s, written in place)."""
-    check_dense(cfg)
+    tensors are ``state``'s, written in place)."""
     x = layers.embed(tokens, params["embed"])
     for i in range(cfg.num_layers):
-        cache = attention.KVCache(k=state.kv.k[i], v=state.kv.v[i],
-                                  length=state.kv.length[i])
-        x, _ = _block_decode(layer_params(params["blocks"], i), x, cfg, cache)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = layers.unembed(x[:, 0], _head(params, cfg), cfg.true_vocab_size)
-    kv = attention.KVCache(k=state.kv.k, v=state.kv.v, length=state.kv.length + 1)
-    return logits, DecodeState(kv=kv, rwkv=None, ssm=None, position=state.position + 1)
+        x = _block_decode(layer_params(params["blocks"], i), x, cfg, state, i)
+    logits = _logits(params, x[:, 0], cfg)
+    kv = None if state.kv is None else state.kv._replace(length=state.kv.length + 1)
+    return logits, state._replace(kv=kv, position=state.position + 1)

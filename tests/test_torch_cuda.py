@@ -587,6 +587,70 @@ def test_reduced_prefill_through_the_kernel_matches_the_plain_path(card):
     assert _err(state.kv.k, plain_state.kv.k) <= 1e-4
 
 
+# flash attention at the zoo's prefill shapes (f32): hd=64 with G=1 (musicgen 32/32)
+# and G=5 (hymba 25/5, one q-head per block), hd=128 with G=6 (internvl2 48/8),
+# mixtral's 4,096 window past its edge, and sequences that start with a frontend
+# prefix (64 / 256 positions before the prompt: one causal sequence)
+ZOO_FA = [(2, 300, 32, 32, 64, None), (2, 300, 25, 5, 64, None), (1, 300, 48, 8, 128, None),
+          (1, 4200, 32, 8, 128, 4096), (2, 64 + 200, 32, 32, 64, None),
+          (1, 256 + 200, 48, 8, 128, None)]
+ZOO_ARCHS = ["granite-moe-1b-a400m", "mixtral-8x7b", "rwkv6-3b", "hymba-1.5b",
+             "internvl2-26b", "musicgen-large"]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,win", ZOO_FA)
+def test_flash_attention_at_the_zoo_shapes(card, b, s, h, kv, hd, win):
+    q, k, v = _qkv(b, s, h, kv, hd, torch.float32, s + h, card)
+    got = fa.flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert _err(got, fa.flash_attention_ref(q, k, v, window=win)) <= FA_ATOL[torch.float32]
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_reduced_generate_on_the_card_matches_the_cpu(card, arch):
+    """``serve.generate`` of a reduced config (70 prompt tokens: past
+    mixtral's reduced window of 64) on the card against the CPU, the same
+    weights and inputs: one kernel launch per attention layer (none for
+    rwkv6), the same greedy tokens, logits to 1e-4."""
+    from repro_torch import convert
+    from repro_torch.launch import serve
+    from repro_torch.models import multimodal, transformer
+    cfg = get_config(arch).reduced()
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.true_vocab_size, (2, 70), generator=gen)
+    prefix = None
+    if cfg.embed_input:
+        raw = torch.randn((2, cfg.frontend_tokens, multimodal.frontend_feature_dim(cfg)),
+                          generator=gen)
+        prefix = multimodal.frontend_embeddings(cfg, raw)
+    impl = fa.make_attn_impl(window=cfg.sliding_window)
+    want = serve.generate(params, tokens, cfg, gen=6, attn_impl=impl, prefix_embeds=prefix)
+    fa.kernel.reset_launch_counts()
+    got = serve.generate(convert.transformer_params_from_numpy(params, card), tokens.to(card),
+                         cfg, gen=6, attn_impl=impl,
+                         prefix_embeds=None if prefix is None else prefix.to(card))
+    assert fa.kernel.launch_counts["flash_attention"] == (0 if cfg.attn_free
+                                                          else cfg.num_layers)
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+    assert _err(got.prefill_logits.cpu(), want.prefill_logits) <= 1e-4
+    assert _err(got.last_logits.cpu(), want.last_logits) <= 1e-4
+    assert got.cache_len == want.cache_len
+
+
+def test_a_shape_the_kernel_refuses_raises_through_the_serving_path(card):
+    """head_dim 48 is not one of the kernel's instantiations: the prefill
+    raises from the wrapper and nothing routes it to the plain attention."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), head_dim=48)
+    params = transformer.init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    tokens = torch.zeros((1, 16), dtype=torch.long, device=card)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        serve.generate(params, tokens, cfg, gen=1, attn_impl=fa.make_attn_impl())
+
+
 # --------------------------------------------------- the seed axis (run_seeds)
 
 def _seed_case(seeds, k, d, seed, neighbour_only):

@@ -1,7 +1,7 @@
 """Port vs reference, the dense transformer: ``models/layers``,
 ``models/attention`` (train / prefill / cached decode, the ring buffer),
-``models/transformer`` (forward, the decode state, the families not ported)
-and the configs, on the reduced qwen3-1.7b
+``models/transformer`` (forward, the decode state) and the configs, on the
+reduced qwen3-1.7b
 (``qk_norm``, GQA) and qwen2.5-3b (``qkv_bias``, kv=2). Weights come from
 the JAX package's ``init_params`` (norm and bias leaves perturbed so that
 they matter) through ``convert.transformer_params_from_numpy``; inputs from
@@ -204,22 +204,6 @@ def test_params_round_trip_through_numpy(model):
         np.testing.assert_array_equal(node, np.asarray(leaf))
     assert tp["blocks"]["attn"]["wq"].shape == (cfg.num_layers, cfg.d_model,
                                                 cfg.num_heads * cfg.head_dim)
-
-
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b", "rwkv6-3b",
-                                  "hymba-1.5b", "internvl2-26b", "musicgen-large"])
-def test_other_families_raise_not_implemented(arch):
-    cfg = get_config(arch).reduced()
-    gen = torch.Generator().manual_seed(0)
-    module = {"granite-moe-1b-a400m": "moe", "mixtral-8x7b": "moe", "rwkv6-3b": "rwkv6",
-              "hymba-1.5b": "ssm", "internvl2-26b": "multimodal",
-              "musicgen-large": "multimodal"}[arch]
-    with pytest.raises(NotImplementedError, match=f"models/{module}.py"):
-        transformer.init_params(gen, cfg)
-    with pytest.raises(NotImplementedError):
-        transformer.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)
-    with pytest.raises(NotImplementedError):
-        transformer.init_decode_state(cfg, 1, 4)
 
 
 def test_dense_configs_resolve_like_the_reference():
