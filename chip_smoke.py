@@ -121,10 +121,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                tokens); for granite-moe the ragged MoE against the dense one on the
                card (atol 1e-4). Per model one ``[zoo]`` line: prefill s and
                tokens/s, decode ms/token, peak memory, launches, the differences.
+8c. train    — DFL-DDS training of vehicle transformers at full width (published
+               widths, random f32 weights from a seeded generator on the card), V=2
+               vehicles on a ring, B=2 sequences of 1,024 tokens per vehicle, E=1,
+               3 rounds, lr 1e-3, 100 P1 steps: qwen3-1.7b (28 layers, remat, the
+               vehicles moved apart from one init) through
+               ``launch.steps.build_dds_train_step``, and granite-moe-1b-a400m (24
+               layers, 32 experts top-8 with the aux loss) through the train CLI's
+               entry point (``launch.train.main``, in this process). Each run: finite
+               loss and kl every round, state rows summing to 1 (1e-5), parameters
+               that moved, one grouped ``gossip_mix_matmul`` launch per round and no
+               flash launch; qwen3's first-round mix through the kernel against
+               ``aggregation.mix_params`` on the stacked leaves (1e-5), and the kernel
+               timed at that shape (row ``gossip_mix_matmul/train``: V=2 rows, 2.03 B
+               columns in one launch); one ``[train]`` line per model (layers, V,
+               s/round with the first round apart, loss / kl per round, peak memory,
+               launches). Then one round of every reduced architecture (4 vehicles
+               mid-training) on the card against the CPU (atol 1e-4 on loss, kl,
+               state matrix and parameters), and the ``gossip_bf16`` variant's round
+               of the reduced qwen3 against its f32 round (2e-2 of each leaf's scale).
+               The kernels phase also holds ``gossip_mix_matmul`` at K = 2, 3 and 4
+               over widths that are not multiples of 64.
 9. prints one ``{"kernels": [...]}`` line (the two mixes also as
    ``<name>/shard`` rows: one rank's partial mix at N = 2, N = 4 under ``n4``,
-   launches of the sharded phase), the card's name and power limit,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   launches of the sharded phase; ``gossip_mix_matmul/train``: the train
+   phase's), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after. Times are CUDA-event times on the card the script ran on;
@@ -157,6 +179,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import convert, kernels as kernels_lib  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.registry import ARCHITECTURES  # noqa: E402
 from repro_torch.core import aggregation, contacts as contacts_lib, dfl_dds, kl_solver  # noqa: E402
 from repro_torch.core import vehicle_axis  # noqa: E402
 from repro_torch.data import datasets as data_lib  # noqa: E402
@@ -168,7 +191,8 @@ from repro_torch.kernels import build as build_lib  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kl_simplex  # noqa: E402
 from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
-from repro_torch.launch import campaign as campaign_lib, serve  # noqa: E402
+from repro_torch.launch import campaign as campaign_lib, serve, steps, variants  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, multimodal, transformer  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
@@ -239,6 +263,16 @@ ZOO = (("granite-moe-1b-a400m", None, None), ("rwkv6-3b", None, 8),
        ("hymba-1.5b", None, None), ("musicgen-large", None, None),
        ("mixtral-8x7b", 4, None), ("internvl2-26b", 8, None))
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 2, 1024, 16
+# the train phase: DFL-DDS rounds of V vehicle transformers at full width. qwen3-1.7b
+# through steps.build_dds_train_step (f32 parameters plus AdamW moments are 6 copies
+# of an 8.13 GB model at V=2; the round's peak is 8 at the mix), granite-moe through
+# the train CLI's entry point; B sequences of S tokens per vehicle, E=1, ROUNDS
+# rounds, the CLI's lr and P1 steps; then one round of every reduced architecture,
+# card against CPU
+TRAIN_ARCH, TRAIN_CLI_ARCH = "qwen3-1.7b", "granite-moe-1b-a400m"
+TRAIN_V, TRAIN_B, TRAIN_S, TRAIN_ROUNDS, TRAIN_LR, TRAIN_P1 = 2, 2, 1024, 3, 1e-3, 100
+TRAIN_SMALL_K = (2, 3, 4)
+TRAIN_SMALL_WIDTHS = [1, 63, 65, 1000, 4097, 100003]
 # flash attention: the reference's sweep (tests/test_kernels.py), b, s, h, kv, hd,
 # causal, window, dtype; its tolerances
 FA_SWEEP = [(2, 64, 4, 4, 32, True, None, torch.float32),
@@ -393,6 +427,21 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
               f"gossip_mix_matmul grouped: one launch over {len(widths)} leaves {widths}, "
               f"W [{k_out},{k_in}], {dtype}, max err {err:.2e}")
         worst["gossip_mix_matmul"] = max(worst["gossip_mix_matmul"], err)
+    # the train round's regime: K = 2, 3, 4 vehicles, far below the kernel's
+    # 128-row tile, over leaf widths that are not multiples of 64
+    for kv in TRAIN_SMALL_K:
+        for dtype in (f32, bf16):
+            w, _ = _dense_case(kv, kv, 1, f32, 50 + kv, device)
+            flats = [_dense_case(kv, kv, p, dtype, p + kv, device)[1] for p in TRAIN_SMALL_WIDTHS]
+            before = kernel.launch_counts["gossip_mix_matmul"]
+            outs = kernel.gossip_mix_matmul_grouped(w, flats)
+            torch.cuda.synchronize()
+            err = max(_max_err(o, ref.gossip_mix_matmul_ref(w, x)) for o, x in zip(outs, flats))
+            check(kernel.launch_counts["gossip_mix_matmul"] == before + 1 and err <= ATOL[dtype]
+                  and all(o.shape == x.shape for o, x in zip(outs, flats)),
+                  f"gossip_mix_matmul grouped at K={kv}: one launch over widths "
+                  f"{TRAIN_SMALL_WIDTHS}, {dtype}, max err {err:.2e}")
+            worst["gossip_mix_matmul"] = max(worst["gossip_mix_matmul"], err)
     # an unaligned view start forces the element-wise instantiation
     idx, w, x = _sparse_case(9, 9, 4, 64, f32, 1, device)
     base = torch.zeros(9 * 64 + 1, device=device)
@@ -1417,6 +1466,298 @@ def drive_zoo(device: str, seed: int, rehearsal: bool) -> tuple[int, list]:
     log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s; flash_attention {launches} "
         "launches over the six prefills")
     return launches, reports
+
+
+# ------------------------------------------------------------------- train ----
+
+def _apart(params: dict, generator, scale: float = 0.01) -> None:
+    """Move every vehicle but the first off the common init, in place: the
+    stack of vehicles that have trained apart (each leaf's rows then differ,
+    so the mix is no identity)."""
+    for leaf in steps.flatten(params).values():
+        leaf[1:].add_(scale * torch.randn(leaf[1:].shape, generator=generator,
+                                          device=leaf.device))
+
+
+def _round_mixing(state_matrix, target, contact):
+    """The mixing matrix a round computes from these inputs (P1, then the
+    contact mask and renormalization), as ``steps.build_dds_train_step``
+    does."""
+    alpha = kl_solver.solve_p1_all(state_matrix, target, contact, num_steps=TRAIN_P1)
+    return aggregation.mixing_from_alpha(alpha, contact)
+
+
+def check_train_mix(params: dict, mixing) -> float:
+    """The round's kernel mix (``ops.mix_params_cuda``) against the plain f32
+    product ``aggregation.mix_params`` on the same stacked leaves, one leaf at
+    a time (the card holds no second copy of the stack's mix). Returns the
+    largest abs difference."""
+    worst = 0.0
+    with torch.no_grad(), full_f32_matmul():
+        for name, leaf in steps.flatten(params).items():
+            got = ops.mix_params_cuda(mixing, {name: leaf})[name]
+            want = aggregation.mix_params(mixing, {name: leaf})[name]
+            worst = max(worst, _max_err(got, want))
+            del got, want
+    return worst
+
+
+def _probe(params: dict) -> dict:
+    """The first 4,096 entries of every leaf, copied: enough to see it move."""
+    return {name: leaf.reshape(-1)[:4096].clone() for name, leaf in steps.flatten(params).items()}
+
+
+def _moved(params: dict, probe: dict) -> float:
+    return max(_max_err(steps.flatten(params)[name].reshape(-1)[:4096], p)
+               for name, p in probe.items())
+
+
+def _round_checks(name: str, history: list, state_matrix, moved: float) -> None:
+    """What every train run holds: finite losses, the state matrix's rows on
+    the simplex, parameters that moved."""
+    rows = state_matrix.sum(dim=1).cpu()
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["kl"]) for m in history)
+          and float((rows - 1).abs().max()) <= 1e-5 and moved > 0,
+          f"{name}: {len(history)} rounds, finite loss / kl "
+          f"{[round(m['loss'], 4) for m in history]} / {[round(m['kl'], 4) for m in history]}, "
+          f"state rows sum to 1 (max dev {float((rows - 1).abs().max()):.1e}), "
+          f"parameters moved (max {moved:.2e})")
+
+
+def _train_report(cfg, whole, v: int, b: int, s: int, history: list, launches: dict,
+                  on_card: bool, **extra) -> dict:
+    secs = [m["seconds"] for m in history]
+    return {"arch": cfg.name, "layers": cfg.num_layers, "layers_whole": whole.num_layers,
+            "vehicles": v, "batch": b, "seq": s, "rounds": len(history),
+            "first_round_s": secs[0],
+            "seconds_per_round": statistics.mean(secs[1:]) if len(secs) > 1 else None,
+            "loss": [m["loss"] for m in history], "kl": [m["kl"] for m in history],
+            "peak_device_memory_mb": (torch.cuda.max_memory_allocated() / 2**20
+                                      if on_card else None),
+            **launches, **extra}
+
+
+def _train_launches() -> dict:
+    return {"gossip_mix_matmul_launches": kernel.launch_counts["gossip_mix_matmul"],
+            "flash_attention_launches": fa.kernel.launch_counts["flash_attention"]}
+
+
+def time_train_mix(params: dict, mixing) -> tuple[float, dict]:
+    """Row 2t: ``gossip_mix_matmul`` at the train round's shape (the whole
+    stacked model, V rows, one grouped launch) against its plain version and
+    ``torch.matmul`` per leaf; the kernel's max abs error there. Returns
+    (error, timing keys)."""
+    flats = [leaf.reshape(leaf.shape[0], -1) for leaf in steps.flatten(params).values()]
+    v, cols = flats[0].shape[0], sum(x.shape[1] for x in flats)
+    with torch.no_grad(), full_f32_matmul():
+        outs = kernel.gossip_mix_matmul_grouped(mixing, flats)
+        err = 0.0
+        for i, x in enumerate(flats):
+            err = max(err, _max_err(outs[i], ref.gossip_mix_matmul_ref(mixing, x)))
+        del outs
+        timing = _timed(lambda: kernel.gossip_mix_matmul_grouped(mixing, flats),
+                        lambda: [ref.gossip_mix_matmul_ref(mixing, x) for x in flats],
+                        lambda: [torch.matmul(mixing, x) for x in flats],
+                        2 * v * cols * 4 + v * v * 4, 2 * v * v * cols,
+                        f"the train round's mix: 1 grouped launch over {len(flats)} leaves, "
+                        f"V={v}, {cols} columns per vehicle ({TRAIN_ARCH}, f32); plain_ms / "
+                        f"library_ms: {len(flats)} plain products / torch.matmul calls",
+                        inner=1, reps=5, warm=1)
+    timing["columns"] = cols
+    return err, timing
+
+
+def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, float, dict]:
+    """qwen3-1.7b at full width through ``steps.build_dds_train_step``: V
+    vehicles apart from one init, TRAIN_ROUNDS rounds (the main path of this
+    phase, counters zeroed just before and read just after). Returns the
+    report, the kernel's error at the round's shape and row 2t's timing."""
+    on_card = device != "cpu"
+    whole = get_config(TRAIN_ARCH)
+    cfg, v, b, s = whole, TRAIN_V, TRAIN_B, TRAIN_S
+    if rehearsal:
+        cfg, s = whole.reduced(), 32
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.4f} B f32 parameters per vehicle "
+        f"({cfg.param_count() * 4 / 1e9:.2f} GB) + AdamW moments; V={v}, B={b}, S={s}, "
+        f"{TRAIN_ROUNDS} rounds, lr {TRAIN_LR}, {TRAIN_P1} P1 steps, remat")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    (params, opt, sm), init_s = _seconds(lambda: steps.init_train_state(cfg, v, gen,
+                                                                        device=device))
+    _apart(params, gen)
+    contact = train_cli.ring_contact(v, device)
+    target = torch.full((v,), 1.0 / v, device=device)
+    timer = PhaseTimer(device)
+    ts = steps.build_dds_train_step(cfg, lr=TRAIN_LR, p1_steps=TRAIN_P1, timer=timer)
+    mix_err = None
+    if on_card:
+        mix_err = check_train_mix(params, _round_mixing(sm, target, contact))
+        check(mix_err <= 1e-5, f"{cfg.name} round 1's mix through gossip_mix_matmul vs "
+              f"aggregation.mix_params on the stacked leaves: max err {mix_err:.2e} (atol 1e-5)")
+    probe = _probe(params)
+
+    # -- the main path
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels_lib.reset_launch_counts()
+    history = []
+    for r in range(TRAIN_ROUNDS):
+        tokens = torch.randint(0, cfg.true_vocab_size, (v, b, s), generator=gen, device=device)
+        t0 = time.perf_counter()
+        params, opt, sm, metrics = ts.fn(params, opt, sm, tokens, contact, target)
+        history.append({**{k: float(x) for k, x in metrics.items()},     # waits for the round
+                        "seconds": time.perf_counter() - t0})
+        if r == 0:
+            first = timer.totals_ms()
+    launches = _train_launches()
+    # the phases of the rounds after the first, per round
+    spans = {name: (ms - first.get(name, 0.0)) / max(TRAIN_ROUNDS - 1, 1)
+             for name, ms in timer.totals_ms().items()}
+    report = _train_report(cfg, whole, v, b, s, history, launches, on_card,
+                           init_s=init_s, mix_check_max_abs_err=mix_err,
+                           first_round_device_ms=first, device_ms_per_round=spans)
+    _round_checks(cfg.name, history, sm, _moved(params, probe))
+    if on_card:
+        check(launches["gossip_mix_matmul_launches"] == TRAIN_ROUNDS
+              and launches["flash_attention_launches"] == 0,
+              f"{cfg.name}: gossip_mix_matmul launched {launches['gossip_mix_matmul_launches']} "
+              f"times in {TRAIN_ROUNDS} rounds (one per round), flash_attention "
+              f"{launches['flash_attention_launches']} (training attends through plain SDPA)")
+
+    # -- row 2t: the kernel at this round's shape, on the trained stack (moments freed)
+    err, timing = None, {}
+    if on_card:
+        del opt
+        torch.cuda.empty_cache()
+        mixing = _round_mixing(sm, target, contact).contiguous()
+        err, timing = time_train_mix(params, mixing)
+        log(f"  gossip_mix_matmul/train: max err {err:.2e}; {json.dumps(timing)}")
+        check(err <= 1e-5, f"gossip_mix_matmul at the train round's shape vs plain: "
+              f"max err {err:.2e} (atol 1e-5)")
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[train] {json.dumps(report)}")
+    return report, err, timing
+
+
+def drive_train_cli_transformer(device: str, seed: int, rehearsal: bool) -> dict:
+    """granite-moe-1b-a400m at full width through the train CLI's entry point
+    (``launch.train.main``, in this process so that its launches and memory
+    are read): V=2, B=2, S=1,024, 3 steps, no checkpoint."""
+    on_card = device != "cpu"
+    whole = get_config(TRAIN_CLI_ARCH)
+    s = 32 if rehearsal else TRAIN_S
+    argv = ["--arch", TRAIN_CLI_ARCH, "--vehicles", str(TRAIN_V), "--steps", str(TRAIN_ROUNDS),
+            "--per-vehicle-batch", str(TRAIN_B), "--seq-len", str(s), "--device", device,
+            "--seed", str(seed)] + (["--reduced"] if rehearsal else [])
+    cfg = whole.reduced() if rehearsal else whole
+    log(f"[train] the train CLI in this process, launch.train.main: {' '.join(argv)} "
+        f"({cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, {cfg.param_count() / 1e9:.4f} B "
+        "parameters per vehicle)")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels_lib.reset_launch_counts()
+    params, opt, sm, history = train_cli.main(argv)
+    launches = _train_launches()
+    report = _train_report(cfg, whole, TRAIN_V, TRAIN_B, s, history, launches, on_card,
+                           argv=argv)
+    del opt
+    init = transformer.init_params(torch.Generator(device=device).manual_seed(seed), cfg,
+                                   device=device)     # the CLI's init, drawn again
+    moved = max(_max_err(leaf[0], steps.flatten(init)[name])
+                for name, leaf in steps.flatten(params).items())
+    del init, params
+    _round_checks(cfg.name, history, sm, moved)
+    if on_card:
+        check(launches["gossip_mix_matmul_launches"] == TRAIN_ROUNDS
+              and launches["flash_attention_launches"] == 0,
+              f"{cfg.name} (CLI): gossip_mix_matmul launched "
+              f"{launches['gossip_mix_matmul_launches']} times in {TRAIN_ROUNDS} steps, "
+              f"flash_attention {launches['flash_attention_launches']}")
+        torch.cuda.empty_cache()
+    log(f"[train] {json.dumps(report)}")
+    return report
+
+
+def _reduced_round_case(arch: str, seed: int):
+    """A reduced config's federation of 4 vehicles mid-training: apart from
+    one init, AdamW moments after three steps (so that the first step is not
+    AdamW's sign-like one, which turns a gradient's rounding into a +-lr
+    step), state vectors on the simplex; tokens and prefix. All on the CPU."""
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(seed)
+    params, opt, _ = steps.init_train_state(cfg, 4, gen)
+    _apart(params, gen)
+    for mu, nu in zip(steps.flatten(opt.mu).values(), steps.flatten(opt.nu).values()):
+        mu.normal_(0.0, 1e-3, generator=gen)          # second moments above the first's
+        nu.uniform_(0.0, 1e-6, generator=gen).add_(2 * mu * mu)   # square, as in training
+    opt.count.fill_(3)
+    sm = torch.rand((4, 4), generator=gen)
+    sm = sm / sm.sum(dim=1, keepdim=True)
+    tokens = torch.randint(0, cfg.true_vocab_size, (4, 2, 16), generator=gen)
+    prefix = (0.02 * torch.randn((4, 2, cfg.frontend_tokens, cfg.d_model), generator=gen)
+              if cfg.embed_input else None)
+    return cfg, (params, opt, sm), tokens, prefix
+
+
+def _reduced_round(cfg, state, tokens, prefix, device, **kw):
+    ts = steps.build_dds_train_step(cfg, lr=TRAIN_LR, p1_steps=TRAIN_P1, **kw)
+    with full_f32_matmul():
+        return ts.fn(*convert.train_state_from_numpy(*state, device=device), tokens.to(device),
+                     train_cli.ring_contact(4, device), torch.full((4,), 0.25, device=device),
+                     None if prefix is None else prefix.to(device))
+
+
+def check_reduced_rounds(device: str, seed: int) -> dict:
+    """One round of every architecture's reduced config on the card against
+    the same round on the CPU (same state, tokens, prefix; atol 1e-4 on loss,
+    kl, state matrix, parameters), then the ``gossip_bf16`` variant's round
+    of the reduced qwen3 against its f32 round (2e-2 of each leaf's scale)."""
+    worst = {}
+    for arch in sorted(ARCHITECTURES):
+        cfg, state, tokens, prefix = _reduced_round_case(arch, seed)
+        want = _reduced_round(cfg, state, tokens, prefix, "cpu")
+        got = _reduced_round(cfg, state, tokens, prefix, device)
+        err = max([abs(float(got[3][k]) - float(want[3][k])) for k in ("loss", "kl")]
+                  + [_max_err(got[2].cpu(), want[2])]
+                  + [_max_err(x.cpu(), steps.flatten(want[0])[k])
+                     for k, x in steps.flatten(got[0]).items()])
+        worst[arch] = err
+        check(err <= 1e-4, f"{cfg.name}: one round on {device} vs cpu (4 vehicles): loss, kl, "
+              f"state matrix, parameters max diff {err:.2e} (atol 1e-4)")
+    cfg, state, tokens, prefix = _reduced_round_case(TRAIN_ARCH, seed)
+    f32 = _reduced_round(cfg, state, tokens, prefix, device)
+    _, overrides = variants.apply_variant("gossip_bf16", cfg, "train")
+    low = _reduced_round(cfg, state, tokens, prefix, device, **overrides)
+    rel = max(_max_err(x, steps.flatten(f32[0])[k])
+              / float(steps.flatten(f32[0])[k].abs().max().clamp(min=1.0))
+              for k, x in steps.flatten(low[0]).items())
+    worst["gossip_bf16_relative"] = rel
+    check(rel <= 2e-2, f"{cfg.name} on {device}: the gossip_bf16 round's parameters within "
+          f"{rel:.2e} of the f32 round's, relative to each leaf's scale (2e-2)")
+    return worst
+
+
+def drive_train(device: str, seed: int, rehearsal: bool) -> tuple[int, float, dict, dict]:
+    """The train phase. Returns the gossip_mix_matmul launches of its main
+    paths, row 2t's error and timing, and the report."""
+    t0 = time.perf_counter()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    report = {}
+    report["model"], err, timing = drive_train_model(device, seed, rehearsal)
+    report["cli"] = drive_train_cli_transformer(device, seed, rehearsal)
+    log("[train] one round of every reduced architecture, card against CPU")
+    report["reduced"] = check_reduced_rounds(device, seed)
+    launches = (report["model"]["gossip_mix_matmul_launches"]
+                + report["cli"]["gossip_mix_matmul_launches"])
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s; gossip_mix_matmul {launches} "
+        "launches over the two runs")
+    return launches, err, timing, report
 
 
 # --------------------------------------------------------------- main path ----
@@ -2496,6 +2837,9 @@ def main() -> int:
     zoo_launches, _ = drive_zoo(device, args.seed, rehearsal)
     launches["flash_attention"] += zoo_launches
 
+    # -- 8c. train: DFL-DDS rounds of vehicle transformers at full width -----
+    train_launches, train_err, train_timing, _ = drive_train(device, args.seed, rehearsal)
+
     # -- 9. the record ------------------------------------------------------
     if rehearsal:
         log(f"[rehearsal] control flow ok in {time.perf_counter() - t_start:.1f} s; "
@@ -2509,6 +2853,9 @@ def main() -> int:
         if name in seed_launches:
             check(seed_launches[name] > 0, f"the seeds path launched {name}")
             rows[-1]["seed_axis"]["launches"] = seed_launches[name]
+    check(train_launches > 0, "the train path launched gossip_mix_matmul")
+    rows.append({"name": "gossip_mix_matmul/train", **KERNELS["gossip_mix_matmul"],
+                 "launches": train_launches, "max_abs_err": train_err, **train_timing})
     for name, count in shard_launches.items():
         check(count > 0, f"the sharded path launched {name}")
         rows.append({"name": f"{name}/shard", **KERNELS[name], "launches": count,

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .core.dfl_dds import FederationState
-from .optim import ScaleState
+from .optim import AdamState, ScaleState
 
 
 def params_from_numpy(params: dict, device="cpu") -> dict:
@@ -27,13 +27,13 @@ def transformer_params_from_numpy(params: dict, device="cpu") -> dict:
     """A transformer's parameters as the reference holds them — ``embed``,
     ``blocks`` (stacked ``[L, ...]`` ``attn`` / ``mlp`` / norm leaves),
     ``final_norm``, ``lm_head`` — as numpy arrays (or tensors) to the same
-    nested dictionary of tensors on ``device``. Layouts, shapes and dtypes
-    are kept; ``to_numpy`` takes the tree back."""
+    nested dictionary of tensors on ``device``, each a copy. Layouts, shapes
+    and dtypes are kept; ``to_numpy`` takes the tree back."""
     if isinstance(params, dict):
         return {name: transformer_params_from_numpy(v, device) for name, v in params.items()}
     if isinstance(params, torch.Tensor):
-        return params.detach().to(device)
-    return torch.tensor(np.asarray(params)).to(device)
+        return params.detach().to(device, copy=True)
+    return torch.tensor(np.asarray(params), device=device)
 
 
 def federation_state_from_numpy(params: dict, opt_count, state_matrix, epoch,
@@ -50,6 +50,22 @@ def federation_state_from_numpy(params: dict, opt_count, state_matrix, epoch,
         epoch=torch.as_tensor(np.asarray(epoch), dtype=torch.int32,
                               device=device),
     )
+
+
+def train_state_from_numpy(params: dict, opt_state, state_matrix,
+                           device="cpu") -> tuple[dict, AdamState, torch.Tensor]:
+    """The transformer federation state of ``repro.launch.steps`` to the
+    port's: the stacked ``[V, ...]`` parameter tree, the AdamW state (any
+    object with ``count`` ``[V]`` int32, ``mu`` and ``nu`` trees, such as the
+    reference's ``AdamState``) and the ``[V, V]`` state matrix, on ``device``.
+    Every tensor is a copy (the train step updates its state in place);
+    ``to_numpy`` takes the three back."""
+    return (transformer_params_from_numpy(params, device),
+            AdamState(count=torch.tensor(np.asarray(opt_state.count), dtype=torch.int32,
+                                         device=device),
+                      mu=transformer_params_from_numpy(opt_state.mu, device),
+                      nu=transformer_params_from_numpy(opt_state.nu, device)),
+            torch.tensor(np.asarray(state_matrix), dtype=torch.float32, device=device))
 
 
 def to_numpy(tree):

@@ -22,8 +22,6 @@ Each function also takes a leading seed axis (``run_seeds``): ``[S, K, K]``
 dense matrices, ``[S, K, D]`` neighbour lists, ``[S, K, ...]`` leaves and
 ``[S, K]`` per-vehicle vectors; every seed's rows go through the operations
 a single run's do.
-
-Still to port from ``repro.core.aggregation``: ``mix_params_lowp``.
 """
 from __future__ import annotations
 
@@ -109,6 +107,23 @@ def mix_params(mixing, params: dict) -> dict:
         flat = x.reshape(tuple(x.shape[:lead]) + (-1,)).to(torch.float32)
         mixed = (w @ flat).reshape(tuple(w.shape[:-1]) + tuple(x.shape[lead:]))
         return mixed.to(x.dtype)
+
+    return {name: mix_leaf(x) for name, x in params.items()}
+
+
+def mix_params_lowp(mixing: Tensor, params: dict) -> dict:
+    """Gossip mix with a bfloat16 exchange payload (the ``gossip_bf16``
+    variant): W and every leaf are rounded to bf16, the products accumulate
+    in f32 and the result is f32, cast back to the leaf's dtype. A torch bf16
+    matmul would round its result to bf16 as well; instead the rounded
+    operands are multiplied in f32, where products of bf16 values are exact,
+    so this equals the reference's ``preferred_element_type=f32`` product up
+    to the order of the sums. Dense W only, as in the reference."""
+    w = mixing.to(torch.bfloat16).to(torch.float32)
+
+    def mix_leaf(x: Tensor) -> Tensor:
+        flat = x.reshape(x.shape[0], -1).to(torch.bfloat16).to(torch.float32)
+        return (w @ flat).reshape((w.shape[0],) + tuple(x.shape[1:])).to(x.dtype)
 
     return {name: mix_leaf(x) for name, x in params.items()}
 

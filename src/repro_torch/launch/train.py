@@ -6,9 +6,14 @@ Counterpart of ``repro.launch.train``. Two modes:
     ``repro_torch.fed.simulator``); with ``--checkpoint-dir`` the accuracy
     history is checkpointed (``repro_torch.checkpoint``, the reference's
     ``.npz`` layout) after the run.
-  * --arch <transformer id>    : DFL-DDS over language models. Not ported
-    yet: it needs ``launch/steps.py`` (the train step), and raises
-    ``NotImplementedError`` naming it.
+  * --arch <transformer id>    : DFL-DDS over language models
+    (``launch.steps.build_dds_train_step``): ``--vehicles`` copies of one
+    random model on a ring contact graph, each step a round on fresh random
+    tokens (and, for a VLM / audio config, frontend prefix embeddings) drawn
+    from a ``torch.Generator`` seeded by ``--seed``; one ``loss`` / ``kl`` line
+    per step. ``--reduced`` gives the 2-layer variant for the CPU; with
+    ``--checkpoint-dir`` the stacked parameters are checkpointed after the
+    run in the reference's ``.npz`` layout.
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device; it never
 falls back to the CPU. ``--execution auto`` lets the cost model pick the
@@ -19,16 +24,21 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mnist-cnn --algorithm dds --epochs 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch mnist-cnn --device cpu \\
       --vehicles 6 --epochs 2 --eval-every 1 --checkpoint-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\
+      --device cpu --vehicles 4 --steps 20
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
 from .. import checkpoint as ckpt_lib
-from ..configs.registry import ARCHITECTURES, PAPER_MODELS
+from ..configs.registry import ARCHITECTURES, PAPER_MODELS, get_config
 from ..fed.simulator import SimulationConfig, run_simulation
+from . import steps as steps_lib
+from .serve import resolve_device
 
 
 def run_cnn_federation(args):
@@ -63,11 +73,52 @@ def run_cnn_federation(args):
     return res
 
 
+def ring_contact(num_vehicles: int, device=None) -> torch.Tensor:
+    """The ``[V, V]`` 0/1 contact matrix of vehicles meeting around a loop
+    road: each meets itself and its two neighbours."""
+    contact = torch.eye(num_vehicles, dtype=torch.float32)
+    for i in range(num_vehicles):
+        contact[i, (i + 1) % num_vehicles] = contact[i, (i - 1) % num_vehicles] = 1.0
+    return contact.to(device)
+
+
 def run_transformer_federation(args):
-    raise NotImplementedError(
-        f"--arch {args.arch}: DFL-DDS over a transformer needs launch/steps.py "
-        "(the DDS train step, lm_loss, adamw), which repro_torch has not ported "
-        "yet; the paper's CNNs (--arch mnist-cnn|cifar-cnn) train")
+    """``args.steps`` DDS rounds of ``args.vehicles`` copies of ``args.arch``.
+    Returns the final (params, opt_state, state_matrix) and the per-step
+    metrics: loss, kl and the step's host seconds (floats)."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    v, b, s = args.vehicles, args.per_vehicle_batch, args.seq_len
+    ts = steps_lib.build_dds_train_step(cfg, lr=args.lr, remat=False,
+                                        p1_steps=args.p1_steps)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params, opt_state, state_matrix = steps_lib.init_train_state(cfg, v, gen, device=device)
+    target = torch.full((v,), 1.0 / v, device=device)
+    contact = ring_contact(v, device)
+
+    history = []
+    for it in range(args.steps):
+        tokens = torch.randint(0, cfg.true_vocab_size, (v, b, s), generator=gen, device=device)
+        prefix = None
+        if cfg.embed_input:
+            prefix = 0.02 * torch.randn((v, b, cfg.frontend_tokens, cfg.d_model),
+                                        generator=gen, device=device)
+        t0 = time.perf_counter()
+        params, opt_state, state_matrix, metrics = ts.fn(
+            params, opt_state, state_matrix, tokens, contact, target, prefix)
+        m = {name: float(x) for name, x in metrics.items()}     # waits for the round
+        m["seconds"] = time.perf_counter() - t0
+        history.append(m)
+        print(f"step {it:3d} loss={m['loss']:.4f} kl={m['kl']:.4f} "
+              f"({m['seconds']:.2f}s)", flush=True)
+
+    if args.checkpoint_dir:
+        mgr = ckpt_lib.CheckpointManager(args.checkpoint_dir)
+        mgr.save(args.steps, params, {"arch": cfg.name})
+        print("params checkpointed to", args.checkpoint_dir)
+    return params, opt_state, state_matrix, history
 
 
 def main(argv: list[str] | None = None):

@@ -17,9 +17,11 @@ structure and of the rotary phases.
 Per-layer parameters are stacked on a leading ``[L, ...]`` axis as in the
 reference, so weights convert leaf by leaf
 (``convert.transformer_params_from_numpy``); the layer stack is a Python
-loop where the reference runs ``lax.scan``. ``forward_with_aux`` / ``lm_loss``
-belong to the training slice: ``forward`` drops the MoE aux loss, as the
-reference's does.
+loop where the reference runs ``lax.scan``. ``forward_with_aux`` also returns
+the sum of the layers' MoE load-balance losses (0 for the other families) and
+``lm_loss`` is the training objective built on it; ``forward`` drops the aux
+loss, as the reference's does. ``remat=True`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``, the twin of ``jax.checkpoint``).
 
 ``decode_step`` updates ``state`` in place: each layer's new k/v are written
 into ``state.kv`` (see ``attention.decode_attention``) and the recurrent
@@ -32,6 +34,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention, layers, moe, rwkv6, ssm
@@ -115,13 +118,14 @@ def _logits(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
     return layers.unembed(x, head, cfg.true_vocab_size)
 
 
-def _ffn(p: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
-    """The second half of an attention-family block: pre-norm MLP or MoE."""
+def _ffn(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor | None]:
+    """The second half of an attention-family block: pre-norm MLP or MoE.
+    Returns (x, the MoE aux loss; None for an MLP)."""
     h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.is_moe:
-        out, _ = moe.moe_ffn(p["moe"], h, cfg)
-        return x + out
-    return x + layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+        out, aux = moe.moe_ffn(p["moe"], h, cfg)
+        return x + out, aux
+    return x + layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), None
 
 
 def _mix_branches(p: dict, a: Tensor, s: Tensor, cfg: ArchConfig) -> Tensor:
@@ -143,24 +147,47 @@ def _rwkv_block(p: dict, x: Tensor, cfg: ArchConfig, time_mix, cm_shift: Tensor)
 
 # --------------------------------------------------------- forward ----------
 
-def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
-            prefix_embeds: Tensor | None = None, window: int | None = None,
-            attn_impl=None) -> Tensor:
-    """Train / prefill forward: tokens [B, S] -> logits [B, P + S, V]."""
+def _block_forward(p: dict, x: Tensor, cfg: ArchConfig, window: int | None,
+                   attn_impl) -> tuple[Tensor, Tensor | None]:
+    """Full-sequence block. Returns (x, the layer's MoE aux loss or None)."""
+    if cfg.family == "ssm":
+        x, _ = _rwkv_block(p, x, cfg, lambda h: rwkv6.time_mix(p["time_mix"], h, cfg),
+                           torch.zeros_like(x[:, 0]))
+        return x, None
+    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    a = attention.attention(p["attn"], h, cfg, window=window, attn_impl=attn_impl)
+    if cfg.hybrid:
+        s, _ = ssm.ssm_forward(p["ssm"], h, cfg)
+        a = _mix_branches(p, a, s, cfg)
+    return _ffn(p, x + a, cfg)
+
+
+def forward_with_aux(params: dict, tokens: Tensor, cfg: ArchConfig, *,
+                     prefix_embeds: Tensor | None = None, window: int | None = None,
+                     attn_impl=None, remat: bool = False) -> tuple[Tensor, Tensor]:
+    """Train / prefill forward: tokens [B, S] -> (logits [B, P + S, V], the
+    layers' summed MoE aux loss, an f32 0-d tensor: 0 for the other
+    families)."""
     x = _embed(params, tokens, prefix_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         p = layer_params(params["blocks"], i)
-        if cfg.family == "ssm":
-            x, _ = _rwkv_block(p, x, cfg, lambda h: rwkv6.time_mix(p["time_mix"], h, cfg),
-                               torch.zeros_like(x[:, 0]))
-            continue
-        h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-        a = attention.attention(p["attn"], h, cfg, window=window, attn_impl=attn_impl)
-        if cfg.hybrid:
-            s, _ = ssm.ssm_forward(p["ssm"], h, cfg)
-            a = _mix_branches(p, a, s, cfg)
-        x = _ffn(p, x + a, cfg)
-    return _logits(params, x, cfg)
+        if remat:
+            x, aux_l = checkpoint(_block_forward, p, x, cfg, window, attn_impl,
+                                  use_reentrant=False)
+        else:
+            x, aux_l = _block_forward(p, x, cfg, window, attn_impl)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return _logits(params, x, cfg), aux
+
+
+def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
+            prefix_embeds: Tensor | None = None, window: int | None = None,
+            attn_impl=None, remat: bool = False) -> Tensor:
+    """Train / prefill forward: tokens [B, S] -> logits [B, P + S, V]."""
+    return forward_with_aux(params, tokens, cfg, prefix_embeds=prefix_embeds, window=window,
+                            attn_impl=attn_impl, remat=remat)[0]
 
 
 # ---------------------------------------------------------- prefill ---------
@@ -188,7 +215,7 @@ def _block_prefill(p: dict, x: Tensor, cfg: ArchConfig, *, window: int | None,
         k = torch.roll(k[:, s - win:], r, dims=1)
         v = torch.roll(v[:, s - win:], r, dims=1)
     state["kv"] = {"k": k, "v": v}
-    return _ffn(p, x + a, cfg), state
+    return _ffn(p, x + a, cfg)[0], state
 
 
 def _stack_into(stacked: dict | None, i: int, L: int, leaves: dict, dtype=None) -> dict:
@@ -294,7 +321,7 @@ def _block_decode(p: dict, x: Tensor, cfg: ArchConfig, state: DecodeState,
         s, sm = ssm.ssm_decode(p["ssm"], h, cfg, _layer_state(state.ssm, i))
         _write_back(state.ssm, i, sm)
         a = _mix_branches(p, a, s, cfg)
-    return _ffn(p, x + a, cfg)
+    return _ffn(p, x + a, cfg)[0]
 
 
 def decode_step(params: dict, tokens: Tensor, state: DecodeState,
@@ -307,3 +334,17 @@ def decode_step(params: dict, tokens: Tensor, state: DecodeState,
     logits = _logits(params, x[:, 0], cfg)
     kv = None if state.kv is None else state.kv._replace(length=state.kv.length + 1)
     return logits, state._replace(kv=kv, position=state.position + 1)
+
+
+# ------------------------------------------------------------- loss ---------
+
+def lm_loss(params: dict, tokens: Tensor, cfg: ArchConfig, *,
+            prefix_embeds: Tensor | None = None, aux_weight: float = 0.01, **kw) -> Tensor:
+    """Next-token cross-entropy (+ ``aux_weight`` x the MoE load-balance aux
+    loss). Labels are the tokens shifted by one; the prefix (frontend)
+    positions are left out of the loss. ``kw`` goes to ``forward_with_aux``."""
+    logits, aux = forward_with_aux(params, tokens, cfg, prefix_embeds=prefix_embeds, **kw)
+    p = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    logits = logits[:, p:, :]
+    ce = layers.cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return ce + aux_weight * aux

@@ -6,7 +6,9 @@ machine that has only PyTorch:
 
 Each kernel is held against its plain PyTorch version on the card, f32 atol
 1e-5 / bf16 atol 5e-2 (the reference's kernel-test tolerances; flash
-attention 2e-5 / 3e-2, its own).
+attention 2e-5 / 3e-2, its own). Paths that launch them are held card
+against CPU: reduced federations, ``serve.generate`` and one DDS train round
+(``launch.steps``) of every reduced architecture (1e-4).
 """
 import numpy as np
 import pytest
@@ -16,8 +18,10 @@ from repro_torch.core import aggregation, contacts
 from repro_torch.data.synthetic import synthetic_mnist
 from repro_torch.fed.simulator import SimulationConfig, run_simulation
 from repro_torch.configs import get_config
+from repro_torch.configs.registry import ARCHITECTURES
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kl_simplex
+from repro_torch.precision import full_f32_matmul
 from repro_torch.kernels.gossip_mix import (gossip_mix_gather_ref,
                                             gossip_mix_matmul_grouped,
                                             gossip_mix_matmul_ref, kernel,
@@ -883,3 +887,86 @@ def test_resolve_auto_on_a_cuda_config_uses_the_h100_profile(card):
     used = ("gossip_mix_gather" if resolved.contact_format == "sparse"
             else "gossip_mix_matmul")
     assert kernel.launch_counts[used] == cfg.epochs
+
+
+# ------------------------------------------- the train round (launch.steps)
+
+def _train_state(arch, v, seed=0):
+    """A reduced config's federation of ``v`` vehicles mid-training on the
+    CPU: apart from one init, AdamW moments after three steps (second moments
+    above the first's square), state vectors on the simplex; tokens and
+    prefix."""
+    from repro_torch.launch import steps
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(seed)
+    params, opt, _ = steps.init_train_state(cfg, v, gen)
+    for leaf in steps.flatten(params).values():
+        leaf[1:].add_(0.01 * torch.randn(leaf[1:].shape, generator=gen))
+    for mu, nu in zip(steps.flatten(opt.mu).values(), steps.flatten(opt.nu).values()):
+        mu.normal_(0.0, 1e-3, generator=gen)
+        nu.uniform_(0.0, 1e-6, generator=gen).add_(2 * mu * mu)
+    opt.count.fill_(3)
+    sm = torch.rand((v, v), generator=gen)
+    sm = sm / sm.sum(dim=1, keepdim=True)
+    tokens = torch.randint(0, cfg.true_vocab_size, (v, 2, 16), generator=gen)
+    prefix = (0.02 * torch.randn((v, 2, cfg.frontend_tokens, cfg.d_model), generator=gen)
+              if cfg.embed_input else None)
+    return cfg, (params, opt, sm), tokens, prefix
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
+def test_reduced_train_round_on_the_card_matches_the_cpu(card, arch):
+    """One ``build_dds_train_step`` round of a reduced config, 4 vehicles on a
+    ring, on the card against the CPU: one grouped ``gossip_mix_matmul``
+    launch, no flash launch (training attends through plain SDPA); loss, kl,
+    state matrix, parameters and moments to 1e-4."""
+    from repro_torch import convert
+    from repro_torch.launch import steps, train
+    cfg, state, tokens, prefix = _train_state(arch, 4)
+    ts = steps.build_dds_train_step(cfg, lr=1e-3, p1_steps=100)
+
+    def run(device):
+        with full_f32_matmul():
+            return ts.fn(*convert.train_state_from_numpy(*state, device=device),
+                         tokens.to(device), train.ring_contact(4, device),
+                         torch.full((4,), 0.25, device=device),
+                         None if prefix is None else prefix.to(device))
+
+    want = run("cpu")
+    kernel.reset_launch_counts()
+    fa.kernel.reset_launch_counts()
+    got = run(card)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_matmul"] == 1
+    assert fa.kernel.launch_counts["flash_attention"] == 0
+    for name in ("loss", "kl"):
+        assert abs(float(got[3][name]) - float(want[3][name])) <= 1e-4
+    assert _err(got[2].cpu(), want[2]) <= 1e-4
+    assert torch.equal(got[1].count.cpu(), want[1].count)
+    for tree in (0, "mu", "nu"):
+        g = steps.flatten(got[0] if tree == 0 else getattr(got[1], tree))
+        w = steps.flatten(want[0] if tree == 0 else getattr(want[1], tree))
+        assert max(_err(g[k].cpu(), w[k]) for k in w) <= 1e-4
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_mix_params_cuda_on_a_transformer_tree_of_few_vehicles(card, k):
+    """The train round's mix: a flattened stacked transformer (every family's
+    leaves of the reduced qwen3 and granite-moe) at K = 2-4 vehicles, far
+    below the kernel's 128-row tile: one launch, the plain product to 1e-5."""
+    from repro_torch.launch import steps
+    leaves = {}
+    for arch in ("qwen3-1.7b", "granite-moe-1b-a400m"):
+        cfg, (params, _, _), _, _ = _train_state(arch, k, seed=k)
+        leaves.update({f"{arch}/{n}": x.to(card) for n, x in steps.flatten(params).items()})
+    w = torch.as_tensor(np.random.default_rng(k).dirichlet(np.ones(k), size=k)
+                        .astype(np.float32)).to(card)
+    kernel.reset_launch_counts()
+    got = mix_params_cuda(w, leaves)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_matmul"] == 1
+    with full_f32_matmul():
+        want = aggregation.mix_params(w, leaves)
+    for name, x in leaves.items():
+        assert got[name].shape == x.shape
+        assert _err(got[name], want[name]) <= 1e-5, name

@@ -43,7 +43,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.roofline.flop_cost", "repro_torch.roofline.bench_schema",
             "repro_torch.roofline.scenario_cost", "repro_torch.checkpoint.checkpoint",
             "repro_torch.launch.train", "repro_torch.models.moe", "repro_torch.models.rwkv6",
-            "repro_torch.models.ssm", "repro_torch.models.multimodal"} <= set(names)
+            "repro_torch.models.ssm", "repro_torch.models.multimodal",
+            "repro_torch.launch.steps", "repro_torch.launch.variants",
+            "repro_torch.optim.schedules"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -111,14 +113,20 @@ def test_serve_cli_with_device_cuda_without_a_card_raises():
     assert "generated ids" not in run.stdout
 
 
-@pytest.mark.parametrize("entry,arch", [
-    ("launch.train", "qwen3-1.7b"),
-])
-def test_values_of_later_slices_raise_not_implemented(entry, arch):
-    """What a later slice ports raises, naming the module it waits for."""
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_train_cli_with_device_cuda_without_a_card_raises_for_a_transformer(arch):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="launch/steps.py"):
-        train.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", arch, "--reduced", "--steps", "1"])   # --device defaults to cuda
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                          "--reduced", "--steps", "1", "--device", "cuda"],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert run.returncode != 0 and "no CUDA device" in run.stderr
+    assert "loss=" not in run.stdout
 
 
 def test_shard_map_backend_builds_a_context():

@@ -4,7 +4,8 @@
 A checkpoint written by either package restores in the other: both flatten
 a tree by ``/``-joined key path into one ``.npz``. The entry point's CNN
 branch runs a federation and checkpoints its accuracy history, as the reference's
-does; its transformer branch waits for ``launch/steps.py``.
+does; its transformer branch runs the DDS rounds of ``launch/steps.py``
+(held to the reference in ``test_torch_train_step.py``).
 """
 import collections
 import os
@@ -183,9 +184,20 @@ def test_train_cli_auto_stamps_the_plan_in_the_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mixtral-8x7b"])
-def test_train_cli_transformer_arch_names_launch_steps(arch):
-    with pytest.raises(NotImplementedError, match="launch/steps.py"):
-        train.main(["--arch", arch, "--reduced", "--device", "cpu"])
+def test_train_cli_transformer_arch_names_launch_steps(arch, monkeypatch):
+    """A transformer ``--arch`` trains through ``launch.steps``'s round."""
+    build = train.steps_lib.build_dds_train_step
+    built = []
+
+    def spy(cfg, **kw):
+        built.append((cfg.name, kw))
+        return build(cfg, **kw)
+
+    monkeypatch.setattr(train.steps_lib, "build_dds_train_step", spy)
+    _, opt_state, _, history = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                                           "--vehicles", "2", "--steps", "1", "--seq-len", "8"])
+    assert built == [(f"{arch}-reduced", {"lr": 1e-3, "remat": False, "p1_steps": 100})]
+    assert opt_state.count.tolist() == [1, 1] and np.isfinite(history[0]["loss"])
 
 
 def test_train_cli_device_cuda_without_a_card_raises():
