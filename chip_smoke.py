@@ -26,6 +26,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the serving shape B=4, S=T=2048, H=16, KV=8, hd=128); flash attention
                also at the zoo's prefill shapes (hd 64 with G = 1, 2, 5; hd 128 with
                G = 6; prefixes of 64 / 256 positions; mixtral's 4,096 window).
+               ``gossip_mix_matmul``'s column mapping (few rows): K = 1-17 over
+               ragged widths on both sides of its limit, the mapping the launcher
+               picked printed per case, in place equal to out of place bit for
+               bit, S=3 seeds at K=4, ``[4, 100]`` and ``[8, 2]`` Ws, an
+               unaligned leaf; the aliasing refusals, by the wrapper and by the C
+               launcher; K=100's shapes (rows 2, 2s, 2r) on the tile mapping;
+               the crossover: per K and dtype, the launcher's mapping against the
+               tiles (W padded with zero rows to the tiles' smallest K_out) on the
+               CNN round's 8 leaves and on 4 leaves of 2^23 columns, each beside
+               its bound.
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
                full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
@@ -131,17 +141,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                entry point (``launch.train.main``, in this process). Each run: finite
                loss and kl every round, state rows summing to 1 (1e-5), parameters
                that moved, one grouped ``gossip_mix_matmul`` launch per round and no
-               flash launch; qwen3's first-round mix through the kernel against
-               ``aggregation.mix_params`` on the stacked leaves (1e-5), and the kernel
+               flash launch; qwen3's stack mixed in place (every leaf where it was
+               after the rounds; a mix of the stack allocates under 1 MiB, printed
+               beside the functional mix's and the mix span); qwen3's first-round
+               mix through the kernel in place against ``aggregation.mix_params``
+               on the stacked leaves (1e-5, a leaf at a time), and the kernel
                timed at that shape (row ``gossip_mix_matmul/train``: V=2 rows, 2.03 B
-               columns in one launch); one ``[train]`` line per model (layers, V,
-               s/round with the first round apart, loss / kl per round, peak memory,
-               launches). Then one round of every reduced architecture (4 vehicles
-               mid-training) on the card against the CPU (atol 1e-4 on loss, kl,
-               state matrix and parameters), and the ``gossip_bf16`` variant's round
-               of the reduced qwen3 against its f32 round (2e-2 of each leaf's scale).
-               The kernels phase also holds ``gossip_mix_matmul`` at K = 2, 3 and 4
-               over widths that are not multiples of 64.
+               columns in one launch, in place as the round runs it and out of
+               place, in place equal to out of place bit for bit); one ``[train]``
+               line per model (layers, V, s/round with the first round apart, loss
+               / kl per round, peak memory, launches). Then one round of every
+               reduced architecture (4 vehicles mid-training; every leaf in place)
+               on the card against the CPU (atol 1e-4 on loss, kl, state matrix and
+               parameters), the reduced qwen3 at V=17 (past the column mapping: its
+               mix through the tiles, copied back) the same way, and the
+               ``gossip_bf16`` variant's round of the reduced
+               qwen3 against its f32 round (2e-2 of each leaf's scale).
 9. prints one ``{"kernels": [...]}`` line (the two mixes also as
    ``<name>/shard`` rows: one rank's partial mix at N = 2, N = 4 under ``n4``,
    launches of the sharded phase; ``gossip_mix_matmul/train``: the train
@@ -159,6 +174,7 @@ from ``repro_torch.roofline.hw``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import pickle
@@ -265,13 +281,14 @@ ZOO = (("granite-moe-1b-a400m", None, None), ("rwkv6-3b", None, 8),
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 2, 1024, 16
 # the train phase: DFL-DDS rounds of V vehicle transformers at full width. qwen3-1.7b
 # through steps.build_dds_train_step (f32 parameters plus AdamW moments are 6 copies
-# of an 8.13 GB model at V=2; the round's peak is 8 at the mix), granite-moe through
+# of an 8.13 GB model at V=2, mixed in place; 7 with one vehicle's gradients in local
+# training, plus activations), granite-moe through
 # the train CLI's entry point; B sequences of S tokens per vehicle, E=1, ROUNDS
 # rounds, the CLI's lr and P1 steps; then one round of every reduced architecture,
 # card against CPU
 TRAIN_ARCH, TRAIN_CLI_ARCH = "qwen3-1.7b", "granite-moe-1b-a400m"
 TRAIN_V, TRAIN_B, TRAIN_S, TRAIN_ROUNDS, TRAIN_LR, TRAIN_P1 = 2, 2, 1024, 3, 1e-3, 100
-TRAIN_SMALL_K = (2, 3, 4)
+TRAIN_SMALL_K = tuple(range(1, 18))   # both sides of the column mapping's limit
 TRAIN_SMALL_WIDTHS = [1, 63, 65, 1000, 4097, 100003]
 # flash attention: the reference's sweep (tests/test_kernels.py), b, s, h, kv, hd,
 # causal, window, dtype; its tolerances
@@ -379,6 +396,96 @@ def _max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+PATHS = {kernel.MATMUL_TILES: "tiles", kernel.MATMUL_COLUMNS: "columns"}
+
+
+def _in_place_matches(w, flats, outs) -> bool:
+    """``flats`` mixed in place (on copies) equal ``outs`` bit for bit, and
+    every copy keeps its address."""
+    copies = [x.clone() for x in flats]
+    ptrs = [x.data_ptr() for x in copies]
+    got = kernel.gossip_mix_matmul_grouped(w, copies, out=copies)
+    torch.cuda.synchronize()
+    return all(g is c and c.data_ptr() == ptr and torch.equal(c, o)
+               for g, c, ptr, o in zip(got, copies, ptrs, outs))
+
+
+def _refused(fn, what: str) -> None:
+    try:
+        fn()
+    except ValueError as e:
+        log(f"  ok: refused {what} ({e})")
+        return
+    raise SystemExit(f"FAILED: gossip_mix_matmul took {what}")
+
+
+def check_small_k_cases(device) -> float:
+    """The column mapping beyond square W: S=3 seeds at K=4, rectangular
+    ``[4, 100]`` and ``[8, 2]`` Ws (a per-shard block of K=8 over N=4 ranks),
+    an unaligned leaf view, each against the plain version and in place
+    where the launcher takes it; then the refusals, by the wrapper and by the
+    C launcher called with the same pointers. Returns the largest error."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = 0.0
+    r = np.random.default_rng(17)
+    for what, seeds, k_out, k_in, dtype in (("S=3 seeds", 3, 4, 4, f32),
+                                            ("S=3 seeds", 3, 4, 4, bf16),
+                                            ("rectangular", None, 4, 100, f32),
+                                            ("per-shard block", None, 8, 2, f32)):
+        lead = () if seeds is None else (seeds,)
+        w = torch.as_tensor(r.dirichlet(np.ones(k_in), size=lead + (k_out,))
+                            .astype(np.float32)).to(device)
+        flats = [torch.as_tensor(r.normal(size=lead + (k_in, p)).astype(np.float32))
+                 .to(device).to(dtype) for p in TRAIN_SMALL_WIDTHS]
+        outs = kernel.gossip_mix_matmul_grouped(w, flats)
+        torch.cuda.synchronize()
+        err = max(_max_err(o, ref.gossip_mix_matmul_ref(w, x)) for o, x in zip(outs, flats))
+        path = kernel.matmul_path(k_out, k_in)
+        in_place = k_out == k_in and _in_place_matches(w, flats, outs)
+        check(err <= ATOL[dtype] and path == kernel.MATMUL_COLUMNS
+              and (in_place or k_out != k_in),
+              f"gossip_mix_matmul {what}: W {list(w.shape)}, path {PATHS[path]}, {dtype}, "
+              f"max err {err:.2e}" + (", in place bit for bit" if in_place else ""))
+        worst = max(worst, err)
+    w, x = _dense_case(3, 3, 64, f32, 3, device)
+    shifted = torch.zeros(3 * 64 + 1, device=device)[1:].view(3, 64).copy_(x)
+    out = kernel.gossip_mix_matmul(w, shifted)
+    err = _max_err(out, ref.gossip_mix_matmul_ref(w, x))
+    kernel.gossip_mix_matmul_grouped(w, [shifted], out=[shifted])
+    torch.cuda.synchronize()
+    check(err <= 1e-5 and torch.equal(shifted, out),
+          f"gossip_mix_matmul on a leaf 4 bytes off a 16-byte boundary (element-wise "
+          f"path): max err {err:.2e}, in place bit for bit")
+    worst = max(worst, err)
+    # refusals: in place on a rectangular W, above the column mapping's limit, a
+    # partial overlap, an output on another leaf's input, overlapping outputs
+    w4, flats4 = _dense_case(4, 100, 256, f32, 4, device)
+    w_tile, x_tile = _dense_case(100, 100, 256, f32, 5, device)
+    w2, _ = _dense_case(2, 2, 1, f32, 6, device)
+    a, b = (_dense_case(2, 2, 256, f32, s, device)[1] for s in (7, 8))
+    buf = torch.zeros(2 * 256 + 4, device=device)
+    cases = (("in place on a rectangular [4, 100] W", w4, [flats4], [flats4[:4]]),
+             ("in place at K_out=100 (tiles)", w_tile, [x_tile], [x_tile]),
+             ("a partial overlap", w2, [buf[:512].view(2, 256)], [buf[4:516].view(2, 256)]),
+             ("an output on another leaf's input", w2, [a, b], [b, torch.empty_like(a)]),
+             ("two overlapping outputs", w2, [a, b],
+              [buf[:512].view(2, 256), buf[4:516].view(2, 256)]))
+    launch = kernel._LIBS["gossip_mix_matmul"].gossip_mix_matmul_grouped_launch
+    for what, w, ins, outs in cases:
+        _refused(lambda: kernel.gossip_mix_matmul_grouped(w, ins, out=outs), what)
+        n = len(ins)
+        code = launch(w.data_ptr(), (ctypes.c_void_p * n)(*(t.data_ptr() for t in ins)),
+                      (ctypes.c_void_p * n)(*(t.data_ptr() for t in outs)),
+                      (ctypes.c_longlong * n)(*(t.shape[1] for t in ins)), n, 1,
+                      w.shape[0], w.shape[1], 0, torch.cuda.current_stream().cuda_stream)
+        check(code == 1, f"the C launcher refuses {what} (cudaErrorInvalidValue, got {code})")
+    _refused(lambda: ops.mix_params_cuda_(w_tile, {"a": x_tile}), "mix_params_cuda_ at K=100")
+    for k_out, k_in in ((100, 100), (100, 50), (100, 25)):
+        check(kernel.matmul_path(k_out, k_in) == kernel.MATMUL_TILES,
+              f"W [{k_out}, {k_in}] (rows 2, 2s, 2r) keeps the tile mapping")
+    return worst
+
+
 def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
     """Both gossip-mix kernels against their plain versions on the card, one
     leaf at a time and in groups (one launch per group, leaf by leaf).
@@ -427,9 +534,11 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
               f"gossip_mix_matmul grouped: one launch over {len(widths)} leaves {widths}, "
               f"W [{k_out},{k_in}], {dtype}, max err {err:.2e}")
         worst["gossip_mix_matmul"] = max(worst["gossip_mix_matmul"], err)
-    # the train round's regime: K = 2, 3, 4 vehicles, far below the kernel's
-    # 128-row tile, over leaf widths that are not multiples of 64
+    # few rows (the train round's vehicles, small federations): K = 1-17 on both
+    # sides of the column mapping's limit, over leaf widths that are not
+    # multiples of 64; in place (where the launcher takes it) against out of place
     for kv in TRAIN_SMALL_K:
+        path = kernel.matmul_path(kv, kv)
         for dtype in (f32, bf16):
             w, _ = _dense_case(kv, kv, 1, f32, 50 + kv, device)
             flats = [_dense_case(kv, kv, p, dtype, p + kv, device)[1] for p in TRAIN_SMALL_WIDTHS]
@@ -439,9 +548,17 @@ def check_kernels(device, k: int, d_max: int) -> dict[str, float]:
             err = max(_max_err(o, ref.gossip_mix_matmul_ref(w, x)) for o, x in zip(outs, flats))
             check(kernel.launch_counts["gossip_mix_matmul"] == before + 1 and err <= ATOL[dtype]
                   and all(o.shape == x.shape for o, x in zip(outs, flats)),
-                  f"gossip_mix_matmul grouped at K={kv}: one launch over widths "
-                  f"{TRAIN_SMALL_WIDTHS}, {dtype}, max err {err:.2e}")
+                  f"gossip_mix_matmul grouped at K={kv} (path {PATHS[path]}): one launch over "
+                  f"widths {TRAIN_SMALL_WIDTHS}, {dtype}, max err {err:.2e}")
             worst["gossip_mix_matmul"] = max(worst["gossip_mix_matmul"], err)
+            if path == kernel.MATMUL_COLUMNS:
+                same = _in_place_matches(w, flats, outs)
+                check(same, f"gossip_mix_matmul in place at K={kv}, {dtype}: equal to out of "
+                      "place bit for bit, every leaf at its address")
+            else:
+                _refused(lambda: kernel.gossip_mix_matmul_grouped(w, flats, out=flats),
+                         f"in place at K={kv} under the {PATHS[path]} mapping")
+    worst["gossip_mix_matmul"] = max(worst["gossip_mix_matmul"], check_small_k_cases(device))
     # an unaligned view start forces the element-wise instantiation
     idx, w, x = _sparse_case(9, 9, 4, 64, f32, 1, device)
     base = torch.zeros(9 * 64 + 1, device=device)
@@ -676,6 +793,58 @@ def time_kernels(device, mixing_sparse, mixing_dense) -> dict[str, dict]:
         })
         log(f"  {name}: {json.dumps(out[name])}")
     return out
+
+
+def time_matmul_crossover(device) -> dict:
+    """Where ``gossip_mix_matmul``'s two mappings cross, per K and dtype, on
+    the MNIST CNN's 8 leaves (21,840 columns, L2-warm: the federation's round)
+    and on 4 leaves of 2^23 columns (past the L2: the train round's regime):
+    the launcher's own mapping (columns at K <= its limit) against the tile
+    mapping, reached through the same launcher by padding W with zero rows up
+    to the smallest K_out the tiles take. The padded launch also writes those
+    rows, so its time is an upper bound on the tiles' time at K. Square W, in
+    turns (tiles, columns, columns, tiles), each beside its bound; the
+    padded rows' first K against the columns' output (f32 1e-5, bf16 5e-2).
+    Logs one line per case; returns, per shape and dtype, the K at which the
+    padded tiles win."""
+    tiles_k = next(k for k in range(1, 129) if kernel.matmul_path(k, 1) == kernel.MATMUL_TILES)
+    gen = torch.Generator(device=device).manual_seed(21)
+    wins = {}
+    for shape, widths, ks, time_kw in (
+            ("cnn_round", LEAF_WIDTHS, range(1, tiles_k), dict(inner=10, reps=7, warm=3)),
+            ("wide", [1 << 23] * 4, (1, 2, 4, 8, 9, 16), dict(inner=1, reps=5, warm=1))):
+        for dtype in (torch.float32, torch.bfloat16):
+            esize, cols = torch.tensor([], dtype=dtype).element_size(), sum(widths)
+            wins[f"{shape}/{str(dtype).split('.')[-1]}"] = won = []
+            for k in ks:
+                w = torch.as_tensor(np.random.default_rng(k).dirichlet(np.ones(k), size=k)
+                                    .astype(np.float32)).to(device)
+                padded = torch.cat([w, torch.zeros(tiles_k - k, k, device=device)])
+                flats = [torch.randn(k, p, device=device, generator=gen).to(dtype)
+                         for p in widths]
+                err = max(_max_err(t[:k], c) for t, c in zip(
+                    kernel.gossip_mix_matmul_grouped(padded, flats),
+                    kernel.gossip_mix_matmul_grouped(w, flats)))
+                check(err <= ATOL[dtype], f"gossip_mix_matmul crossover {shape} K={k} {dtype}: "
+                      f"tiles (W padded to {tiles_k} rows) vs the launcher's mapping, "
+                      f"max diff {err:.2e}")
+                tiles = lambda: kernel.gossip_mix_matmul_grouped(padded, flats)  # noqa: E731
+                own = lambda: kernel.gossip_mix_matmul_grouped(w, flats)  # noqa: E731
+                t_a, c_a, c_b, t_b = (time_ms(fn, **time_kw) for fn in (tiles, own, own, tiles))
+                bound = max((2 * k * cols * esize + k * k * 4) / hw.HBM_BYTES_PER_S,
+                            2 * k * k * cols / hw.F32_FLOP_PER_S) * 1e3
+                row = {"shape": shape, "dtype": str(dtype).split(".")[-1], "K": k,
+                       "columns": cols, "path": PATHS[kernel.matmul_path(k, k)],
+                       "own_ms": min(c_a, c_b), "tiles_padded_ms": min(t_a, t_b),
+                       "own_ms_repeat": [c_a, c_b], "tiles_padded_ms_repeat": [t_a, t_b],
+                       "bound_ms": bound, "own_share_of_bound": bound / min(c_a, c_b)}
+                if row["tiles_padded_ms"] < row["own_ms"]:
+                    won.append(k)
+                log(f"  crossover: {json.dumps(row)}")
+                del flats
+    log(f"  crossover: K at which the tiles (padded to {tiles_k} rows) beat the launcher's "
+        f"mapping, per shape/dtype: {json.dumps(wins)}")
+    return wins
 
 
 def _shard_blocks(mixing_sparse, mixing_dense, n: int, rank: int):
@@ -1488,18 +1657,39 @@ def _round_mixing(state_matrix, target, contact):
 
 
 def check_train_mix(params: dict, mixing) -> float:
-    """The round's kernel mix (``ops.mix_params_cuda``) against the plain f32
-    product ``aggregation.mix_params`` on the same stacked leaves, one leaf at
-    a time (the card holds no second copy of the stack's mix). Returns the
-    largest abs difference."""
+    """The round's kernel mix (``ops.mix_params_cuda_``, in place, on a copy
+    of each leaf) against the plain f32 product ``aggregation.mix_params`` on
+    the same stacked leaves, one leaf at a time (the card holds no second copy
+    of the stack). Returns the largest abs difference."""
     worst = 0.0
     with torch.no_grad(), full_f32_matmul():
         for name, leaf in steps.flatten(params).items():
-            got = ops.mix_params_cuda(mixing, {name: leaf})[name]
+            got = leaf.clone()
+            ops.mix_params_cuda_(mixing, {name: got})
             want = aggregation.mix_params(mixing, {name: leaf})[name]
             worst = max(worst, _max_err(got, want))
             del got, want
     return worst
+
+
+def mix_memory(params: dict, mixing) -> dict:
+    """What one mix of the whole stack adds to the allocated device memory,
+    in place (``ops.mix_params_cuda_``, the round's default) and functional
+    (``ops.mix_params_cuda``, its output then freed): MiB above what was
+    allocated before the call, at its peak."""
+    out = {}
+    flat = steps.flatten(params)
+    with torch.no_grad():
+        for what, fn in (("in_place", ops.mix_params_cuda_), ("functional", ops.mix_params_cuda)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mixed = fn(mixing, flat)
+            torch.cuda.synchronize()
+            out[f"mix_{what}_extra_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            out[f"mix_{what}_peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+            del mixed
+    return out
 
 
 def _probe(params: dict) -> dict:
@@ -1544,26 +1734,40 @@ def _train_launches() -> dict:
 
 def time_train_mix(params: dict, mixing) -> tuple[float, dict]:
     """Row 2t: ``gossip_mix_matmul`` at the train round's shape (the whole
-    stacked model, V rows, one grouped launch) against its plain version and
-    ``torch.matmul`` per leaf; the kernel's max abs error there. Returns
-    (error, timing keys)."""
-    flats = [leaf.reshape(leaf.shape[0], -1) for leaf in steps.flatten(params).values()]
+    stacked model, V rows, one grouped launch): out of place against its
+    plain version, then in place (on the stack, after the run's checks)
+    against out of place bit for bit; then timed in place (what the round
+    runs: ``ms``) and out of place, beside the plain version and
+    ``torch.matmul`` per leaf. Returns (error, timing keys)."""
+    flats = [leaf.view(leaf.shape[0], -1) for leaf in steps.flatten(params).values()]
     v, cols = flats[0].shape[0], sum(x.shape[1] for x in flats)
+    path = kernel.matmul_path(v, v)
     with torch.no_grad(), full_f32_matmul():
         outs = kernel.gossip_mix_matmul_grouped(mixing, flats)
         err = 0.0
         for i, x in enumerate(flats):
             err = max(err, _max_err(outs[i], ref.gossip_mix_matmul_ref(mixing, x)))
+        kernel.gossip_mix_matmul_grouped(mixing, flats, out=flats)
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, x) for o, x in zip(outs, flats))
+        check(same, f"gossip_mix_matmul in place at the train round's shape (path "
+              f"{PATHS[path]}) equals out of place bit for bit")
         del outs
-        timing = _timed(lambda: kernel.gossip_mix_matmul_grouped(mixing, flats),
+        timing = _timed(lambda: kernel.gossip_mix_matmul_grouped(mixing, flats, out=flats),
                         lambda: [ref.gossip_mix_matmul_ref(mixing, x) for x in flats],
                         lambda: [torch.matmul(mixing, x) for x in flats],
                         2 * v * cols * 4 + v * v * 4, 2 * v * v * cols,
                         f"the train round's mix: 1 grouped launch over {len(flats)} leaves, "
-                        f"V={v}, {cols} columns per vehicle ({TRAIN_ARCH}, f32); plain_ms / "
-                        f"library_ms: {len(flats)} plain products / torch.matmul calls",
+                        f"V={v}, {cols} columns per vehicle ({TRAIN_ARCH}, f32), mapping "
+                        f"{PATHS[path]}; ms: in place (the round's default), "
+                        f"out_of_place_ms: into new tensors; plain_ms / library_ms: "
+                        f"{len(flats)} plain products / torch.matmul calls",
                         inner=1, reps=5, warm=1)
-    timing["columns"] = cols
+        oop = [time_ms(lambda: kernel.gossip_mix_matmul_grouped(mixing, flats),
+                       inner=1, reps=5, warm=1) for _ in range(2)]
+    timing.update({"out_of_place_ms": min(oop), "out_of_place_ms_repeat": oop,
+                   "columns": cols, "path": PATHS[path],
+                   "share_of_bound": timing["bound_ms"] / timing["ms"]})
     return err, timing
 
 
@@ -1595,6 +1799,7 @@ def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, fl
         check(mix_err <= 1e-5, f"{cfg.name} round 1's mix through gossip_mix_matmul vs "
               f"aggregation.mix_params on the stacked leaves: max err {mix_err:.2e} (atol 1e-5)")
     probe = _probe(params)
+    ptrs = {name: leaf.data_ptr() for name, leaf in steps.flatten(params).items()}
 
     # -- the main path
     if on_card:
@@ -1618,12 +1823,26 @@ def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, fl
                            init_s=init_s, mix_check_max_abs_err=mix_err,
                            first_round_device_ms=first, device_ms_per_round=spans)
     _round_checks(cfg.name, history, sm, _moved(params, probe))
+    moved = [name for name, leaf in steps.flatten(params).items() if leaf.data_ptr() != ptrs[name]]
+    check(not moved, f"{cfg.name}: after {TRAIN_ROUNDS} rounds every one of the "
+          f"{len(ptrs)} parameter leaves is where it was (the mix writes into the stack; "
+          f"moved: {moved})")
     if on_card:
         check(launches["gossip_mix_matmul_launches"] == TRAIN_ROUNDS
               and launches["flash_attention_launches"] == 0,
               f"{cfg.name}: gossip_mix_matmul launched {launches['gossip_mix_matmul_launches']} "
               f"times in {TRAIN_ROUNDS} rounds (one per round), flash_attention "
               f"{launches['flash_attention_launches']} (training attends through plain SDPA)")
+        # what a mix of the stack adds to memory, moments alive as in the round
+        report.update(mix_memory(params, _round_mixing(sm, target, contact).contiguous()))
+        check(report["mix_in_place_extra_mb"] < 1.0,
+              f"{cfg.name}: the in-place mix of the stack allocates "
+              f"{report['mix_in_place_extra_mb']:.3f} MiB (the functional one "
+              f"{report['mix_functional_extra_mb']:.1f} MiB): no second stack")
+        log(f"  {cfg.name}: peak {report['peak_device_memory_mb']:.1f} MiB over the rounds; "
+            f"a mix of the stack peaks at {report['mix_in_place_peak_mb']:.1f} MiB in place, "
+            f"{report['mix_functional_peak_mb']:.1f} MiB functional; the mix span "
+            f"{spans.get('mix', float('nan')):.2f} ms per round")
 
     # -- row 2t: the kernel at this round's shape, on the trained stack (moments freed)
     err, timing = None, {}
@@ -1683,40 +1902,51 @@ def drive_train_cli_transformer(device: str, seed: int, rehearsal: bool) -> dict
     return report
 
 
-def _reduced_round_case(arch: str, seed: int):
-    """A reduced config's federation of 4 vehicles mid-training: apart from
+def _reduced_round_case(arch: str, seed: int, v: int = 4):
+    """A reduced config's federation of ``v`` vehicles mid-training: apart from
     one init, AdamW moments after three steps (so that the first step is not
     AdamW's sign-like one, which turns a gradient's rounding into a +-lr
     step), state vectors on the simplex; tokens and prefix. All on the CPU."""
     cfg = get_config(arch).reduced()
     gen = torch.Generator().manual_seed(seed)
-    params, opt, _ = steps.init_train_state(cfg, 4, gen)
+    params, opt, _ = steps.init_train_state(cfg, v, gen)
     _apart(params, gen)
     for mu, nu in zip(steps.flatten(opt.mu).values(), steps.flatten(opt.nu).values()):
         mu.normal_(0.0, 1e-3, generator=gen)          # second moments above the first's
         nu.uniform_(0.0, 1e-6, generator=gen).add_(2 * mu * mu)   # square, as in training
     opt.count.fill_(3)
-    sm = torch.rand((4, 4), generator=gen)
+    sm = torch.rand((v, v), generator=gen)
     sm = sm / sm.sum(dim=1, keepdim=True)
-    tokens = torch.randint(0, cfg.true_vocab_size, (4, 2, 16), generator=gen)
-    prefix = (0.02 * torch.randn((4, 2, cfg.frontend_tokens, cfg.d_model), generator=gen)
+    tokens = torch.randint(0, cfg.true_vocab_size, (v, 2, 16), generator=gen)
+    prefix = (0.02 * torch.randn((v, 2, cfg.frontend_tokens, cfg.d_model), generator=gen)
               if cfg.embed_input else None)
     return cfg, (params, opt, sm), tokens, prefix
 
 
 def _reduced_round(cfg, state, tokens, prefix, device, **kw):
+    """One round from ``state`` on ``device``; fails if a parameter leaf left
+    its address (every mix writes into the stack)."""
     ts = steps.build_dds_train_step(cfg, lr=TRAIN_LR, p1_steps=TRAIN_P1, **kw)
+    start = convert.train_state_from_numpy(*state, device=device)
+    ptrs = {name: leaf.data_ptr() for name, leaf in steps.flatten(start[0]).items()}
+    v = tokens.shape[0]
     with full_f32_matmul():
-        return ts.fn(*convert.train_state_from_numpy(*state, device=device), tokens.to(device),
-                     train_cli.ring_contact(4, device), torch.full((4,), 0.25, device=device),
-                     None if prefix is None else prefix.to(device))
+        out = ts.fn(*start, tokens.to(device), train_cli.ring_contact(v, device),
+                    torch.full((v,), 1.0 / v, device=device),
+                    None if prefix is None else prefix.to(device))
+    if {name: leaf.data_ptr() for name, leaf in steps.flatten(out[0]).items()} != ptrs:
+        raise SystemExit(f"FAILED: {cfg.name} on {device}: a parameter leaf moved in the round")
+    return out
 
 
 def check_reduced_rounds(device: str, seed: int) -> dict:
     """One round of every architecture's reduced config on the card against
     the same round on the CPU (same state, tokens, prefix; atol 1e-4 on loss,
-    kl, state matrix, parameters), then the ``gossip_bf16`` variant's round
-    of the reduced qwen3 against its f32 round (2e-2 of each leaf's scale)."""
+    kl, state matrix, parameters); on the card also the reduced qwen3 at the
+    first V past the column mapping's limit (the round's mix functional through
+    the tiles, one launch, copied back; every leaf in place); then the
+    ``gossip_bf16`` variant's round of the reduced qwen3 against its f32 round
+    (2e-2 of each leaf's scale)."""
     worst = {}
     for arch in sorted(ARCHITECTURES):
         cfg, state, tokens, prefix = _reduced_round_case(arch, seed)
@@ -1729,6 +1959,24 @@ def check_reduced_rounds(device: str, seed: int) -> dict:
         worst[arch] = err
         check(err <= 1e-4, f"{cfg.name}: one round on {device} vs cpu (4 vehicles): loss, kl, "
               f"state matrix, parameters max diff {err:.2e} (atol 1e-4)")
+    # past the column mapping's limit the default mix is functional (the tiles),
+    # copied back (the CPU asks no library: there every mix is in place)
+    if device != "cpu":
+        v = next(k for k in range(1, 129) if kernel.matmul_path(k, k) == kernel.MATMUL_TILES)
+        cfg, state, tokens, prefix = _reduced_round_case(TRAIN_ARCH, seed, v)
+        want = _reduced_round(cfg, state, tokens, prefix, "cpu")
+        kernel.reset_launch_counts()
+        got = _reduced_round(cfg, state, tokens, prefix, device)
+        err = max([abs(float(got[3][k]) - float(want[3][k])) for k in ("loss", "kl")]
+                  + [_max_err(got[2].cpu(), want[2])]
+                  + [_max_err(x.cpu(), steps.flatten(want[0])[k])
+                     for k, x in steps.flatten(got[0]).items()])
+        worst[f"{TRAIN_ARCH}/V={v}"] = err
+        check(err <= 1e-4 and kernel.launch_counts["gossip_mix_matmul"] == 1,
+              f"{cfg.name}: one round of {v} vehicles (past the column mapping) on {device} vs "
+              f"cpu: max diff {err:.2e} (atol 1e-4), gossip_mix_matmul launched "
+              f"{kernel.launch_counts['gossip_mix_matmul']} time(s) (the tiles, copied back; "
+              "every leaf in place)")
     cfg, state, tokens, prefix = _reduced_round_case(TRAIN_ARCH, seed)
     f32 = _reduced_round(cfg, state, tokens, prefix, device)
     _, overrides = variants.apply_variant("gossip_bf16", cfg, "train")
@@ -2745,6 +2993,8 @@ def main() -> int:
             shard_worst = check_shard_kernels(device, mixing_sparse, mixing_dense)
             log("[kernels] times at the main path's shapes (ms, CUDA events, median)")
             timings = time_kernels(device, mixing_sparse, mixing_dense)
+            log("[kernels] gossip_mix_matmul's mappings per K: the crossover")
+            time_matmul_crossover(device)
             for name, row in time_seed_kernels(device, seeds_sparse, seeds_dense).items():
                 timings[name]["seed_axis"] = row
             shard_timings = time_shard_kernels(device, mixing_sparse, mixing_dense)

@@ -4,10 +4,13 @@
   w[k, d] * flats[l][idx[k, d], p]`` for a list of leaves in one launch
   (``csrc/gossip_mix_gather.cu``), the mix under the sparse contact format;
   ``gossip_mix_gather(idx, w, flat)`` is the group of one leaf;
-* ``gossip_mix_matmul_grouped(mixing, flats)`` — ``out_l = mixing @ flat_l``
-  for a list of leaves in one launch, the product computed in the kernel at
-  full f32 precision (``csrc/gossip_mix_matmul.cu``), the mix under the dense
-  format; ``gossip_mix_matmul(mixing, flat)`` is the group of one leaf.
+* ``gossip_mix_matmul_grouped(mixing, flats, out=None)`` — ``out_l = mixing
+  @ flat_l`` for a list of leaves in one launch, the product computed in the
+  kernel at full f32 precision (``csrc/gossip_mix_matmul.cu``), the mix under
+  the dense format; ``gossip_mix_matmul(mixing, flat)`` is the group of one
+  leaf. The launcher picks one of two mappings from K_out (``matmul_path``):
+  tiles for the federation's K = 100, column streaming for few rows (the
+  train round's vehicles), the only one that mixes in place (``out=flats``).
 
 Both take a leading seed axis (``run_seeds``) in the same one launch:
 ``gossip_mix_matmul_grouped`` takes ``mixing`` ``[S, K_out, K_in]`` over
@@ -23,9 +26,10 @@ needs neither a GPU nor a compiler.
 
 Each wrapper takes CUDA tensors only and raises on anything the kernel does
 not take (``ops.mix_params_cuda`` routes CPU tensors to the plain versions in
-``ref``). It allocates the output with ``torch.empty``, launches on PyTorch's
-current stream, does not synchronise, raises if the launch was refused, and
-adds one to ``launch_counts[name]`` per launch. The kernel may still be
+``ref``). It allocates the output with ``torch.empty`` (unless given
+``out``), launches on PyTorch's current stream, does not synchronise, raises
+if the launch was refused, and adds one to ``launch_counts[name]`` per
+launch. The kernel may still be
 running when the wrapper returns; its operands stay valid because PyTorch's
 caching allocator reuses freed memory in stream order, and the launch is on
 the current stream.
@@ -51,6 +55,9 @@ SOURCES = {
 launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_INVALID_VALUE = 1   # cudaErrorInvalidValue: a launcher refused its arguments
+# the grouped matmul's mappings (gossip_mix_matmul_path in the source)
+MATMUL_TILES, MATMUL_COLUMNS = 0, 1
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -79,6 +86,8 @@ def build() -> None:
     matmul.gossip_mix_matmul_grouped_launch.restype = i32
     matmul.gossip_mix_matmul_smem_bytes.argtypes = [i32, i32, i32]
     matmul.gossip_mix_matmul_smem_bytes.restype = ctypes.c_longlong
+    matmul.gossip_mix_matmul_path.argtypes = [i32, i32]
+    matmul.gossip_mix_matmul_path.restype = i32
     matmul.gossip_mix_matmul_error_string.argtypes = [i32]
     matmul.gossip_mix_matmul_error_string.restype = ctypes.c_char_p
     _LIBS.update(zip(names, (gather, matmul)))
@@ -112,7 +121,12 @@ def _check_operand(t: Tensor, dtype, shape_hint: str, flat: Tensor,
                          f"got shape {tuple(t.shape)} stride {t.stride()}")
 
 
-def _raise_on(code: int, name: str) -> None:
+def _raise_on(code: int, name: str, refusal: str | None = None) -> None:
+    """Raise on a launcher's non-zero return: ``ValueError(refusal)`` where
+    the caller names what the launcher refuses with cudaErrorInvalidValue,
+    else ``RuntimeError`` with CUDA's text."""
+    if code == _INVALID_VALUE and refusal is not None:
+        raise ValueError(f"{name}: launch refused: {refusal}")
     if code != 0:
         text = getattr(_LIBS[name], f"{name}_error_string")(code)
         raise RuntimeError(f"{name}: launch failed with CUDA error {code} "
@@ -126,6 +140,14 @@ def matmul_smem_bytes(k_out: int, k_in: int, dtype: torch.dtype) -> int:
     build()
     return _LIBS["gossip_mix_matmul"].gossip_mix_matmul_smem_bytes(
         k_out, k_in, _DTYPE_CODE[dtype])
+
+
+def matmul_path(k_out: int, k_in: int) -> int:
+    """The mapping the grouped matmul kernel's launcher picks for a ``[K_out,
+    K_in]`` W: ``MATMUL_TILES`` or ``MATMUL_COLUMNS`` (the one that mixes in
+    place when K_out == K_in); builds the kernels on first use."""
+    build()
+    return _LIBS["gossip_mix_matmul"].gossip_mix_matmul_path(k_out, k_in)
 
 
 def matmul_max_leaves() -> int:
@@ -150,10 +172,10 @@ def gather_max_leaves() -> int:
 
 
 def _launch_groups(name: str, flats: list[Tensor], outs: list[Tensor], before: tuple,
-                   after: tuple, max_leaves: int) -> None:
+                   after: tuple, max_leaves: int, refusal: str | None = None) -> None:
     """``{name}_grouped_launch(*before, x_ptrs, out_ptrs, widths, n, *after,
     stream)`` once per group of ``leaf_groups``, each launch counted; raises
-    on a refused launch."""
+    on a refused launch (``_raise_on``)."""
     launch = getattr(_LIBS[name], f"{name}_grouped_launch")
     with torch.cuda.device(flats[0].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -164,7 +186,7 @@ def _launch_groups(name: str, flats: list[Tensor], outs: list[Tensor], before: t
                           (ctypes.c_void_p * n)(*(outs[i].data_ptr() for i in ids)),
                           (ctypes.c_longlong * n)(*(flats[i].shape[-1] for i in ids)),
                           n, *after, stream)
-            _raise_on(code, name)
+            _raise_on(code, name, refusal)
             launch_counts[name] += 1
 
 
@@ -241,7 +263,8 @@ def gossip_mix_gather(idx: Tensor, w: Tensor, flat: Tensor) -> Tensor:
     return gossip_mix_gather_grouped(idx, w, [flat])[0]
 
 
-def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor]) -> list[Tensor]:
+def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor],
+                              out: list[Tensor] | None = None) -> list[Tensor]:
     """Dense gossip mix of a group of leaves:
     ``out_l[k, p] = sum_j mixing[k, j] * flats[l][j, p]`` for every l.
 
@@ -253,11 +276,18 @@ def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor]) -> list[Tenso
 
     With a seed axis — ``mixing`` ``[S, K_out, K_in]``, leaves ``[S, K_in,
     P_l]`` — ``out_l[s] = mixing[s] @ flats[l][s]`` for every seed in the same
-    launches (the seed is a grid axis), returning ``[S, K_out, P_l]``.
+    launches, returning ``[S, K_out, P_l]``.
+
+    ``out``: the output tensors to write (contiguous, the shapes above, the
+    leaves' dtype and device) instead of new ones; ``out=flats`` mixes in
+    place, which the column mapping takes when K_out == K_in
+    (``matmul_path``). The launcher refuses any other overlap of an output
+    with an input or another output among the leaves of one launch, and the
+    wrapper raises ``ValueError`` on its refusal.
     """
     name = "gossip_mix_matmul"
     if not flats:
-        return []
+        return [] if out is None else out
     dims = mixing.dim()
     if dims not in (2, 3):
         raise ValueError(f"{name}: mixing must be [K_out, K_in] or "
@@ -270,14 +300,28 @@ def gossip_mix_matmul_grouped(mixing: Tensor, flats: list[Tensor]) -> list[Tenso
                          f"match flat {tuple(flats[0].shape)}")
     if k_in == 0 and k_out > 0:
         raise ValueError(f"{name}: K_in = 0")
-    outs = [torch.empty(lead + (k_out, f.shape[-1]), dtype=f.dtype, device=f.device)
-            for f in flats]
+    shapes = [lead + (k_out, f.shape[-1]) for f in flats]
+    if out is None:
+        outs = [torch.empty(shape, dtype=f.dtype, device=f.device)
+                for shape, f in zip(shapes, flats)]
+    else:
+        outs = list(out)
+        if len(outs) != len(flats):
+            raise ValueError(f"{name}: {len(outs)} outputs for {len(flats)} leaves")
+        for o, f, shape in zip(outs, flats, shapes):
+            _check_operand(o, f.dtype, "out", f, name, dims)
+            if tuple(o.shape) != shape:
+                raise ValueError(f"{name}: out {tuple(o.shape)}, expected {shape}")
     seeds = lead[0] if lead else 1
     if k_out == 0 or seeds == 0:
         return outs
     _launch_groups(name, flats, outs, (mixing.data_ptr(),),
                    (seeds, k_out, k_in, _DTYPE_CODE[flats[0].dtype]),
-                   matmul_max_leaves())
+                   matmul_max_leaves(),
+                   None if out is None else (
+                       "an output overlaps an input or another output (only out[i] = "
+                       "flats[i] itself, with K_out == K_in under the column mapping "
+                       "(matmul_path), mixes in place), or a shape the kernel does not take"))
     return outs
 
 

@@ -8,6 +8,10 @@ list the grouped gather kernel; either way one launch for all the leaves of
 one dtype (one launch per mix for a model of one dtype), and for every seed
 of a seed-stacked run (``run_seeds``).
 
+``mix_params_cuda_`` is its in-place twin for a square dense W: it writes
+the mix into the leaves themselves (the transformer train round's default,
+which then holds no second copy of the stack).
+
 A leaf that lies on the CPU goes to the plain versions in ``ref`` — for that
 reason only. A CUDA leaf launches the kernel or raises; nothing falls back.
 """
@@ -54,3 +58,43 @@ def mix_params_cuda(mixing, params: dict) -> dict:
         mixed.update(zip(group, grouped([flats[n] for n in group])))
     return {name: mixed[name].reshape(out_rows + tuple(x.shape[lead:]))
             for name, x in params.items()}
+
+
+def mix_params_cuda_(mixing: Tensor, params: dict) -> dict:
+    """``mix_params_cuda`` written into the leaves: every leaf of ``params``
+    becomes ``mixing @ leaf`` (over its leading vehicle axis, after any seed
+    axis), and ``params`` — the same dictionary, the same tensors — is
+    returned.
+
+    ``mixing`` a dense square ``[K, K]`` (or ``[S, K, K]``) W. CUDA leaves,
+    each contiguous, go through ``gossip_mix_matmul`` with ``out=`` the leaves
+    (one launch per dtype for the whole dictionary); the wrapper raises where
+    the kernel's launcher would not mix in place (``kernel.matmul_path``). A
+    CPU leaf is overwritten with the plain product (``ref``). A
+    ``SparseMixing`` or a rectangular W raises: nothing is allocated in place
+    of the mix.
+    """
+    name = "mix_params_cuda_"
+    if isinstance(mixing, SparseMixing):
+        raise TypeError(f"{name}: the in-place mix takes a dense W; a SparseMixing "
+                        "goes through mix_params_cuda")
+    dense = mixing.to(torch.float32).contiguous()
+    if dense.dim() not in (2, 3) or dense.shape[-1] != dense.shape[-2]:
+        raise ValueError(f"{name}: the in-place mix takes a square [K, K] or "
+                         f"[S, K, K] W, got {tuple(dense.shape)}")
+    lead = dense.dim() - 1                                 # 2 with a seed axis
+    on_card = {}
+    for key, leaf in params.items():
+        flat_shape = tuple(leaf.shape[:lead]) + (-1,)
+        if not leaf.is_cuda:
+            leaf.copy_(ref.gossip_mix_matmul_ref(dense, leaf.reshape(flat_shape))
+                       .reshape(leaf.shape))
+        elif not leaf.is_contiguous():
+            raise ValueError(f"{name}: leaf {key!r} is not contiguous (stride "
+                             f"{leaf.stride()}): its flat view would be a copy")
+        else:
+            on_card[key] = leaf.view(flat_shape)
+    for dtype in dict.fromkeys(flat.dtype for flat in on_card.values()):
+        group = [flat for flat in on_card.values() if flat.dtype == dtype]
+        kernel.gossip_mix_matmul_grouped(dense, group, out=group)
+    return params

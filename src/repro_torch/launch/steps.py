@@ -13,18 +13,29 @@ stacked on a leading ``[V]`` axis of every leaf (the layout of
   whole stack -> E local AdamW steps per vehicle on its tokens -> the state
   vectors' update (Eqs. 5-7).
 
-Memory decides its shape at full width. The mix's output is copied back into
-the parameter leaves and freed; each vehicle then trains on views of its row
-of every leaf (detached, ``requires_grad_``, ``torch.autograd.grad`` of
-``lm_loss``), and the AdamW update is applied one leaf at a time, written in
-place into that row of the parameters and of the moments, each gradient freed
-as soon as it is used. So the step updates ``params`` and ``opt_state`` in
-place, and returns them: the working set is the stack, its moments, one
-vehicle's gradients and one leaf's temporaries (a whole-tree functional
-update of one vehicle would hold three more copies of a model). The loop over
-vehicles is the port's counterpart of the reference's ``vmap``, as the loop
-over layers is of its ``lax.scan``. The reference splits an ``rng`` per
-vehicle and uses none of it (no dropout), so the port's step takes none.
+Memory decides its shape at full width. The default mix
+(``kernels.gossip_mix.ops.mix_params_cuda_``) writes the mixed stack into the
+parameter leaves themselves: no second copy of the stack and no copy back. It
+does so on the card where ``gossip_mix_matmul`` mixes V x V in place (its
+column mapping, ``kernel.matmul_path``: V <= 16) and always on the CPU. Past
+that limit the round takes the functional ``mix_params_cuda`` (the kernel's
+tile mapping), as it does a ``mix_params_fn`` passed by the caller: the output
+is copied back into the leaves and freed. Each vehicle then trains on views of
+its row of every leaf (detached, ``requires_grad_``, ``torch.autograd.grad``
+of ``lm_loss``), and the AdamW update is applied one leaf at a time, written
+in place into that row of the parameters and of the moments, each gradient
+freed as soon as it is used. So the step updates ``params`` and ``opt_state``
+in place, and returns them. In model copies for V vehicles (f32, one copy is
+7.57 GiB at qwen3-1.7b's width): 3V at the mix (parameters V, AdamW moments
+2V; 4V with a functional mix), 3V + 1 (one vehicle's gradients) plus the
+loss's activations and one leaf's temporaries during local training. At V=2
+that is 6 copies (45.4 GiB) at the mix and 7 (53.0 GiB) plus activations in
+training, where a functional mix peaks at 8 (60.6 GiB); a whole-tree
+functional AdamW update of one vehicle would hold three more copies of a
+model. The loop over vehicles is the port's counterpart of the reference's
+``vmap``, as the loop over layers is of its ``lax.scan``. The reference splits
+an ``rng`` per vehicle and uses none of it (no dropout), so the port's step
+takes none.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core import aggregation, kl_solver, state_vector
-from ..kernels.gossip_mix.ops import mix_params_cuda
+from ..kernels.gossip_mix import kernel as mix_kernel
+from ..kernels.gossip_mix.ops import mix_params_cuda, mix_params_cuda_
 from ..models import transformer
 from ..optim import AdamState, adamw, apply_updates
 from ..profiling import PhaseTimer, phase
@@ -83,6 +95,14 @@ class TrainStep:
     fn: Callable
 
 
+def _mixes_in_place(mixing: Tensor) -> bool:
+    """Whether the default mix writes a ``[V, V]`` mixing into the stack: on
+    the CPU always (the plain product), on the card where ``gossip_mix_matmul``'s
+    launcher mixes V x V in place (its column mapping)."""
+    v = mixing.shape[-1]
+    return not mixing.is_cuda or mix_kernel.matmul_path(v, v) == mix_kernel.MATMUL_COLUMNS
+
+
 def build_dds_train_step(cfg: ArchConfig, *,
                          local_steps: int = 1,
                          lr: float = 1e-4,
@@ -105,18 +125,20 @@ def build_dds_train_step(cfg: ArchConfig, *,
     the first two updated in place, ``metrics`` ``{"loss": mean over vehicles
     and local steps, "kl": mean kl_to_target}`` (0-d tensors).
 
-    ``mix_params_fn`` is the gossip mix of a flat ``{path: [V, ...]}``
-    dictionary; by default ``kernels.gossip_mix.ops.mix_params_cuda`` (the
-    port's ``mixing_backend="cuda"``: one grouped ``gossip_mix_matmul``
-    launch for a model of one dtype on the card, the plain product for CPU
-    leaves); ``aggregation.mix_params`` is the reference's default.
+    ``mix_params_fn`` is a functional gossip mix of a flat ``{path: [V, ...]}``
+    dictionary (``aggregation.mix_params``, the reference's default;
+    ``aggregation.mix_params_lowp``), its output copied back into the leaves.
+    Without one, the round mixes through the port's ``mixing_backend="cuda"``
+    (one grouped ``gossip_mix_matmul`` launch for a model of one dtype on the
+    card; the plain product for CPU leaves): in place through
+    ``kernels.gossip_mix.ops.mix_params_cuda_`` where ``_mixes_in_place``,
+    else through the functional ``mix_params_cuda`` and a copy back.
     ``compute_dtype`` runs the loss in that dtype on the f32 master weights
     (the cast is inside the loss, so the gradients reach the f32 leaves).
     ``timer`` brackets the round's phases (``p1_solve``, ``mix``,
     ``local_train``, ``state_update``), as the federation engine's rounds.
     """
     optimizer = adamw(lr)
-    mix_fn = mix_params_fn or mix_params_cuda
 
     def loss_fn(leaves: dict, toks: Tensor, pre: Tensor | None) -> Tensor:
         if compute_dtype is not None:
@@ -155,13 +177,16 @@ def build_dds_train_step(cfg: ArchConfig, *,
         with phase(timer, "p1_solve"):
             alpha = kl_solver.solve_p1_all(state_matrix, target, contact, num_steps=p1_steps)
             mixing = aggregation.mixing_from_alpha(alpha, contact)
-        # -- the gossip mix of every vehicle's model (Eq. 10), back into the stack
+        # -- the gossip mix of every vehicle's model (Eq. 10), into the stack
         flat = flatten(params)
         with phase(timer, "mix"), torch.no_grad():
-            mixed = mix_fn(mixing, flat)
-            for name, leaf in flat.items():
-                leaf.copy_(mixed[name])
-            del mixed
+            if mix_params_fn is None and _mixes_in_place(mixing):
+                mix_params_cuda_(mixing, flat)
+            else:
+                mixed = (mix_params_fn or mix_params_cuda)(mixing, flat)
+                for name, leaf in flat.items():
+                    leaf.copy_(mixed[name])
+                del mixed
         # -- E local iterations per vehicle (Eq. 3)
         mu, nu = flatten(opt_state.mu), flatten(opt_state.nu)
         losses = []

@@ -25,7 +25,7 @@ from repro_torch.precision import full_f32_matmul
 from repro_torch.kernels.gossip_mix import (gossip_mix_gather_ref,
                                             gossip_mix_matmul_grouped,
                                             gossip_mix_matmul_ref, kernel,
-                                            mix_params_cuda)
+                                            mix_params_cuda, mix_params_cuda_)
 
 pytestmark = pytest.mark.cuda
 
@@ -918,8 +918,9 @@ def _train_state(arch, v, seed=0):
 def test_reduced_train_round_on_the_card_matches_the_cpu(card, arch):
     """One ``build_dds_train_step`` round of a reduced config, 4 vehicles on a
     ring, on the card against the CPU: one grouped ``gossip_mix_matmul``
-    launch, no flash launch (training attends through plain SDPA); loss, kl,
-    state matrix, parameters and moments to 1e-4."""
+    launch, mixing the stack in place (every parameter leaf keeps its
+    address), no flash launch (training attends through plain SDPA); loss,
+    kl, state matrix, parameters and moments to 1e-4."""
     from repro_torch import convert
     from repro_torch.launch import steps, train
     cfg, state, tokens, prefix = _train_state(arch, 4)
@@ -935,9 +936,15 @@ def test_reduced_train_round_on_the_card_matches_the_cpu(card, arch):
     want = run("cpu")
     kernel.reset_launch_counts()
     fa.kernel.reset_launch_counts()
-    got = run(card)
+    start = convert.train_state_from_numpy(*state, device=card)
+    ptrs = {k: x.data_ptr() for k, x in steps.flatten(start[0]).items()}
+    with full_f32_matmul():
+        got = ts.fn(*start, tokens.to(card), train.ring_contact(4, card),
+                    torch.full((4,), 0.25, device=card),
+                    None if prefix is None else prefix.to(card))
     torch.cuda.synchronize()
     assert kernel.launch_counts["gossip_mix_matmul"] == 1
+    assert {k: x.data_ptr() for k, x in steps.flatten(got[0]).items()} == ptrs  # in place
     assert fa.kernel.launch_counts["flash_attention"] == 0
     for name in ("loss", "kl"):
         assert abs(float(got[3][name]) - float(want[3][name])) <= 1e-4
@@ -947,6 +954,40 @@ def test_reduced_train_round_on_the_card_matches_the_cpu(card, arch):
         g = steps.flatten(got[0] if tree == 0 else getattr(got[1], tree))
         w = steps.flatten(want[0] if tree == 0 else getattr(want[1], tree))
         assert max(_err(g[k].cpu(), w[k]) for k in w) <= 1e-4
+
+
+def test_a_train_round_past_the_column_mapping_copies_the_tile_mix_back(card):
+    """V = 17 vehicles, one past the column mapping's limit: the round's
+    default mix cannot write into the stack, so it takes the functional
+    ``mix_params_cuda`` (one tile-mapping launch) and copies it back — every
+    parameter leaf keeps its address; loss, kl, state matrix and parameters
+    within 1e-4 of the same round on the CPU (which mixes in place)."""
+    from repro_torch import convert
+    from repro_torch.launch import steps, train
+    v = 17
+    assert kernel.matmul_path(v, v) == kernel.MATMUL_TILES
+    cfg, state, tokens, _ = _train_state("qwen3-1.7b", v, seed=17)
+    ts = steps.build_dds_train_step(cfg, lr=1e-3, p1_steps=100)
+
+    def run(device):
+        start = convert.train_state_from_numpy(*state, device=device)
+        ptrs = {k: x.data_ptr() for k, x in steps.flatten(start[0]).items()}
+        with full_f32_matmul():
+            out = ts.fn(*start, tokens.to(device), train.ring_contact(v, device),
+                        torch.full((v,), 1.0 / v, device=device))
+        assert {k: x.data_ptr() for k, x in steps.flatten(out[0]).items()} == ptrs
+        return out
+
+    want = run("cpu")
+    kernel.reset_launch_counts()
+    got = run(card)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_matmul"] == 1
+    for name in ("loss", "kl"):
+        assert abs(float(got[3][name]) - float(want[3][name])) <= 1e-4
+    assert _err(got[2].cpu(), want[2]) <= 1e-4
+    w = steps.flatten(want[0])
+    assert max(_err(x.cpu(), w[k]) for k, x in steps.flatten(got[0]).items()) <= 1e-4
 
 
 @pytest.mark.parametrize("k", [2, 3, 4])
@@ -970,3 +1011,180 @@ def test_mix_params_cuda_on_a_transformer_tree_of_few_vehicles(card, k):
     for name, x in leaves.items():
         assert got[name].shape == x.shape
         assert _err(got[name], want[name]) <= 1e-5, name
+
+
+# ------------------------------- the column mapping (few rows), in place
+
+SMALL_WIDTHS = [1, 63, 65, 4097]
+
+
+def _small_case(k_out, k_in, widths, dtype, seed, card, seeds=None):
+    r = np.random.default_rng(seed)
+    lead = () if seeds is None else (seeds,)
+    w = torch.as_tensor(r.dirichlet(np.ones(k_in), size=lead + (k_out,))
+                        .astype(np.float32)).to(card)
+    flats = [torch.as_tensor(r.normal(size=lead + (k_in, p)).astype(np.float32))
+             .to(dtype).to(card) for p in widths]
+    return w, flats
+
+
+def _in_place_equals_out_of_place(w, flats):
+    """One launch out of place, one in place on copies: returns (the outputs,
+    the copies mixed in place); the copies keep their addresses."""
+    before = kernel.launch_counts["gossip_mix_matmul"]
+    outs = gossip_mix_matmul_grouped(w, flats)
+    copies = [x.clone() for x in flats]
+    ptrs = [x.data_ptr() for x in copies]
+    got = gossip_mix_matmul_grouped(w, copies, out=copies)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["gossip_mix_matmul"] == before + 2
+    assert all(g is c and c.data_ptr() == ptr for g, c, ptr in zip(got, copies, ptrs))
+    return outs, copies
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", list(range(1, 18)))
+def test_small_k_matmul_in_and_out_of_place(card, k, dtype):
+    """K = 1-17 vehicles, on both sides of the column mapping's limit (the
+    launcher's choice, ``kernel.matmul_path``), over widths of one column,
+    not a multiple of 4 and past one tile: one launch against the plain
+    version (f32 1e-5, bf16 5e-2); where the mapping mixes in place, in
+    place equals out of place bit for bit; where it does not, in place
+    raises."""
+    w, flats = _small_case(k, k, SMALL_WIDTHS, dtype, k, card)
+    path = kernel.matmul_path(k, k)
+    assert path in (kernel.MATMUL_COLUMNS, kernel.MATMUL_TILES)
+    if path == kernel.MATMUL_TILES:
+        outs = gossip_mix_matmul_grouped(w, flats)
+        with pytest.raises(ValueError):
+            gossip_mix_matmul_grouped(w, flats, out=flats)
+    else:
+        outs, copies = _in_place_equals_out_of_place(w, flats)
+        assert all(torch.equal(o, c) for o, c in zip(outs, copies))
+    for x, out in zip(flats, outs):
+        assert out.shape == x.shape and out.dtype == dtype
+        assert _err(out, gossip_mix_matmul_ref(w, x)) <= ATOL[dtype]
+
+
+def test_the_train_round_and_the_federation_take_their_mappings(card):
+    """Few vehicles (the train round's K = 2, a per-shard [8, 2] block, a
+    [4, 100] W) take the column mapping; the federation's K = 100 and its
+    per-shard blocks keep the tile mapping."""
+    for k_out, k_in in ((2, 2), (4, 4), (8, 2), (4, 100)):
+        assert kernel.matmul_path(k_out, k_in) == kernel.MATMUL_COLUMNS
+    for k_out, k_in in ((100, 100), (100, 50), (100, 25)):
+        assert kernel.matmul_path(k_out, k_in) == kernel.MATMUL_TILES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_k_matmul_with_a_seed_axis_in_place(card, dtype):
+    """S = 3 seeds at K = 4 in one launch: against the plain version per seed,
+    in place equal to out of place bit for bit."""
+    w, flats = _small_case(4, 4, SMALL_WIDTHS, dtype, 3, card, seeds=3)
+    outs, copies = _in_place_equals_out_of_place(w, flats)
+    for x, out, c in zip(flats, outs, copies):
+        assert out.shape == x.shape and torch.equal(out, c)
+        assert _err(out, gossip_mix_matmul_ref(w, x)) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("k_out,k_in", [(4, 100), (8, 2), (3, 300)])
+def test_small_k_matmul_on_rectangular_w(card, k_out, k_in):
+    """A rectangular W with few rows: any K_in (streamed in chunks past 256
+    rows), out of place only — an output on the input's rows is refused."""
+    w, flats = _small_case(k_out, k_in, SMALL_WIDTHS, torch.float32, k_out + k_in, card)
+    outs = gossip_mix_matmul_grouped(w, flats)
+    torch.cuda.synchronize()
+    for x, out in zip(flats, outs):
+        assert out.shape == (k_out, x.shape[1])
+        assert _err(out, gossip_mix_matmul_ref(w, x)) <= 1e-5
+    if k_out <= k_in:
+        with pytest.raises(ValueError):
+            gossip_mix_matmul_grouped(w, flats, out=[x[:k_out] for x in flats])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_k_matmul_on_an_unaligned_leaf(card, dtype):
+    """A leaf view 4 (f32) / 2 (bf16) bytes off a 16-byte boundary beside
+    aligned leaves: the element-wise path, in place and out of place."""
+    w, flats = _small_case(3, 3, [64, 100, 4096], dtype, 11, card)
+    shifted = torch.zeros(3 * 64 + 1, dtype=dtype, device=card)[1:].view(3, 64)
+    flats[0] = shifted.copy_(flats[0])
+    outs, copies = _in_place_equals_out_of_place(w, flats)
+    for x, out, c in zip(flats, outs, copies):
+        assert torch.equal(out, c) and _err(out, gossip_mix_matmul_ref(w, x)) <= ATOL[dtype]
+    copy = torch.zeros(3 * 64 + 1, dtype=dtype, device=card)[1:].view(3, 64).copy_(flats[0])
+    gossip_mix_matmul_grouped(w, [copy], out=[copy])
+    assert torch.equal(copy, outs[0])
+
+
+def test_the_tile_mapping_still_holds_k100(card):
+    """K = 100 (the federation) through the tile mapping, within 1e-5 of the
+    plain version in f32, and it does not mix in place."""
+    w, flats = _small_case(100, 100, GROUP_WIDTHS, torch.float32, 100, card)
+    outs = gossip_mix_matmul_grouped(w, flats)
+    torch.cuda.synchronize()
+    assert all(_err(o, gossip_mix_matmul_ref(w, x)) <= 1e-5 for o, x in zip(outs, flats))
+    with pytest.raises(ValueError):
+        gossip_mix_matmul_grouped(w, flats, out=flats)
+
+
+def test_aliased_outputs_are_refused_by_the_wrapper_and_the_launcher(card):
+    """In place where the mapping does not take it, a partial overlap, an
+    output on another leaf's input and two overlapping outputs: the wrapper
+    raises ValueError, and the C launcher, called with the same pointers,
+    returns cudaErrorInvalidValue without launching."""
+    import ctypes
+    w, flats = _small_case(4, 4, [256, 256], torch.float32, 5, card)
+    buf = torch.zeros(4 * 256 + 8, device=card)
+    x, shifted = buf[:1024].view(4, 256), buf[4:1028].view(4, 256)
+    w17, flats17 = _small_case(17, 17, [256], torch.float32, 6, card)
+    cases = ((w17, flats17, flats17),                                # tile mapping
+             (w, [x], [shifted]),                                   # partial overlap
+             (w, flats, [flats[1], torch.empty_like(flats[0])]),    # another leaf's input
+             (w, flats, [x, shifted]))                              # outputs overlap
+    kernel.build()
+    launch = kernel._LIBS["gossip_mix_matmul"].gossip_mix_matmul_grouped_launch
+    for mixing, ins, outs in cases:
+        with pytest.raises(ValueError):
+            gossip_mix_matmul_grouped(mixing, ins, out=outs)
+        n = len(ins)
+        code = launch(mixing.data_ptr(), (ctypes.c_void_p * n)(*(t.data_ptr() for t in ins)),
+                      (ctypes.c_void_p * n)(*(t.data_ptr() for t in outs)),
+                      (ctypes.c_longlong * n)(*(t.shape[1] for t in ins)), n, 1,
+                      mixing.shape[0], mixing.shape[1], 0,
+                      torch.cuda.current_stream().cuda_stream)
+        assert code == 1                                           # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_mix_params_cuda__on_a_transformer_tree_of_few_vehicles(card, k):
+    """The train round's default mix: a flattened stacked transformer (the
+    reduced qwen3 and granite-moe, one bf16 leaf beside) mixed in place, one
+    launch per dtype, every leaf at its address, bit for bit the functional
+    ``mix_params_cuda`` and within 1e-5 of ``aggregation.mix_params``; a
+    sparse mixing and a W the column mapping does not take raise."""
+    from repro_torch.launch import steps
+    leaves = {}
+    for arch in ("qwen3-1.7b", "granite-moe-1b-a400m"):
+        cfg, (params, _, _), _, _ = _train_state(arch, k, seed=k)
+        leaves.update({f"{arch}/{n}": x.to(card) for n, x in steps.flatten(params).items()})
+    leaves["half"] = next(iter(leaves.values())).to(torch.bfloat16)
+    w = torch.as_tensor(np.random.default_rng(k).dirichlet(np.ones(k), size=k)
+                        .astype(np.float32)).to(card)
+    want = mix_params_cuda(w, leaves)
+    with full_f32_matmul():
+        plain = aggregation.mix_params(w, leaves)
+    ptrs = {n: x.data_ptr() for n, x in leaves.items()}
+    kernel.reset_launch_counts()
+    got = mix_params_cuda_(w, leaves)
+    torch.cuda.synchronize()
+    assert got is leaves and kernel.launch_counts["gossip_mix_matmul"] == 2   # f32, bf16
+    for name, x in leaves.items():
+        assert x.data_ptr() == ptrs[name] and torch.equal(x, want[name]), name
+        assert _err(x, plain[name]) <= ATOL[x.dtype], name
+    idx = torch.zeros(k, 2, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        mix_params_cuda_(contacts.SparseMixing(idx, torch.ones(k, 2, device=card)), leaves)
+    wide = torch.eye(100, device=card)
+    with pytest.raises(ValueError):
+        mix_params_cuda_(wide, {"a": torch.zeros(100, 8, device=card)})

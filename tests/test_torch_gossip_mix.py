@@ -1,6 +1,7 @@
 """Port vs reference, the gossip_mix kernels' module: the port's plain
-versions and ``mix_params_cuda`` on CPU tensors against the Pallas kernels
-run in interpret mode, at the reference's sweep shapes.
+versions, ``mix_params_cuda`` and its in-place twin ``mix_params_cuda_`` on
+CPU tensors against the Pallas kernels run in interpret mode, at the
+reference's sweep shapes.
 
 Tolerances are the reference's own (tests/test_kernels.py): f32 atol 1e-5
 (sums of <= 100 products in another order), bf16 atol 5e-2 (one bf16
@@ -18,7 +19,7 @@ from repro.kernels.gossip_mix import (gossip_mix_gather, gossip_mix_matmul,
 from repro_torch.core import aggregation, contacts
 from repro_torch.kernels.gossip_mix import (gossip_mix_gather_ref,
                                             gossip_mix_matmul_ref, kernel,
-                                            mix_params_cuda)
+                                            mix_params_cuda, mix_params_cuda_)
 
 T = torch.as_tensor
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -133,17 +134,94 @@ def test_cpu_calls_launch_no_kernel():
     assert kernel.launch_counts == {"gossip_mix_gather": 0, "gossip_mix_matmul": 0}
 
 
-@pytest.mark.parametrize("call", ["gather", "matmul"])
+@pytest.mark.parametrize("call", ["gather", "matmul", "matmul_out"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """The wrappers launch or raise: a CPU tensor is not silently routed to
-    the plain version there (only ``ops`` dispatches on the device)."""
+    the plain version there (only ``ops`` dispatches on the device), and
+    neither is an in-place mix (``out=``)."""
     x = torch.ones(4, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         if call == "gather":
             kernel.gossip_mix_gather(torch.zeros(4, 2, dtype=torch.int32),
                                      torch.ones(4, 2), x)
-        else:
+        elif call == "matmul":
             kernel.gossip_mix_matmul(torch.eye(4), x)
+        else:
+            kernel.gossip_mix_matmul_grouped(torch.eye(4), [x], out=[x])
+
+
+# ------------------------------------------------- the in-place mix ---
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 16])
+def test_mix_params_cuda__on_cpu_matches_mix_params_pallas(k, dtype):
+    """``mix_params_cuda_`` on CPU leaves (the train round's default mix, few
+    vehicles) against the reference's Pallas mix in interpret mode and the
+    port's ``aggregation.mix_params`` on the same inputs; it writes into the
+    leaves (same tensors, same storage) and returns the same dictionary."""
+    r = np.random.default_rng(k)
+    tree = {"a": r.normal(size=(k, 3, 5)).astype(np.float32),
+            "b": r.normal(size=(k, 11)).astype(np.float32),
+            "c": r.normal(size=(k, 2, 2, 7)).astype(np.float32)}
+    w = r.dirichlet(np.ones(k), size=k).astype(np.float32)
+    want = mix_params_pallas(jnp.asarray(w), {n: jnp.asarray(v, dtype) for n, v in tree.items()},
+                             interpret=True)
+    tree_t = {n: T(v).to(TORCH_DTYPE[dtype]) for n, v in tree.items()}
+    plain = aggregation.mix_params(T(w), tree_t)
+    leaves = dict(tree_t)
+    ptrs = {n: x.data_ptr() for n, x in tree_t.items()}
+    kernel.reset_launch_counts()
+    got = mix_params_cuda_(T(w), tree_t)
+    assert got is tree_t and all(got[n] is leaves[n] for n in tree)
+    assert {n: x.data_ptr() for n, x in got.items()} == ptrs
+    assert kernel.launch_counts == {"gossip_mix_gather": 0, "gossip_mix_matmul": 0}
+    for n in tree:
+        assert got[n].shape == tree[n].shape and got[n].dtype == TORCH_DTYPE[dtype]
+        np.testing.assert_allclose(_f32(got[n]), _f32(want[n]), atol=_tol(dtype))
+        np.testing.assert_allclose(_f32(got[n]), _f32(plain[n]), atol=_tol(dtype))
+
+
+def test_mix_params_cuda__with_a_seed_axis_on_cpu():
+    """``[S, K, K]`` over ``[S, K, ...]`` leaves, in place: each seed's W on
+    its own slab, as ``aggregation.mix_params`` mixes them."""
+    r = np.random.default_rng(4)
+    s, k = 3, 4
+    w = T(r.dirichlet(np.ones(k), size=(s, k)).astype(np.float32))
+    tree = {"a": T(r.normal(size=(s, k, 3, 5)).astype(np.float32)),
+            "b": T(r.normal(size=(s, k, 7)).astype(np.float32))}
+    want = aggregation.mix_params(w, tree)
+    got = mix_params_cuda_(w, tree)
+    for n in tree:
+        np.testing.assert_allclose(got[n].numpy(), want[n].numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("mixing", ["sparse", "rectangular", "rectangular_seeds"])
+def test_mix_params_cuda__refuses_what_it_cannot_mix_in_place(mixing):
+    """A neighbour list or a rectangular W has no in-place mix: it raises,
+    and no leaf is touched."""
+    r = np.random.default_rng(1)
+    tree = {"a": T(r.normal(size=(4, 6)).astype(np.float32))}
+    before = tree["a"].clone()
+    if mixing == "sparse":
+        idx, w, _, _ = _sparse_case(4, 4, 3, 1, jnp.float32, 2)
+        with pytest.raises(TypeError):
+            mix_params_cuda_(contacts.SparseMixing(T(idx), T(w)), tree)
+    elif mixing == "rectangular":
+        with pytest.raises(ValueError, match="square"):
+            mix_params_cuda_(T(r.dirichlet(np.ones(4), size=3).astype(np.float32)), tree)
+    else:
+        with pytest.raises(ValueError, match="square"):
+            mix_params_cuda_(T(r.dirichlet(np.ones(4), size=(2, 3)).astype(np.float32)), tree)
+    assert torch.equal(tree["a"], before)
+
+
+def test_a_refused_launch_with_out_raises_value_error():
+    """The aliasing rules live in the C launcher; the wrapper turns its
+    refusal (cudaErrorInvalidValue) into a ``ValueError`` naming them when it
+    was given ``out=``, and passes a successful launch."""
+    kernel._raise_on(0, "gossip_mix_matmul", "aliased")
+    with pytest.raises(ValueError, match="launch refused: aliased"):
+        kernel._raise_on(kernel._INVALID_VALUE, "gossip_mix_matmul", "aliased")
 
 
 # the MNIST CNN's eight leaves, flattened: conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b

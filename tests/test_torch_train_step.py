@@ -317,18 +317,88 @@ def test_one_round_matches_reference(round_case):
 
 
 def test_round_with_the_reference_mix_and_bf16_compute(round_case):
-    """``mix_params_fn=aggregation.mix_params`` (the reference's default)
-    gives the round of the default CPU mix; the bf16 compute variant keeps
-    the loss within 5e-2 and leaves the master weights f32."""
+    """``mix_params_fn=aggregation.mix_params`` (the reference's default,
+    functional and copied back) gives the round of the default in-place CPU
+    mix exactly (the same product on the same leaves); the bf16 compute
+    variant keeps the loss within 5e-2 and leaves the master weights f32."""
     cfg, inputs, (w_params, _, _, w_metrics), a = round_case
     b = _port_round(cfg, inputs, mix_params_fn=aggregation.mix_params)
-    assert float(a[3]["loss"]) == pytest.approx(float(b[3]["loss"]), abs=1e-5)
-    for k, leaf in _flat(a[0]).items():
-        np.testing.assert_allclose(_flat(b[0])[k].numpy(), leaf.numpy(), rtol=0, atol=1e-6)
+    assert float(a[3]["loss"]) == float(b[3]["loss"])
+    assert float(a[3]["kl"]) == float(b[3]["kl"])
+    assert torch.equal(a[2], b[2])
+    for what in ("params", "mu", "nu"):
+        got = _flat(a[0] if what == "params" else getattr(a[1], what))
+        want = _flat(b[0] if what == "params" else getattr(b[1], what))
+        for k, leaf in got.items():
+            assert torch.equal(want[k], leaf), (what, k)
     _, overrides = variants.apply_variant("bf16", cfg, "train")
     params, _, _, metrics = _port_round(cfg, inputs, **overrides)
     assert all(x.dtype == torch.float32 for x in _flat(params).values())
     assert abs(float(metrics["loss"]) - float(w_metrics["loss"])) <= 5e-2
+
+
+def test_round_with_the_default_mix_keeps_every_leaf_in_place(round_case, monkeypatch):
+    """Without a ``mix_params_fn`` the round mixes through
+    ``ops.mix_params_cuda_``, once, on the flattened leaves of ``params``
+    themselves; after the round every parameter and moment leaf is the tensor
+    it was, at the same ``data_ptr()``, and the returned trees hold them."""
+    cfg, inputs, _, _ = round_case
+    calls = []
+    real = steps.mix_params_cuda_
+
+    def spy(mixing, flat):
+        calls.append(dict(flat))
+        return real(mixing, flat)
+
+    monkeypatch.setattr(steps, "mix_params_cuda_", spy)
+    params, opt, sm = convert.train_state_from_numpy(inputs["params"], inputs["opt"],
+                                                     inputs["sm"])
+    before = {what: {k: (x, x.data_ptr()) for k, x in _flat(tree).items()}
+              for what, tree in (("params", params), ("mu", opt.mu), ("nu", opt.nu))}
+    ts = steps.build_dds_train_step(cfg, lr=LR, remat=False, p1_steps=P1_STEPS)
+    out, out_opt, _, _ = ts.fn(params, opt, sm, _t(inputs["tok"]), _t(inputs["contact"]),
+                               _t(inputs["target"]), _t(inputs["prefix"]))
+    assert len(calls) == 1
+    assert all(calls[0][k] is x for k, (x, _) in before["params"].items())
+    for what, tree in (("params", out), ("mu", out_opt.mu), ("nu", out_opt.nu)):
+        after = _flat(tree)
+        assert sorted(after) == sorted(before[what])
+        for k, (x, ptr) in before[what].items():
+            assert after[k] is x and after[k].data_ptr() == ptr, (what, k)
+
+
+def test_round_past_the_in_place_limit_copies_the_functional_mix_back(round_case,
+                                                                      monkeypatch):
+    """Where the kernel does not mix V x V in place (on the card, V past the
+    column mapping's limit; forced here), the default round takes the
+    functional ``mix_params_cuda`` once and copies it back: the same round,
+    exactly, with every parameter leaf at its ``data_ptr()``. On the CPU the
+    round asks no kernel library whether it mixes in place."""
+    cfg, inputs, _, a = round_case
+    assert steps._mixes_in_place(_t(inputs["sm"]))
+    calls = {"functional": 0, "in_place": 0}
+    functional, in_place = steps.mix_params_cuda, steps.mix_params_cuda_
+
+    def count(what, fn):
+        def wrapped(mixing, flat):
+            calls[what] += 1
+            return fn(mixing, flat)
+        return wrapped
+
+    monkeypatch.setattr(steps, "_mixes_in_place", lambda mixing: False)
+    monkeypatch.setattr(steps, "mix_params_cuda", count("functional", functional))
+    monkeypatch.setattr(steps, "mix_params_cuda_", count("in_place", in_place))
+    params, opt, sm = convert.train_state_from_numpy(inputs["params"], inputs["opt"],
+                                                     inputs["sm"])
+    ptrs = {k: x.data_ptr() for k, x in _flat(params).items()}
+    ts = steps.build_dds_train_step(cfg, lr=LR, remat=False, p1_steps=P1_STEPS)
+    b = ts.fn(params, opt, sm, _t(inputs["tok"]), _t(inputs["contact"]),
+              _t(inputs["target"]), _t(inputs["prefix"]))
+    assert calls == {"functional": 1, "in_place": 0}
+    assert {k: x.data_ptr() for k, x in _flat(b[0]).items()} == ptrs
+    assert float(a[3]["loss"]) == float(b[3]["loss"]) and torch.equal(a[2], b[2])
+    for k, leaf in _flat(a[0]).items():
+        assert torch.equal(_flat(b[0])[k], leaf), k
 
 
 def test_init_train_state_and_the_steps_of_serving():
