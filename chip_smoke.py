@@ -157,11 +157,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                mix through the tiles, copied back) the same way, and the
                ``gossip_bf16`` variant's round of the reduced
                qwen3 against its f32 round (2e-2 of each leaf's scale).
+8d. mesh-train — the train phase's qwen3-1.7b round on a federation mesh: a
+               one-rank NCCL group on the card, ``make_federation_mesh(vehicle=1,
+               fsdp=1, model=1, explicit=True)``, ``build_dds_train_step(cfg,
+               mesh=mesh)`` from the train phase's seeded first-round state placed
+               by ``convert.place_train_state`` (both vehicles local rows, every
+               leaf a DTensor; the mix ``steps.mix_rows``, in place through
+               ``mix_params_cuda_`` as without the mesh): two rounds, the first's
+               loss, kl and the parameters' first 4,096 entries per leaf within
+               1e-5 of the mesh-less round 1, the second timed apart from it
+               (DTensor's first-call dispatch against its steady state),
+               ``gossip_mix_matmul`` launched, no flash launch; s/round, peak MiB
+               and the four phase spans of each round printed. Then the mesh mix
+               on the second round's own inputs against ``aggregation.mix_params``
+               (1e-5) and timed (row ``gossip_mix_matmul/mesh``). Then one round
+               of every reduced architecture on the same mesh against its
+               mesh-less round on the card (1e-5). The group is torn down and the
+               meshes forgotten.
+8e. dryrun   — ``python -m repro_torch.launch.dryrun`` in subprocesses started
+               after the build (they run on the host, beside the card's phases,
+               with no card visible): qwen3-1.7b at ``train_4k``, ``prefill_32k``
+               and ``decode_32k`` on the production meshes (a ``fake`` group of
+               256 ranks, meta tensors) and mixtral-8x7b at ``train_4k`` (vehicle 2
+               x fsdp 8); then ``python -m repro_torch.roofline.analysis`` on the
+               records. Each pair: exit 0, no ``error``; a train pair's
+               ``flops_per_device`` x 256 at least its ``model_flops`` and a
+               ``reduce-scatter`` (the gossip mix); a serving pair at least one
+               collective. Each record is printed with its H100 roofline row
+               (dominant term, useful ratio) and ``run_s``.
 9. prints one ``{"kernels": [...]}`` line (the two mixes also as
    ``<name>/shard`` rows: one rank's partial mix at N = 2, N = 4 under ``n4``,
    launches of the sharded phase; ``gossip_mix_matmul/train``: the train
-   phase's), the card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   phase's; ``gossip_mix_matmul/mesh``: the mesh rounds' launches, the mesh
+   round's mix checked and timed on its own inputs), the card's name and
+   power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after. Times are CUDA-event times on the card the script ran on;
@@ -174,6 +203,7 @@ from ``repro_torch.roofline.hw``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import json
 import os
@@ -213,7 +243,7 @@ from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, multimodal, transformer  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
-from repro_torch.roofline import hw, scenario_cost  # noqa: E402
+from repro_torch.roofline import analysis as roofline, hw, scenario_cost  # noqa: E402
 
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 EPOCHS = 4                    # depth of the main-path runs: two evals at eval_every=2
@@ -1771,11 +1801,13 @@ def time_train_mix(params: dict, mixing) -> tuple[float, dict]:
     return err, timing
 
 
-def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, float, dict]:
+def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, float, dict,
+                                                                       dict]:
     """qwen3-1.7b at full width through ``steps.build_dds_train_step``: V
     vehicles apart from one init, TRAIN_ROUNDS rounds (the main path of this
     phase, counters zeroed just before and read just after). Returns the
-    report, the kernel's error at the round's shape and row 2t's timing."""
+    report, the kernel's error at the round's shape, row 2t's timing and
+    round 1 (loss, kl, ``_probe`` of the parameters after it)."""
     on_card = device != "cpu"
     whole = get_config(TRAIN_ARCH)
     cfg, v, b, s = whole, TRAIN_V, TRAIN_B, TRAIN_S
@@ -1815,6 +1847,8 @@ def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, fl
                         "seconds": time.perf_counter() - t0})
         if r == 0:
             first = timer.totals_ms()
+            round1 = {"loss": history[0]["loss"], "kl": history[0]["kl"],
+                      "probe": _probe(params)}
     launches = _train_launches()
     # the phases of the rounds after the first, per round
     spans = {name: (ms - first.get(name, 0.0)) / max(TRAIN_ROUNDS - 1, 1)
@@ -1858,7 +1892,7 @@ def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, fl
     if on_card:
         torch.cuda.empty_cache()
     log(f"[train] {json.dumps(report)}")
-    return report, err, timing
+    return report, err, timing, round1
 
 
 def drive_train_cli_transformer(device: str, seed: int, rehearsal: bool) -> dict:
@@ -1990,14 +2024,15 @@ def check_reduced_rounds(device: str, seed: int) -> dict:
     return worst
 
 
-def drive_train(device: str, seed: int, rehearsal: bool) -> tuple[int, float, dict, dict]:
+def drive_train(device: str, seed: int, rehearsal: bool) -> tuple[int, float, dict, dict,
+                                                                 dict]:
     """The train phase. Returns the gossip_mix_matmul launches of its main
-    paths, row 2t's error and timing, and the report."""
+    paths, row 2t's error and timing, the report and qwen3's round 1."""
     t0 = time.perf_counter()
     if device != "cpu":
         torch.cuda.empty_cache()
     report = {}
-    report["model"], err, timing = drive_train_model(device, seed, rehearsal)
+    report["model"], err, timing, round1 = drive_train_model(device, seed, rehearsal)
     report["cli"] = drive_train_cli_transformer(device, seed, rehearsal)
     log("[train] one round of every reduced architecture, card against CPU")
     report["reduced"] = check_reduced_rounds(device, seed)
@@ -2005,7 +2040,252 @@ def drive_train(device: str, seed: int, rehearsal: bool) -> tuple[int, float, di
                 + report["cli"]["gossip_mix_matmul_launches"])
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s; gossip_mix_matmul {launches} "
         "launches over the two runs")
-    return launches, err, timing, report
+    return launches, err, timing, report, round1
+
+
+# -------------------------------------------------------------- mesh-train ----
+
+def _mesh_round(ts, mesh, state, tokens, contact, target, prefix=None):
+    """One round of a mesh step from the stacked ``state`` placed on ``mesh``;
+    returns the outputs with every tensor this rank's local one."""
+    placed = convert.place_train_state(state, mesh, ts.in_specs)
+    params, opt, sm, metrics = ts.fn(*placed, tokens, contact, target, prefix)
+    local = lambda tree: {k: x.to_local() for k, x in steps.flatten(tree).items()}
+    return (local(params), local(opt.mu), local(opt.nu), sm.to_local(),
+            {k: float(x) for k, x in metrics.items()})
+
+
+def check_mesh_reduced_rounds(device: str, seed: int, mesh) -> dict:
+    """One round of every reduced architecture on ``mesh`` against its
+    mesh-less round on ``device`` (same state, tokens, prefix; 1e-5 on loss,
+    kl, state matrix and parameters)."""
+    worst = {}
+    for arch in sorted(ARCHITECTURES):
+        cfg, state, tokens, prefix = _reduced_round_case(arch, seed)
+        want = _reduced_round(cfg, state, tokens, prefix, device)
+        v = tokens.shape[0]
+        ts = steps.build_dds_train_step(cfg, mesh=mesh, lr=TRAIN_LR, p1_steps=TRAIN_P1)
+        with full_f32_matmul():
+            got = _mesh_round(ts, mesh, convert.train_state_from_numpy(*state, device=device),
+                              tokens.to(device), train_cli.ring_contact(v, device),
+                              torch.full((v,), 1.0 / v, device=device),
+                              None if prefix is None else prefix.to(device))
+        err = max([abs(got[4][k] - float(want[3][k])) for k in ("loss", "kl")]
+                  + [_max_err(got[3], want[2])]
+                  + [_max_err(x, steps.flatten(want[0])[k]) for k, x in got[0].items()])
+        worst[arch] = err
+        check(err <= 1e-5, f"{cfg.name}: one round on the mesh vs without it on {device} "
+              f"(4 vehicles): loss, kl, state matrix, parameters max diff {err:.2e} (atol 1e-5)")
+    return worst
+
+
+def time_mesh_mix(flat: dict, mixing, shard) -> tuple[float, dict]:
+    """Row 2m: the mesh round's own mix (``steps.mix_rows`` on this rank's
+    local tensors, as the round runs it) against its plain version
+    (``aggregation.mix_params``) on the same inputs: the plain mix out of
+    place, then the mesh mix written into the leaves, compared leaf by leaf;
+    then both timed (the mesh mix in place, what the round runs), beside
+    ``torch.matmul`` per leaf. Returns (error, timing keys)."""
+    leaves = list(flat.values())
+    v, cols = leaves[0].shape[0], sum(x[0].numel() for x in leaves)
+    path = kernel.matmul_path(v, v)
+    with torch.no_grad(), full_f32_matmul():
+        want = aggregation.mix_params(mixing, flat)
+        steps.mix_rows(mixing, flat, shard)
+        torch.cuda.synchronize()
+        err = max(_max_err(flat[name], want[name]) for name in flat)
+        del want
+        timing = _timed(lambda: steps.mix_rows(mixing, flat, shard),
+                        lambda: aggregation.mix_params(mixing, flat),
+                        lambda: [torch.matmul(mixing, x.view(v, -1)) for x in leaves],
+                        2 * v * cols * 4 + v * v * 4, 2 * v * v * cols,
+                        f"the mesh round's mix: steps.mix_rows on the {len(leaves)} local "
+                        f"leaves of the one-rank mesh (V={v}, {cols} columns per vehicle, "
+                        f"{TRAIN_ARCH}, f32, mapping {PATHS[path]}), in place as the round "
+                        f"runs it; plain_ms: aggregation.mix_params; library_ms: "
+                        f"{len(leaves)} torch.matmul calls",
+                        inner=1, reps=5, warm=1)
+    timing.update({"columns": cols, "path": PATHS[path]})
+    return err, timing
+
+
+def drive_mesh_train(device: str, seed: int, rehearsal: bool,
+                     round1: dict) -> tuple[int, float, dict, dict]:
+    """The mesh-train phase: the train phase's qwen3 round 1 and a second
+    round through ``build_dds_train_step(cfg, mesh=mesh)`` on a one-rank
+    group (NCCL on the card), the first against the mesh-less round 1, the
+    second timed apart from the first (DTensor's first-call dispatch); then
+    the mesh round's mix timed on its own inputs (row 2m); then every reduced
+    architecture. Returns the rounds' gossip_mix_matmul launches, the mesh
+    mix's error and timing, and the report."""
+    t_phase = time.perf_counter()
+    on_card = device != "cpu"
+    whole = get_config(TRAIN_ARCH)
+    cfg, v, b, s = whole, TRAIN_V, TRAIN_B, TRAIN_S
+    if rehearsal:
+        cfg, s = whole.reduced(), 32
+    workdir = tempfile.mkdtemp(prefix="mesh_train_")
+    mesh_lib.initialize_multihost(init_method=f"file://{workdir}/store", num_processes=1,
+                                  process_id=0, transport="nccl" if on_card else "gloo")
+    try:
+        mesh = mesh_lib.make_federation_mesh(vehicle=1, fsdp=1, model=1, explicit=True)
+        log(f"[mesh-train] {cfg.name} on mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+            f"({mesh.device_type}, transport {mesh_lib.transport()}): V={v}, B={b}, S={s}, "
+            "two rounds from the train phase's first state")
+        # the train phase's first round, drawn again from the same seed
+        gen = torch.Generator(device=device).manual_seed(seed)
+        state = steps.init_train_state(cfg, v, gen, device=device)
+        _apart(state[0], gen)
+        contact = train_cli.ring_contact(v, device)
+        target = torch.full((v,), 1.0 / v, device=device)
+        tokens = torch.randint(0, cfg.true_vocab_size, (v, b, s), generator=gen, device=device)
+        timers = [PhaseTimer(device), PhaseTimer(device)]
+        rounds = [steps.build_dds_train_step(cfg, mesh=mesh, lr=TRAIN_LR, p1_steps=TRAIN_P1,
+                                             timer=t) for t in timers]
+        placed = convert.place_train_state(state, mesh, rounds[0].in_specs)
+        del state
+        # -- the main path of this phase: two rounds
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels_lib.reset_launch_counts()
+        history, sm_in = [], None
+        for ts in rounds:
+            sm_in = placed[2]
+            t0 = time.perf_counter()
+            params, opt, sm, metrics = ts.fn(*placed, tokens, contact, target)
+            got = {k: float(x) for k, x in metrics.items()}     # waits for the round
+            history.append({"seconds": time.perf_counter() - t0, **got})
+            if len(history) == 1:
+                local = {k: x.to_local() for k, x in steps.flatten(params).items()}
+                probe_err = max(_max_err(local[name].reshape(-1)[:4096], p)
+                                for name, p in round1["probe"].items())
+                err = max([abs(got[k] - round1[k]) for k in ("loss", "kl")] + [probe_err])
+                del local
+            placed = (params, opt, sm)
+        launches = _train_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
+        report = {"arch": cfg.name, "vehicles": v, "batch": b, "seq": s,
+                  "first_round_s": history[0]["seconds"],
+                  "second_round_s": history[1]["seconds"],
+                  "loss": [m["loss"] for m in history], "kl": [m["kl"] for m in history],
+                  "max_diff_vs_meshless_round1": err, "peak_device_memory_mb": peak,
+                  "device_ms": [t.totals_ms() for t in timers], **launches}
+        check(err <= 1e-5, f"{cfg.name}: the mesh round's loss {history[0]['loss']:.6f}, kl "
+              f"{history[0]['kl']:.6f} and parameters within {err:.2e} of the mesh-less "
+              "round 1 (atol 1e-5)")
+        check(all(np.isfinite(m["loss"]) and np.isfinite(m["kl"]) for m in history),
+              f"{cfg.name}: the second mesh round's loss and kl are finite")
+        if on_card:
+            check(launches["gossip_mix_matmul_launches"] >= 1
+                  and launches["flash_attention_launches"] == 0,
+                  f"{cfg.name} on the mesh: gossip_mix_matmul launched "
+                  f"{launches['gossip_mix_matmul_launches']} time(s), flash_attention "
+                  f"{launches['flash_attention_launches']}")
+        # -- the mesh mix on the second round's own inputs (row 2m)
+        mix_err, mix_timing = 0.0, {}
+        placed = None
+        del opt                     # the moments: room for the plain mix's output
+        if on_card:
+            torch.cuda.empty_cache()
+            mixing = aggregation.mixing_from_alpha(kl_solver.solve_p1_all(
+                sm_in.full_tensor(), target, contact, num_steps=TRAIN_P1), contact)
+            flat = {k: x.to_local() for k, x in steps.flatten(params).items()}
+            mix_err, mix_timing = time_mesh_mix(flat, mixing, steps._vehicle_shard(mesh))
+            report["mix"] = {"max_abs_err": mix_err, **mix_timing}
+            check(mix_err <= 1e-5, f"the mesh round's mix (steps.mix_rows) against "
+                  f"aggregation.mix_params on its own inputs: max diff {mix_err:.2e} "
+                  "(atol 1e-5)")
+            del flat
+        del params, sm, sm_in
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"[mesh-train] {json.dumps(report)}")
+        log("[mesh-train] one round of every reduced architecture, on the mesh and without")
+        report["reduced"] = check_mesh_reduced_rounds(device, seed, mesh)
+    finally:
+        mesh_lib.shutdown()
+    log(f"[mesh-train] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches["gossip_mix_matmul_launches"], mix_err, mix_timing, report
+
+
+# ------------------------------------------------------------------ dryrun ----
+
+DRYRUN_PAIRS = {"qwen3-1.7b": ("train_4k", "prefill_32k", "decode_32k"),
+                "mixtral-8x7b": ("train_4k",)}
+
+
+def start_dryrun(rehearsal: bool) -> dict:
+    """The dry run's CLI, one process per architecture, started now on the
+    host (no card visible to them); ``finish_dryrun`` collects them."""
+    root = Path(__file__).resolve().parent
+    workdir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    pairs = {"qwen3-1.7b": ("long_500k",)} if rehearsal else DRYRUN_PAIRS
+    procs = {}
+    atexit.register(_stop_dryrun, procs)
+    for arch, shapes in pairs.items():
+        out = workdir / f"{arch}.jsonl"
+        log_file = open(workdir / f"{arch}.log", "w")
+        procs[arch] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             *shapes, "--out", str(out)], cwd=root, env=env, stdout=log_file,
+            stderr=subprocess.STDOUT), out, log_file)
+    return {"workdir": workdir, "env": env, "root": root, "procs": procs,
+            "t0": time.perf_counter()}
+
+
+def _stop_dryrun(procs: dict) -> None:
+    """At exit: end any dry-run process still running (a phase failed first)."""
+    for proc, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryrun(run: dict) -> dict:
+    """Wait for the dry-run processes, read their records, run the roofline
+    CLI on them, check and print each pair."""
+    records = []
+    for arch, (proc, out, log_file) in run["procs"].items():
+        rc = proc.wait(timeout=900)
+        log_file.close()
+        if rc != 0:
+            tail = (run["workdir"] / f"{arch}.log").read_text()[-3000:]
+            raise SystemExit(f"FAILED: the dry run of {arch} exited {rc}:\n{tail}")
+        records += [json.loads(line) for line in out.read_text().splitlines() if line]
+    wall = time.perf_counter() - run["t0"]
+    paths = [str(out) for _, out, _ in run["procs"].values()]
+    table = subprocess.run([sys.executable, "-m", "repro_torch.roofline.analysis", *paths],
+                           cwd=run["root"], env=run["env"], capture_output=True, text=True,
+                           timeout=300)
+    check(table.returncode == 0, f"python -m repro_torch.roofline.analysis exited "
+          f"{table.returncode} {table.stderr[-2000:]}")
+    for line in table.stdout.splitlines():
+        log(f"  {line}")
+    report = {}
+    for rec in records:
+        tag = f"{rec['arch']} x {rec['shape']}"
+        check("error" not in rec, f"dry run {tag}: no error ({rec.get('error')})")
+        row = roofline.analyze_record(rec)
+        chips = row.chips
+        coll = rec["collective_bytes_per_device"]
+        if rec["shape"].startswith("train"):
+            check(rec["flops_per_device"] * chips >= row.model_flops,
+                  f"dry run {tag}: flops_per_device x {chips} = "
+                  f"{rec['flops_per_device'] * chips:.3e} >= model_flops {row.model_flops:.3e}")
+            check(coll.get("reduce-scatter", 0) > 0,
+                  f"dry run {tag}: a reduce-scatter (the gossip mix): {coll}")
+        else:
+            check(sum(coll.values()) > 0, f"dry run {tag}: at least one collective: {coll}")
+        log(f"[dryrun] {tag}: {json.dumps(rec)}")
+        log(f"  H100 row: dominant {row.dominant}, compute {row.compute_s:.3e} s, memory "
+            f"{row.memory_s:.3e} s, collective {row.collective_s:.3e} s, useful ratio "
+            f"{row.useful_ratio:.3f}; run_s {rec['run_s']:.1f}")
+        report[tag] = {"run_s": rec["run_s"], "dominant": row.dominant,
+                       "useful_ratio": row.useful_ratio}
+    log(f"[dryrun] {len(records)} pairs in {wall:.1f} s of wall time beside the card's phases")
+    return report
 
 
 # --------------------------------------------------------------- main path ----
@@ -3010,6 +3290,9 @@ def main() -> int:
         log("[kernels-only] stopping before the main path")
         return 3
 
+    # -- 8e. dryrun: started now, on the host; collected after the card's phases
+    dryrun = start_dryrun(rehearsal)
+
     # -- 4. main path -------------------------------------------------------
     if rehearsal:
         dataset = synthetic_mnist(seed=args.seed, n_train=800, n_test=64)
@@ -3088,7 +3371,16 @@ def main() -> int:
     launches["flash_attention"] += zoo_launches
 
     # -- 8c. train: DFL-DDS rounds of vehicle transformers at full width -----
-    train_launches, train_err, train_timing, _ = drive_train(device, args.seed, rehearsal)
+    train_launches, train_err, train_timing, _, round1 = drive_train(device, args.seed,
+                                                                     rehearsal)
+
+    # -- 8d. mesh-train: the same round on a federation mesh of one rank -----
+    mesh_launches, mesh_err, mesh_timing, _ = drive_mesh_train(device, args.seed, rehearsal,
+                                                               round1)
+    del round1
+
+    # -- 8e. dryrun: the records of the processes started after the build ----
+    finish_dryrun(dryrun)
 
     # -- 9. the record ------------------------------------------------------
     if rehearsal:
@@ -3106,6 +3398,9 @@ def main() -> int:
     check(train_launches > 0, "the train path launched gossip_mix_matmul")
     rows.append({"name": "gossip_mix_matmul/train", **KERNELS["gossip_mix_matmul"],
                  "launches": train_launches, "max_abs_err": train_err, **train_timing})
+    check(mesh_launches > 0, "the mesh-train path launched gossip_mix_matmul")
+    rows.append({"name": "gossip_mix_matmul/mesh", **KERNELS["gossip_mix_matmul"],
+                 "launches": mesh_launches, "max_abs_err": mesh_err, **mesh_timing})
     for name, count in shard_launches.items():
         check(count > 0, f"the sharded path launched {name}")
         rows.append({"name": f"{name}/shard", **KERNELS[name], "launches": count,

@@ -68,6 +68,47 @@ def train_state_from_numpy(params: dict, opt_state, state_matrix,
             torch.tensor(np.asarray(state_matrix), dtype=torch.float32, device=device))
 
 
+def place_train_state(state: tuple, mesh, specs: tuple, *, local_rows: bool = False) -> tuple:
+    """A stacked ``(params, opt_state, state_matrix)`` — the reference's
+    layout, as ``train_state_from_numpy`` returns it or as numpy arrays — on
+    a federation mesh, for ``launch.steps``'s round on it: each leaf a
+    DTensor placed by its spec (``specs``: the step's ``in_specs``, whose
+    first three entries are these), this rank holding its own vehicle rows
+    and its shard of them over ``fsdp`` / ``model``. Nothing is
+    communicated.
+
+    A tensor leaf holds the global values on every rank and is cut as a view
+    (on a mesh of one rank each local tensor is the leaf itself). A numpy
+    leaf is cut on the host and only this rank's block is copied to the
+    mesh's device (a card under NCCL), so the global stack never reaches
+    it. With ``local_rows`` every leaf (the counters and the state
+    matrix too) holds only this rank's vehicle rows (``vehicle_rows`` of
+    the stack: drawn or loaded by each rank for itself), so that no rank
+    holds the global stack at all; only the ``fsdp`` / ``model`` dims are
+    cut."""
+    from .launch.mesh import vehicle_axes
+    from .launch.sharding import place_tree
+
+    local_axes = vehicle_axes(mesh) if local_rows else ()
+    return tuple(place_tree(x, mesh, spec, local_axes=local_axes)
+                 for x, spec in zip(state, specs[:3]))
+
+
+def vehicle_rows(mesh, num_vehicles: int) -> slice:
+    """This rank's rows of a stacked ``[V, ...]`` leaf on a federation mesh:
+    the block of its place along the vehicle axes (pod major), as
+    ``place_train_state`` cuts them."""
+    from .launch.mesh import vehicle_axes
+
+    index, shards = 0, 1
+    for name in vehicle_axes(mesh):
+        size = mesh.size(mesh.mesh_dim_names.index(name))
+        index = index * size + mesh.get_local_rank(name)
+        shards *= size
+    per = num_vehicles // shards
+    return slice(index * per, (index + 1) * per)
+
+
 def to_numpy(tree):
     """Tensors -> numpy arrays through dictionaries and (named) tuples —
     parameters, optimizer state or a whole ``FederationState``."""

@@ -87,12 +87,14 @@ def initialize_multihost(*, coordinator_address: str | None = None,
     ``timeout_s`` bounds how long a collective waits for the other ranks
     (torch.distributed's default when None).
 
-    With one process: a no-op returning 1 (the single-process fallback: the
-    shard_map backend then runs the global path). Otherwise returns the
-    world size. Calling it again once the group is up returns its size.
+    With one process and no ``init_method``: a no-op returning 1 (the
+    single-process fallback: the shard_map backend then runs the global
+    path). An ``init_method`` brings a group up for one process too (a mesh of
+    one rank, for the mesh-aware steps of ``launch.steps``). Otherwise returns
+    the world size. Calling it again once the group is up returns its size.
     """
     num_processes = _env_int("WORLD_SIZE", 1) if num_processes is None else num_processes
-    if num_processes <= 1:
+    if num_processes <= 1 and init_method is None:
         return 1
     if transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r} ({'|'.join(TRANSPORTS)})")
@@ -126,11 +128,37 @@ def transport() -> str | None:
 
 
 def shutdown() -> None:
-    """Tear the default process group down (and forget its meshes)."""
+    """Tear the default process group down, and forget its meshes and the
+    DTensor plans made on them."""
     _MESHES.clear()
     _TRANSPORT.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+    _forget_dtensor_plans()
+
+
+def _forget_dtensor_plans() -> None:
+    """DTensor caches its sharding decisions and redistribution plans by
+    placements and mesh shape, not by process group, and a plan may hold a
+    mesh of its own: after the group is destroyed, a later group's DTensors of
+    the same shapes would reuse a plan naming the dead group's subgroups.
+    Clear those caches (each where this torch has it)."""
+    import sys
+
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is None:                      # no DTensor made in this process
+        return
+    prop = dt.DTensor._op_dispatcher.sharding_propagator
+    redistribute = sys.modules.get("torch.distributed.tensor._redistribute")
+    for cached in (getattr(prop, "propagate_op_sharding", None),
+                   getattr(prop, "_propagate_tensor_meta_cached", None),
+                   getattr(redistribute, "_gen_transform_infos", None)):
+        if hasattr(cached, "cache_clear"):
+            cached.cache_clear()
+    for clear in (getattr(redistribute, "clear_redistribute_planner_cache", None),
+                  getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)):
+        if clear is not None:
+            clear()
 
 
 def world_size() -> int:
@@ -149,12 +177,15 @@ def _device_type() -> str:
 
 
 def _mesh(shape: tuple, names: tuple):
+    """The mesh of this shape over the default group, made once per group: a
+    mesh cached under a group since destroyed is made anew."""
     from torch.distributed.device_mesh import init_device_mesh
 
     key = (shape, names)
-    if key not in _MESHES:
-        _MESHES[key] = init_device_mesh(_device_type(), shape, mesh_dim_names=names)
-    return _MESHES[key]
+    group = dist.group.WORLD if dist.is_initialized() else None
+    if key not in _MESHES or _MESHES[key][0] is not group:
+        _MESHES[key] = (group, init_device_mesh(_device_type(), shape, mesh_dim_names=names))
+    return _MESHES[key][1]
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -69,9 +69,9 @@ def _project_qkv(p: dict, x: Tensor, cfg: ArchConfig, positions: Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = layers.split_heads(q, h, hd)
+    k = layers.split_heads(k, kv, hd)
+    v = layers.split_heads(v, kv, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -87,7 +87,10 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor
     q: [B, S, H, hd]; k/v: [B, T, KV, hd]; mask: [S, T] or [B, S, T] bool.
     Both contractions in f32 (a bf16 cache is widened, as the reference's
     ``preferred_element_type=f32`` does), masked logits at f32's lowest value.
+    DTensors (a mesh's steps) go through ``_sdpa_on_shards``.
     """
+    if layers.is_dtensor(q) or layers.is_dtensor(k):
+        return _sdpa_on_shards(q, k, v, mask, scale)
     b, s, h, hd = q.shape
     kv = k.shape[2]
     group = h // kv
@@ -99,6 +102,54 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(f32), v.to(f32))
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _sdpa_on_shards(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor:
+    """``_sdpa`` of DTensors, run on each rank's shards (``layers.on_shards``):
+    attention is independent per sequence and per group of heads, so each
+    rank attends its own batch rows and q heads to the k / v heads they read.
+    q keeps a batch sharding and one mesh dim's head sharding (other
+    placements gathered); k, v and a batched mask take the same batch
+    sharding, and k / v the same head blocks where their heads divide over
+    that mesh dim, else they are gathered whole and each rank takes the heads
+    its q heads read (so a cache sharded over its sequence dim is gathered).
+    The output is placed as q. (DTensor's own propagation would merge sharded
+    batch and head dims into the products' batch dim, which some torch
+    versions refuse.)"""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = (q if layers.is_dtensor(q) else k).device_mesh
+    h, kv = q.shape[2], k.shape[2]
+    q_to, kv_to, mask_to = [], [], []
+    head_dim_of = None                  # the mesh dim q's heads stay sharded over
+    for m, p in enumerate(q.placements if layers.is_dtensor(q) else [Replicate()] * mesh.ndim):
+        n = mesh.size(m)
+        if isinstance(p, Shard) and p.dim == 0:
+            q_to.append(Shard(0)), kv_to.append(Shard(0))
+            mask_to.append(Shard(0) if mask.dim() == 3 else Replicate())
+            continue
+        if isinstance(p, Shard) and p.dim == 2 and head_dim_of is None and h % n == 0:
+            head_dim_of = m
+            q_to.append(Shard(2)), kv_to.append(Shard(2) if kv % n == 0 else Replicate())
+        else:
+            q_to.append(Replicate()), kv_to.append(Replicate())
+        mask_to.append(Replicate())
+    lo = hi = None
+    if head_dim_of is not None and not isinstance(kv_to[head_dim_of], Shard):
+        # k / v whole over the head dim: the heads this rank's q heads read
+        group, q_heads = h // kv, h // mesh.size(head_dim_of)
+        first = mesh.get_local_rank(head_dim_of) * q_heads
+        lo, hi = first // group, (first + q_heads - 1) // group + 1
+        if q_heads % (hi - lo):
+            raise ValueError(f"{q_heads} q heads per rank do not group over {hi - lo} kv heads")
+
+    def attend(q_l, k_l, v_l, mask_l):
+        if lo is not None:
+            k_l, v_l = k_l[:, :, lo:hi], v_l[:, :, lo:hi]
+        return _sdpa(q_l, k_l, v_l, mask_l, scale)
+
+    return layers.on_shards(attend, mesh, [(q, q_to), (k, kv_to), (v, kv_to), (mask, mask_to)],
+                            [q_to])
 
 
 def blocked_sdpa(q: Tensor, k: Tensor, v: Tensor, mask, scale: float,
@@ -233,8 +284,8 @@ def decode_attention(p: dict, x: Tensor, cache: KVCache, cfg: ArchConfig, *,
     else:
         slot = torch.clamp(cache.length, max=t_max - 1)
     index = slot.reshape(1).long()
-    cache.k.index_copy_(1, index, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, index, v_new.to(cache.v.dtype))
+    layers.write_slot(cache.k, index, k_new.to(cache.k.dtype))
+    layers.write_slot(cache.v, index, v_new.to(cache.v.dtype))
 
     # valid = slots actually written (and inside the window)
     idx = torch.arange(t_max, device=x.device)
@@ -247,5 +298,8 @@ def decode_attention(p: dict, x: Tensor, cache: KVCache, cfg: ArchConfig, *,
     mask = valid[None, :]   # [1 (q), T]
 
     out = _sdpa(q, cache.k, cache.v, mask, cfg.head_dim ** -0.5)
-    out = out.reshape(b, 1, -1) @ p["wo"]
+    # the [B, H*hd] x [H*hd, d] product that matmul folds [B, 1, H*hd] into,
+    # written out: a DTensor's matmul would not fold it (and broadcast W_o
+    # over B instead, summing in another order)
+    out = (out.reshape(b, -1) @ p["wo"]).reshape(b, 1, -1)
     return out, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)

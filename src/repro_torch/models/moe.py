@@ -64,12 +64,44 @@ def moe_dense(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:
     one product over (e, f) together, as the reference's einsum."""
     weights, idx, aux = router_topk(x @ p["router"], cfg.top_k)
     # the top-k ids of a row are distinct: each (n, e) holds one weight or 0
-    combine = torch.zeros((x.shape[0], cfg.num_experts), dtype=weights.dtype,
-                          device=x.device).scatter_(1, idx, weights)        # [N, E]
+    combine = weights.new_zeros((x.shape[0], cfg.num_experts)).scatter_(1, idx, weights)  # [N, E]
+    if layers.is_dtensor(x):
+        return _experts_on_shards(p, x, combine), aux
+    return _experts(p, x, combine), aux
+
+
+def _experts(p: dict, x: Tensor, combine: Tensor) -> Tensor:
     g = torch.matmul(x, p["w_gate"])                                          # [E, N, f]
     u = torch.matmul(x, p["w_up"])
     h = F.silu(g) * u * combine.T[:, :, None]
-    return torch.einsum("enf,efd->nd", h, p["w_down"]), aux
+    return torch.einsum("enf,efd->nd", h, p["w_down"])
+
+
+def _experts_on_shards(p: dict, x: Tensor, combine: Tensor) -> Tensor:
+    """``_experts`` of DTensors (a mesh's steps), run on each rank's shards:
+    over a mesh dim that shards the experts' hidden dim f (gate / up
+    column-parallel, down row-parallel) each rank computes its f block for
+    every token and the output is a partial sum there; over a mesh dim that
+    shards the tokens, each rank its tokens; everything else gathered.
+    (DTensor's own propagation would merge a sharded token dim into the
+    broadcast products' batch dim, which some torch versions refuse.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    w_to, x_to, out_to = {"w_gate": [], "w_up": [], "w_down": []}, [], []
+    for m in range(mesh.ndim):
+        f_sharded = all(layers.is_dtensor(p[name]) and p[name].placements[m] == Shard(dim)
+                        for name, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)))
+        for name, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
+            w_to[name].append(Shard(dim) if f_sharded else Replicate())
+        tokens = not f_sharded and x.placements[m] == Shard(0)
+        x_to.append(Shard(0) if tokens else Replicate())
+        out_to.append(Partial() if f_sharded else Shard(0) if tokens else Replicate())
+
+    names = list(w_to)
+    return layers.on_shards(
+        lambda x_l, c_l, *w_l: _experts(dict(zip(names, w_l)), x_l, c_l), mesh,
+        [(x, x_to), (combine, x_to)] + [(p[name], w_to[name]) for name in names], [out_to])
 
 
 def moe_ragged(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:

@@ -136,17 +136,51 @@ def _wkv_chunk(r, k, v, logw, u, state):
     return y_cross + y_intra, new_state
 
 
+def _per_head(fn, lead: Tensor, inputs: list, outputs: list):
+    """``fn`` of the recurrence's tensors; on DTensors (a mesh's steps), run
+    on each rank's shards (``layers.on_shards``): the recurrence is
+    independent per batch row and per head. ``inputs`` are (tensor, its batch
+    dim or None, its head dim or None), ``outputs`` (batch dim, head dim) of
+    ``fn``'s results. The mesh dims that shard ``lead``'s batch dim keep
+    sharding every batch dim, those that shard its heads (where they divide
+    evenly) every head dim; everything else is gathered."""
+    if not any(layers.is_dtensor(x) for x, _, _ in inputs):
+        return fn(*(x for x, _, _ in inputs))
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = next(x for x, _, _ in inputs if layers.is_dtensor(x)).device_mesh
+    lead_batch, lead_head = 0, inputs[0][2]
+    roles = []
+    for m, p in enumerate(lead.placements if layers.is_dtensor(lead)
+                          else [Replicate()] * mesh.ndim):
+        if isinstance(p, Shard) and p.dim == lead_batch:
+            roles.append("batch")
+        elif (isinstance(p, Shard) and p.dim == lead_head
+              and lead.shape[lead_head] % mesh.size(m) == 0 and "head" not in roles):
+            roles.append("head")
+        else:
+            roles.append(None)
+
+    def to(batch_dim, head_dim):
+        return [Shard(batch_dim) if role == "batch" and batch_dim is not None else
+                Shard(head_dim) if role == "head" and head_dim is not None else Replicate()
+                for role in roles]
+
+    return layers.on_shards(fn, mesh, [(x, to(b, h)) for x, b, h in inputs],
+                            [to(b, h) for b, h in outputs])
+
+
 def _projections(p: dict, x: Tensor, xx: Tensor, cfg: ArchConfig):
     """r, k, v [B, S, H, D], the gate g [B, S, w] and logw [B, S, H, D] (f32)."""
     b, s, _ = x.shape
     h, dd = num_heads(cfg), cfg.head_dim
     xr, xk, xv, xw, xg = _ddlerp(p, x, xx)
-    r = (xr @ p["wr"]).reshape(b, s, h, dd)
-    k = (xk @ p["wk"]).reshape(b, s, h, dd)
-    v = (xv @ p["wv"]).reshape(b, s, h, dd)
+    r = layers.split_heads(xr @ p["wr"], h, dd)
+    k = layers.split_heads(xk @ p["wk"], h, dd)
+    v = layers.split_heads(xv @ p["wv"], h, dd)
     g = F.silu(xg @ p["wg"])
     logw = -torch.exp(p["decay_w0"] + torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"])
-    return r, k, v, g, logw.reshape(b, s, h, dd).to(torch.float32)
+    return r, k, v, g, layers.split_heads(logw, h, dd).to(torch.float32)
 
 
 def time_mix(p: dict, x: Tensor, cfg: ArchConfig, state: dict | None = None,
@@ -160,13 +194,20 @@ def time_mix(p: dict, x: Tensor, cfg: ArchConfig, state: dict | None = None,
 
     r, k, v, g, logw = _projections(p, x, _token_shift(x, state["shift"]), cfg)
     r, k, v = (t.to(torch.float32) for t in (r, k, v))
-    wkv, ys = state["wkv"], []
-    for c0 in range(0, s, chunk):
-        part = slice(c0, c0 + chunk)
-        y, wkv = _wkv_chunk(r[:, part], k[:, part], v[:, part], logw[:, part],
-                            p["bonus_u"], wkv)
-        ys.append(y)
-    y = _head_group_norm(torch.cat(ys, dim=1), p["ln_x"], cfg.norm_eps)
+
+    def recurrence(r, k, v, logw, u, wkv):
+        ys = []
+        for c0 in range(0, s, chunk):
+            part = slice(c0, c0 + chunk)
+            y, wkv = _wkv_chunk(r[:, part], k[:, part], v[:, part], logw[:, part], u, wkv)
+            ys.append(y)
+        return torch.cat(ys, dim=1), wkv
+
+    # dims of (batch, heads) in r, k, v, logw / bonus_u / the state
+    y, wkv = _per_head(recurrence, r, [(r, 0, 2), (k, 0, 2), (v, 0, 2), (logw, 0, 2),
+                                       (p["bonus_u"], None, 0), (state["wkv"], 0, 1)],
+                       [(0, 2), (0, 1)])
+    y = _head_group_norm(y, p["ln_x"], cfg.norm_eps)
     out = (y.to(x.dtype) * g) @ p["wo"]
     return out, {"shift": x[:, -1, :], "wkv": wkv}
 
@@ -189,11 +230,15 @@ def time_mix_decode(p: dict, x: Tensor, cfg: ArchConfig,
     r, k, v = (t.reshape(b, h, dd).to(torch.float32) for t in (r, k, v))
     w = torch.exp(logw.reshape(b, h, dd))
 
-    s_prev = state["wkv"]                                  # [B, H, D, D]
-    kv = torch.einsum("bhd,bhe->bhde", k, v)
-    y = torch.einsum("bhd,bhde->bhe", r, s_prev) + torch.einsum(
-        "bhd,hd,bhde->bhe", r, p["bonus_u"], kv)
-    new_wkv = w[..., None] * s_prev + kv
+    def step(r, k, v, w, u, s_prev):                        # s_prev [B, H, D, D]
+        kv = torch.einsum("bhd,bhe->bhde", k, v)
+        y = torch.einsum("bhd,bhde->bhe", r, s_prev) + torch.einsum(
+            "bhd,hd,bhde->bhe", r, u, kv)
+        return y, w[..., None] * s_prev + kv
+
+    y, new_wkv = _per_head(step, r, [(r, 0, 1), (k, 0, 1), (v, 0, 1), (w, 0, 1),
+                                     (p["bonus_u"], None, 0), (state["wkv"], 0, 1)],
+                           [(0, 1), (0, 1)])
 
     y = _head_group_norm(y.reshape(b, 1, h, dd), p["ln_x"], cfg.norm_eps)
     out = (y.to(x.dtype) * g) @ p["wo"]

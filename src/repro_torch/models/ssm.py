@@ -76,7 +76,9 @@ def _selective_terms(p: dict, x: Tensor, cfg: ArchConfig):
     """(log decay [B, S, d, N], input u [B, S, d, N], C_t [B, S, N])."""
     n = cfg.ssm_state
     dt_rank = p["dt_proj"].shape[0]
-    proj = x @ p["x_proj"]
+    # x_proj contracts the channels a mesh shards (d_inner channel-parallel):
+    # on DTensors the partial sums are reduced here, before they are sliced
+    proj = layers.whole_last_dim(x @ p["x_proj"])
     dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"] + p["dt_bias"])   # [B, S, d]
     bmat = proj[..., dt_rank:dt_rank + n]                                 # [B, S, N]
     cmat = proj[..., dt_rank + n:]                                        # [B, S, N]

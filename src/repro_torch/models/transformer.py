@@ -212,8 +212,8 @@ def _block_prefill(p: dict, x: Tensor, cfg: ArchConfig, *, window: int | None,
         a = _mix_branches(p, a, sout, cfg)
     if win is not None and s > win:
         r = s % win
-        k = torch.roll(k[:, s - win:], r, dims=1)
-        v = torch.roll(v[:, s - win:], r, dims=1)
+        k = layers.roll(k[:, s - win:], r, dim=1)
+        v = layers.roll(v[:, s - win:], r, dim=1)
     state["kv"] = {"k": k, "v": v}
     return _ffn(p, x + a, cfg)[0], state
 
@@ -222,8 +222,7 @@ def _stack_into(stacked: dict | None, i: int, L: int, leaves: dict, dtype=None) 
     """Write layer ``i``'s ``leaves`` into ``[L, ...]`` buffers (made at
     layer 0, in ``dtype`` or the leaf's own)."""
     if stacked is None:
-        stacked = {name: torch.empty((L,) + tuple(t.shape), dtype=dtype or t.dtype,
-                                     device=t.device) for name, t in leaves.items()}
+        stacked = {name: layers.empty_stack(L, t, dtype) for name, t in leaves.items()}
     for name, t in leaves.items():
         stacked[name][i] = t
     return stacked

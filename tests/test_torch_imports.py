@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.models.moe", "repro_torch.models.rwkv6",
             "repro_torch.models.ssm", "repro_torch.models.multimodal",
             "repro_torch.launch.steps", "repro_torch.launch.variants",
-            "repro_torch.optim.schedules"} <= set(names)
+            "repro_torch.optim.schedules", "repro_torch.launch.shapes",
+            "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+            "repro_torch.roofline.analysis"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -85,6 +87,22 @@ def test_chip_smoke_imports_neither_and_fails_without_a_gpu():
                              capture_output=True, text=True, cwd=ROOT, env={"PATH": ""})
         assert run.returncode != 0
         assert '"ok"' not in run.stdout
+
+
+def test_importing_the_dry_run_starts_no_group_and_no_cuda():
+    """The dry run's module brings up its fake group only when a pair runs,
+    and never touches CUDA: importing it (and the launch modules it uses)
+    leaves no process group and CUDA uninitialised."""
+    code = ("import torch, torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.sharding\n"
+            "import repro_torch.launch.shapes, repro_torch.roofline.analysis\n"
+            "assert not dist.is_initialized()\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
 
 
 def test_device_cuda_without_a_card_raises():
