@@ -35,7 +35,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the crossover: per K and dtype, the launcher's mapping against the
                tiles (W padded with zero rows to the tiles' smallest K_out) on the
                CNN round's 8 leaves and on 4 leaves of 2^23 columns, each beside
-               its bound.
+               its bound. ``grouped_mm`` (also transposed: the input gradient) and
+               ``grouped_mm_wgrad`` at the MoE prefill shapes of granite-moe (M =
+               2 x 1,024 x 8, E=32, 1,024 -> 512) and mixtral (M = 2 x 1,024 x 2,
+               E=8, 4,096 -> 14,336), two experts empty, f32 (1e-5 of the plain
+               version's scale, no TF32) and bf16 (atol 5e-2, rtol 3e-2), each
+               timed beside its bound, its plain loop and ``torch._grouped_mm``
+               where the card's torch takes the dtype (else the loop).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
                full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
@@ -179,17 +185,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                with no card visible): qwen3-1.7b at ``train_4k``, ``prefill_32k``
                and ``decode_32k`` on the production meshes (a ``fake`` group of
                256 ranks, meta tensors) and mixtral-8x7b at ``train_4k`` (vehicle 2
-               x fsdp 8); then ``python -m repro_torch.roofline.analysis`` on the
+               x fsdp 8), and granite-moe-1b-a400m at ``decode_32k`` with the
+               ``ragged_moe`` variant (the grouped products as custom ops on meta
+               tensors); then ``python -m repro_torch.roofline.analysis`` on the
                records. Each pair: exit 0, no ``error``; a train pair's
                ``flops_per_device`` x 256 at least its ``model_flops`` and a
                ``reduce-scatter`` (the gossip mix); a serving pair at least one
                collective. Each record is printed with its H100 roofline row
                (dominant term, useful ratio) and ``run_s``.
+8f. ragged   — granite-moe-1b-a400m at full width (24/24 layers, random f32
+               weights from a seeded generator) with ``moe_impl="ragged"``: B=2 x
+               1,024 tokens prefilled and 16 greedy steps through
+               ``launch.serve.generate`` (``grouped_mm`` 3 times per layer per
+               forward, 1,224 launches), against the dense MoE on the same weights
+               (prefill logits atol 1e-3, the same tokens), prefill s, decode
+               ms/token, peak memory of each; then 3 DDS rounds of V=2 vehicles, B=2
+               x 1,024 tokens, E=1 (``steps.build_dds_train_step``, remat) through
+               the kernels forward and backward (``grouped_mm_wgrad`` once per
+               product, vehicle and round) and the same rounds with the dense MoE
+               from the same init and tokens: round 1's loss within 1e-4, s/round
+               and peak memory of each. Before the rounds, vehicle 0's gradients
+               from that init on round 1's tokens, ragged against dense routed as
+               the ragged run: every leaf within 1e-3 of its largest |gradient|;
+               against dense routing itself, the (token, layer) pairs whose experts
+               differ and the gradients' distance, read (``check_ragged_grads``);
+               after the rounds, round 1's parameter change of each, in units of lr.
+8g. examples — every ``examples/torch_*.py`` with ``--smoke --device cuda`` as a
+               subprocess, as a user starts it: exit 0 and its ``OK`` line.
 9. prints one ``{"kernels": [...]}`` line (the two mixes also as
    ``<name>/shard`` rows: one rank's partial mix at N = 2, N = 4 under ``n4``,
    launches of the sharded phase; ``gossip_mix_matmul/train``: the train
    phase's; ``gossip_mix_matmul/mesh``: the mesh rounds' launches, the mesh
-   round's mix checked and timed on its own inputs), the card's name and
+   round's mix checked and timed on its own inputs; ``grouped_mm`` and
+   ``grouped_mm_wgrad``: the ragged phase's launches, timed at granite-moe's f32
+   prefill shape, every shape and dtype under ``shapes``), the card's name and
    power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -235,12 +264,14 @@ from repro_torch.fed.simulator import SimulationConfig, run_simulation  # noqa: 
 from repro_torch.figures import common as figures_common  # noqa: E402
 from repro_torch.kernels import build as build_lib  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import grouped_mm as gmm  # noqa: E402
 from repro_torch.kernels import kl_simplex  # noqa: E402
 from repro_torch.kernels.gossip_mix import kernel, ops, ref  # noqa: E402
 from repro_torch.launch import campaign as campaign_lib, serve, steps, variants  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, multimodal, transformer  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
 from repro_torch.roofline import analysis as roofline, hw, scenario_cost  # noqa: E402
@@ -290,6 +321,18 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+    },
+    # the port of jax.lax.ragged_dot (the reference's moe_ragged), not of a Pallas kernel
+    "grouped_mm": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/grouped_mm/csrc/grouped_mm.cu",
+        "replaces": "not a TPU kernel (jax.lax.ragged_dot, src/repro/models/moe.py:94-96)",
+    },
+    "grouped_mm_wgrad": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/grouped_mm/csrc/grouped_mm.cu",
+        "replaces": "not a TPU kernel (the weight gradient of jax.lax.ragged_dot, "
+                    "src/repro/models/moe.py:94-96)",
     },
 }
 
@@ -356,6 +399,13 @@ SHARD_RUNS = (("sparse", "sync", 8.0), ("dense", "sync", 8.0), ("sparse", "delay
 # samples of the vehicle mean. The state side is deterministic: 1e-5.
 SHARD_ACC_ATOL = 0.02
 SHARD_TIMEOUT_S = 300.0       # a collective waits this long for the other ranks
+
+# the ragged phase: the grouped products at the MoE prefill shapes (arch, M = B x S x
+# top_k rows, E experts, d -> f), 2 x 1,024 tokens as the zoo phase prefills; then
+# granite-moe at full width through moe_impl="ragged", served and trained
+RAGGED_ARCH = "granite-moe-1b-a400m"
+RAGGED_SHAPES = ((RAGGED_ARCH, 2 * 1024 * 8, 32, 1024, 512),
+                 ("mixtral-8x7b", 2 * 1024 * 2, 8, 4096, 14336))
 
 # the cost-model phase: the reference's scale workload (BENCH_scale.json,
 # benchmarks/engine_scale.py) at K=1024, 2 timed epochs after a 1-epoch warm-up,
@@ -2211,8 +2261,10 @@ def drive_mesh_train(device: str, seed: int, rehearsal: bool,
 
 # ------------------------------------------------------------------ dryrun ----
 
-DRYRUN_PAIRS = {"qwen3-1.7b": ("train_4k", "prefill_32k", "decode_32k"),
-                "mixtral-8x7b": ("train_4k",)}
+# (arch, shapes, variant): one dry-run process each
+DRYRUN_PAIRS = (("qwen3-1.7b", ("train_4k", "prefill_32k", "decode_32k"), "baseline"),
+                ("mixtral-8x7b", ("train_4k",), "baseline"),
+                ("granite-moe-1b-a400m", ("decode_32k",), "ragged_moe"))
 
 
 def start_dryrun(rehearsal: bool) -> dict:
@@ -2221,16 +2273,19 @@ def start_dryrun(rehearsal: bool) -> dict:
     root = Path(__file__).resolve().parent
     workdir = Path(tempfile.mkdtemp(prefix="dryrun_"))
     env = {**os.environ, "PYTHONPATH": str(root / "src"), "CUDA_VISIBLE_DEVICES": ""}
-    pairs = {"qwen3-1.7b": ("long_500k",)} if rehearsal else DRYRUN_PAIRS
+    pairs = ((("qwen3-1.7b", ("long_500k",), "baseline"),
+              ("granite-moe-1b-a400m", ("long_500k",), "ragged_moe"))
+             if rehearsal else DRYRUN_PAIRS)
     procs = {}
     atexit.register(_stop_dryrun, procs)
-    for arch, shapes in pairs.items():
-        out = workdir / f"{arch}.jsonl"
-        log_file = open(workdir / f"{arch}.log", "w")
-        procs[arch] = (subprocess.Popen(
+    for arch, shapes, variant in pairs:
+        name = f"{arch}.{variant}"
+        out = workdir / f"{name}.jsonl"
+        log_file = open(workdir / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-             *shapes, "--out", str(out)], cwd=root, env=env, stdout=log_file,
-            stderr=subprocess.STDOUT), out, log_file)
+             *shapes, "--variant", variant, "--out", str(out)], cwd=root, env=env,
+            stdout=log_file, stderr=subprocess.STDOUT), out, log_file)
     return {"workdir": workdir, "env": env, "root": root, "procs": procs,
             "t0": time.perf_counter()}
 
@@ -2247,12 +2302,12 @@ def finish_dryrun(run: dict) -> dict:
     """Wait for the dry-run processes, read their records, run the roofline
     CLI on them, check and print each pair."""
     records = []
-    for arch, (proc, out, log_file) in run["procs"].items():
+    for name, (proc, out, log_file) in run["procs"].items():
         rc = proc.wait(timeout=900)
         log_file.close()
         if rc != 0:
-            tail = (run["workdir"] / f"{arch}.log").read_text()[-3000:]
-            raise SystemExit(f"FAILED: the dry run of {arch} exited {rc}:\n{tail}")
+            tail = (run["workdir"] / f"{name}.log").read_text()[-3000:]
+            raise SystemExit(f"FAILED: the dry run of {name} exited {rc}:\n{tail}")
         records += [json.loads(line) for line in out.read_text().splitlines() if line]
     wall = time.perf_counter() - run["t0"]
     paths = [str(out) for _, out, _ in run["procs"].values()]
@@ -2265,7 +2320,7 @@ def finish_dryrun(run: dict) -> dict:
         log(f"  {line}")
     report = {}
     for rec in records:
-        tag = f"{rec['arch']} x {rec['shape']}"
+        tag = f"{rec['arch']} x {rec['shape']} ({rec['variant']})"
         check("error" not in rec, f"dry run {tag}: no error ({rec.get('error')})")
         row = roofline.analyze_record(rec)
         chips = row.chips
@@ -2286,6 +2341,376 @@ def finish_dryrun(run: dict) -> dict:
                        "useful_ratio": row.useful_ratio}
     log(f"[dryrun] {len(records)} pairs in {wall:.1f} s of wall time beside the card's phases")
     return report
+
+
+# ------------------------------------------------------------------ ragged ----
+
+def _grouped_inputs(m: int, e: int, d: int, f: int, dtype, seed: int, device):
+    """x [M, d], w [E, d, f], dy [M, f] and the offsets of group sizes drawn
+    from a Dirichlet over the experts with two of them empty (the first and
+    the middle one), as a router's sorted assignments fall."""
+    r = np.random.default_rng(seed)
+    p = r.dirichlet(np.ones(e))
+    p[[0, e // 2]] = 0.0
+    sizes = r.multinomial(m, p / p.sum())
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32),
+                              device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((m, d), generator=g, device=device) * d ** -0.5).to(dtype)
+    w = torch.randn((e, d, f), generator=g, device=device).to(dtype)
+    dy = torch.randn((m, f), generator=g, device=device).to(dtype)
+    return x, w, dy, offsets, sizes
+
+
+def _grouped_agrees(got, want, dtype) -> tuple[float, bool]:
+    err = _max_err(got, want)
+    if dtype == torch.float32:      # 1e-5 of the plain version's scale (f32 sums of d terms)
+        return err, err <= 1e-5 * max(1.0, float(want.float().abs().max()))
+    return err, bool(torch.allclose(got.float(), want.float(), atol=5e-2, rtol=3e-2))
+
+
+def _library_grouped(call, loop, dtype, what: str):
+    """The one PyTorch call for a grouped product (``torch._grouped_mm``),
+    checked against the loop of per-group ``torch.matmul``s first, where this
+    torch takes the dtype; else that loop. Returns (callable, name)."""
+    try:
+        out = call()
+        torch.cuda.synchronize()
+        if _grouped_agrees(out, loop(), dtype)[1]:
+            return call, what
+        log(f"    {what} disagrees with the loop on {dtype}")
+    except Exception as exc:  # noqa: BLE001 — this torch does not take it
+        log(f"    {what} refuses {dtype}: {type(exc).__name__}: "
+            f"{str(exc).splitlines()[0][:160]}")
+    return loop, "per-group torch.matmul loop"
+
+
+def check_grouped_kernels(device) -> tuple[dict, dict]:
+    """``grouped_mm`` (and its transposed product, the input gradient) and
+    ``grouped_mm_wgrad`` against their plain versions on the card, f32 and
+    bf16, at the MoE prefill shapes of ``RAGGED_SHAPES``, two experts empty;
+    then each one's time beside its bound, its plain version's and the
+    library's. Returns the worst errors and the kernels-line timing keys
+    (granite-moe's f32 shape in the row, every shape under ``shapes``)."""
+    worst = {"grouped_mm": 0.0, "grouped_mm_wgrad": 0.0}
+    rows = {"grouped_mm": [], "grouped_mm_wgrad": []}
+    for arch, m, e, d, f in RAGGED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy, offsets, sizes = _grouped_inputs(m, e, d, f, dtype, m + e, device)
+            bounds = list(zip(np.concatenate([[0], np.cumsum(sizes)])[:-1].tolist(),
+                              np.cumsum(sizes).tolist()))
+            tag = f"{arch} prefill {dtype}: M={m}, E={e}, d={d}, f={f}, groups {sizes.tolist()}"
+            with full_f32_matmul():
+                cases = {
+                    "grouped_mm": (lambda: gmm.kernel.grouped_mm(x, w, offsets),
+                                   lambda: gmm.grouped_mm_ref(x, w, offsets)),
+                    "grouped_mm/trans": (
+                        lambda: gmm.kernel.grouped_mm(dy, w, offsets, trans_w=True),
+                        lambda: gmm.grouped_mm_ref(dy, w, offsets, trans_w=True)),
+                    "grouped_mm_wgrad": (lambda: gmm.kernel.grouped_mm_wgrad(x, dy, offsets),
+                                         lambda: gmm.grouped_mm_wgrad_ref(x, dy, offsets)),
+                }
+                for name, (fn, plain) in cases.items():
+                    got = fn()
+                    torch.cuda.synchronize()
+                    err, ok = _grouped_agrees(got, plain(), dtype)
+                    key = name.split("/")[0]
+                    worst[key] = max(worst[key], err)
+                    check(ok, f"{name} vs plain, {tag}: max err {err:.2e}")
+                    del got
+                esize = x.element_size()
+                flop_rate = hw.F32_FLOP_PER_S if dtype == torch.float32 else hw.BF16_FLOP_PER_S
+                flops = 2 * m * d * f
+                big = dict(inner=2, reps=5, warm=2)
+                ends = offsets[1:].contiguous()
+                library, lib_name = _library_grouped(
+                    lambda: torch._grouped_mm(x, w, offs=ends),
+                    lambda: torch.cat([x[lo:hi] @ w[i] for i, (lo, hi) in enumerate(bounds)]),
+                    dtype, "torch._grouped_mm(x, w)")
+                row = _timed(cases["grouped_mm"][0], cases["grouped_mm"][1], library,
+                             (m * d + e * d * f + m * f) * esize + (e + 1) * 4, flops,
+                             f"{tag}; library: {lib_name}", flop_rate=flop_rate, **big)
+                rows["grouped_mm"].append({"arch": arch, "dtype": str(dtype), **row})
+                # the weight gradient's one call: 2-D x 2-D, the offsets along
+                # the summed axis, [d, M] x [M, f] -> [E, d, f]
+                wlib, wlib_name = _library_grouped(
+                    lambda: torch._grouped_mm(x.t(), dy, offs=ends),
+                    lambda: torch.stack([x[lo:hi].T @ dy[lo:hi] for lo, hi in bounds]),
+                    dtype, "torch._grouped_mm(x.T, dy)")
+                row = _timed(cases["grouped_mm_wgrad"][0], cases["grouped_mm_wgrad"][1], wlib,
+                             (m * d + m * f + e * d * f) * esize + (e + 1) * 4, flops,
+                             f"{tag}; library: {wlib_name}", flop_rate=flop_rate, **big)
+                rows["grouped_mm_wgrad"].append({"arch": arch, "dtype": str(dtype), **row})
+            for name in rows:
+                log(f"  {name} {json.dumps(rows[name][-1])}")
+            del x, w, dy, offsets
+            torch.cuda.empty_cache()
+    # the row: granite-moe's f32 prefill shape, the phase's main path
+    timings = {name: {**{k: v for k, v in r[0].items() if k not in ("arch", "dtype")},
+                      "shapes": r} for name, r in rows.items()}
+    return worst, timings
+
+
+def _ragged_launches() -> dict:
+    return dict(gmm.kernel.launch_counts)
+
+
+def drive_ragged_serve(device: str, seed: int, rehearsal: bool) -> tuple[dict, dict]:
+    """granite-moe-1b-a400m at full width (24/24 layers) through
+    ``launch.serve.generate`` with ``moe_impl="ragged"`` (the main path of this
+    phase, counters zeroed just before and read just after): 2 x 1,024 tokens,
+    16 greedy steps; then the dense MoE on the same weights and prompts.
+    Returns the main path's launches and the report."""
+    on_card = device != "cpu"
+    whole = get_config(RAGGED_ARCH)
+    cfg, b, s, gen = whole, ZOO_BATCH, ZOO_PROMPT, ZOO_GEN
+    if rehearsal:
+        cfg, b, s, gen = whole.reduced(), 2, 70, 4
+    ragged = replace(cfg, moe_impl="ragged")
+    generator = torch.Generator(device=device).manual_seed(seed)
+    params = transformer.init_params(generator, cfg, device=device)
+    tokens = torch.randint(0, cfg.true_vocab_size, (b, s), generator=generator, device=device)
+    impl = fa.make_attn_impl(window=cfg.sliding_window)
+    serve.generate(params, tokens[:1, :64], ragged, gen=2, attn_impl=impl)    # warm-up
+    log(f"[ragged] {cfg.name}: {cfg.num_layers}/{whole.num_layers} layers, {cfg.num_experts} "
+        f"experts top-{cfg.top_k}, d_model {cfg.d_model}, d_ff {cfg.d_ff}; B={b}, prompt {s}, "
+        f"{gen} steps, moe_impl='ragged' against 'dense'")
+
+    runs = {}
+    for name, run_cfg in (("ragged", ragged), ("dense", cfg)):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels_lib.reset_launch_counts()       # the main path: the ragged run
+        res = serve.generate(params, tokens, run_cfg, gen=gen, attn_impl=impl)
+        runs[name] = (res, _ragged_launches(),
+                      torch.cuda.max_memory_allocated() / 2**20 if on_card else None)
+    (rg, launches, peak_r), (dn, dense_launches, peak_d) = runs["ragged"], runs["dense"]
+    err = _max_err(rg.prefill_logits, dn.prefill_logits)
+    same = bool(torch.equal(rg.tokens, dn.tokens))
+    report = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b, "prompt": s, "gen": gen,
+              "prefill_s": {"ragged": rg.prefill_s, "dense": dn.prefill_s},
+              "decode_ms_per_token": {"ragged": rg.decode_s / gen * 1e3,
+                                      "dense": dn.decode_s / gen * 1e3},
+              "peak_device_memory_mb": {"ragged": peak_r, "dense": peak_d},
+              "prefill_logits_max_abs_diff": err, "same_tokens": same,
+              "launches": launches, "dense_launches": dense_launches}
+    check(bool(torch.isfinite(rg.prefill_logits).all()) and rg.tokens.shape == (b, gen),
+          f"{cfg.name} ragged generate: finite logits, {gen} tokens per prompt")
+    check(err <= 1e-3, f"{cfg.name} ragged vs dense prefill logits: max diff {err:.2e} "
+          "(atol 1e-3)")
+    check(same, f"{cfg.name} ragged and dense greedy tokens equal: {same}")
+    if on_card:
+        want = 3 * cfg.num_layers * (1 + gen)
+        check(launches == {"grouped_mm": want, "grouped_mm_wgrad": 0}
+              and dense_launches["grouped_mm"] == 0,
+              f"{cfg.name} ragged: grouped_mm launched {launches['grouped_mm']} times = 3 "
+              f"products x {cfg.num_layers} layers x (prefill + {gen} steps) = {want}; the "
+              f"dense run {dense_launches['grouped_mm']}")
+    del params, runs, rg, dn
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[ragged] {json.dumps(report)}")
+    return launches, report
+
+
+RAGGED_GRAD_RTOL = 1e-3       # of each leaf's largest |gradient|; a wrong product is O(1)
+
+
+def _routing(ids: list, forced: list | None = None):
+    """``moe.router_topk`` that appends each call's top-k ids to ``ids``. With
+    ``forced``, call i takes ``forced[i]`` for its ids: the weights gathered
+    from its own softmax and renormalised, the aux loss from those ids, as
+    ``router_topk`` computes them from its own."""
+    real = moe_lib.router_topk
+
+    def router(logits, top_k):
+        weights, idx, aux = real(logits, top_k)
+        if forced is not None:
+            idx = forced[len(ids)]
+            probs = torch.softmax(logits.float(), dim=-1)
+            weights = probs.gather(-1, idx)
+            weights = (weights / weights.sum(dim=-1, keepdim=True).clamp(min=1e-9)).to(
+                logits.dtype)
+            e = logits.shape[-1]
+            aux = e * torch.sum(F.one_hot(idx, e).float().sum(dim=1).mean(dim=0)
+                                * probs.mean(dim=0))
+        ids.append(idx)
+        return weights, idx, aux
+    return router
+
+
+def _leaf_diffs(got: dict, want: dict) -> dict:
+    """Each leaf's max |diff| over its largest |want|; the worst leaf, the MoE
+    leaves' and the embedding's; the entries whose sign differs, and the
+    largest such |want| over its leaf's scale."""
+    rel, flips, flip_max = {}, 0, 0.0
+    for name, g in got.items():
+        w = want[name]
+        scale = float(w.abs().max())
+        rel[name] = float((g - w).abs().max()) / scale if scale > 0 else 0.0
+        flip = g.sign() != w.sign()
+        flips += int(flip.sum())
+        if scale > 0 and bool(flip.any()):
+            flip_max = max(flip_max, float(w[flip].abs().max()) / scale)
+    worst = max(rel, key=rel.get)
+    return {"worst_leaf": worst, "worst_rel_diff": rel[worst],
+            "moe_rel_diff": max(v for n, v in rel.items() if "/moe/" in n),
+            "embed_rel_diff": rel["embed"], "sign_flips": flips,
+            "entries": sum(g.numel() for g in got.values()), "largest_flipped_rel": flip_max}
+
+
+def check_ragged_grads(cfg, v: int, b: int, s: int, seed: int, device: str) -> dict:
+    """Vehicle 0's gradients of ``lm_loss`` from the train runs' shared init
+    and on their round-1 tokens, through the ragged MoE (the kernels'
+    backward: the transposed ``grouped_mm`` and ``grouped_mm_wgrad``) and the
+    dense one. The top-k is discrete: where two experts' router logits are
+    within rounding of each other, the two paths' f32 sums can pick
+    different experts for a token from the second layer on, and that token's
+    gradient then differs by O(1) in the experts it reached. So the dense run
+    is made twice: routing itself (the layers and tokens whose expert set
+    differs, and the gradients' distance, are read, not held) and routing as
+    the ragged run did (``_routing``), which is held to ``RAGGED_GRAD_RTOL``
+    on every leaf. No remat: each layer's router runs once, in order."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, _, _ = steps.init_train_state(cfg, v, gen, device=device)
+    tokens = torch.randint(0, cfg.true_vocab_size, (v, b, s), generator=gen, device=device)
+    leaves = {name: leaf[0].detach().requires_grad_()
+              for name, leaf in steps.flatten(params).items()}
+    del params
+
+    def grads_of(impl: str, ids: list, forced: list | None = None) -> dict:
+        real = moe_lib.router_topk
+        moe_lib.router_topk = _routing(ids, forced)
+        try:
+            loss = transformer.lm_loss(steps.unflatten(leaves), tokens[0],
+                                       replace(cfg, moe_impl=impl), remat=False)
+            return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        finally:
+            moe_lib.router_topk = real
+
+    ragged_ids, dense_ids = [], []
+    ragged = grads_of("ragged", ragged_ids)
+    own = _leaf_diffs(ragged, grads_of("dense", dense_ids))
+    differs = [int((a.sort(dim=-1).values != d.sort(dim=-1).values).any(dim=-1).sum())
+               for a, d in zip(ragged_ids, dense_ids)]
+    own["routing_differs"] = {"token_layers": sum(differs), "of": sum(map(len, ragged_ids)),
+                              "per_layer": differs}
+    same = _leaf_diffs(ragged, grads_of("dense", [], forced=ragged_ids))
+    report = {"own_routing": own, "same_routing": same, "rtol": RAGGED_GRAD_RTOL}
+    log(f"  vehicle 0's gradients, ragged vs dense routing itself: worst leaf "
+        f"{own['worst_leaf']} {own['worst_rel_diff']:.2e}, MoE {own['moe_rel_diff']:.2e}, embed "
+        f"{own['embed_rel_diff']:.2e}; expert sets differ at {sum(differs)} of "
+        f"{own['routing_differs']['of']} (token, layer) pairs, per layer {differs}")
+    check(same["worst_rel_diff"] <= RAGGED_GRAD_RTOL,
+          f"{cfg.name} vehicle 0's gradients from the shared init, ragged vs dense routed as "
+          f"the ragged run: worst leaf {same['worst_leaf']} {same['worst_rel_diff']:.2e}, MoE "
+          f"leaves {same['moe_rel_diff']:.2e}, embed {same['embed_rel_diff']:.2e} of the "
+          f"leaf's largest |gradient| (<= {RAGGED_GRAD_RTOL:g}); {same['sign_flips']} of "
+          f"{same['entries']} entries differ in sign, the largest of them "
+          f"{same['largest_flipped_rel']:.2e} of its leaf's scale")
+    del leaves, ragged, tokens
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return report
+
+
+def drive_ragged_train(device: str, seed: int, rehearsal: bool) -> tuple[dict, dict]:
+    """granite-moe-1b-a400m at full width through ``steps.build_dds_train_step``,
+    V=2, B=2 x 1,024, E=1, TRAIN_ROUNDS rounds with ``moe_impl="ragged"`` (the
+    main path: the kernels forward and backward) and then with the dense MoE,
+    each from the same seeded init and tokens; first ``check_ragged_grads``
+    on that init. Returns the ragged run's launches and the report."""
+    on_card = device != "cpu"
+    whole = get_config(RAGGED_ARCH)
+    cfg, v, b, s = whole, TRAIN_V, TRAIN_B, TRAIN_S
+    if rehearsal:
+        cfg, s = whole.reduced(), 32
+    contact = train_cli.ring_contact(v, device)
+    target = torch.full((v,), 1.0 / v, device=device)
+    grads = check_ragged_grads(cfg, v, b, s, seed, device)
+    out, after_round1 = {}, {}
+    for impl in ("ragged", "dense"):
+        run_cfg = replace(cfg, moe_impl=impl)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params, opt, sm = steps.init_train_state(run_cfg, v, gen, device=device)
+        ts = steps.build_dds_train_step(run_cfg, lr=TRAIN_LR, p1_steps=TRAIN_P1)
+        probe = _probe(params)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels_lib.reset_launch_counts()
+        history = []
+        for _ in range(TRAIN_ROUNDS):
+            tokens = torch.randint(0, cfg.true_vocab_size, (v, b, s), generator=gen,
+                                   device=device)
+            t0 = time.perf_counter()
+            params, opt, sm, metrics = ts.fn(params, opt, sm, tokens, contact, target)
+            history.append({**{k: float(x) for k, x in metrics.items()},   # waits for the round
+                            "seconds": time.perf_counter() - t0})
+            if len(history) == 1:
+                after_round1[impl] = _probe(params)
+        out[impl] = _train_report(run_cfg, whole, v, b, s, history, _ragged_launches(),
+                                  on_card, moe_impl=impl)
+        _round_checks(f"{run_cfg.name} ({impl})", history, sm, _moved(params, probe))
+        del params, opt, sm, ts
+        if on_card:
+            torch.cuda.empty_cache()
+    launches = {k: out["ragged"][k] for k in ("grouped_mm", "grouped_mm_wgrad")}
+    loss_r, loss_d = out["ragged"]["loss"][0], out["dense"]["loss"][0]
+    check(abs(loss_r - loss_d) <= 1e-4 * abs(loss_d),
+          f"{cfg.name} round 1 loss, ragged {loss_r:.6f} vs dense {loss_d:.6f} (rtol 1e-4)")
+    if on_card:
+        products = 3 * cfg.num_layers * v * TRAIN_ROUNDS     # one per product, vehicle, step
+        check(launches["grouped_mm_wgrad"] == products and launches["grouped_mm"] >= 2 * products
+              and out["dense"]["grouped_mm"] == 0,
+              f"{cfg.name} ragged rounds: grouped_mm_wgrad launched "
+              f"{launches['grouped_mm_wgrad']} times = 3 products x {cfg.num_layers} layers x "
+              f"{v} vehicles x {TRAIN_ROUNDS} rounds; grouped_mm {launches['grouped_mm']} "
+              "(forward, remat's recompute, input gradient)")
+    # round 1's parameter change, ragged against dense, in units of the lr
+    # (read on the first 4,096 entries of every leaf, as ``_moved``)
+    step_diff = max(_max_err(after_round1["ragged"][n], p)
+                    for n, p in after_round1["dense"].items()) / TRAIN_LR
+    report = {"ragged": out["ragged"], "dense": out["dense"], "gradients": grads,
+              "round1_update_max_diff_in_lr": step_diff}
+    log(f"[ragged] train {json.dumps(report)}")
+    return launches, report
+
+
+def drive_ragged(device: str, seed: int, rehearsal: bool) -> tuple[dict, dict]:
+    """The ragged phase's two main paths. Returns their launches, summed,
+    and the report."""
+    t0 = time.perf_counter()
+    serve_launches, serve_report = drive_ragged_serve(device, seed, rehearsal)
+    train_launches, train_report = drive_ragged_train(device, seed, rehearsal)
+    launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
+    log(f"[ragged] phase took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches, {"serve": serve_report, "train": train_report}
+
+
+# ---------------------------------------------------------------- examples ----
+
+EXAMPLES = ("torch_quickstart.py", "torch_scenario_sweep.py", "torch_multiarch_dfl.py",
+            "torch_vehicular_mnist_e2e.py", "torch_serve_batched.py")
+
+
+def drive_examples(device: str) -> dict:
+    """Each torch example with ``--smoke`` on ``device`` as a subprocess, as a
+    user starts it; a non-zero exit or a missing ``OK`` line fails the run."""
+    root = Path(__file__).resolve().parent
+    seconds = {}
+    for script in EXAMPLES:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(root / "examples" / script), "--smoke",
+                              "--device", device], capture_output=True, text=True, cwd=root,
+                             timeout=600)
+        seconds[script] = time.perf_counter() - t0
+        ok = [line for line in run.stdout.splitlines() if " OK" in line]
+        check(run.returncode == 0 and bool(ok),
+              f"examples/{script} --smoke --device {device}: exit {run.returncode}, "
+              f"{ok[-1] if ok else run.stderr[-1500:]} ({seconds[script]:.1f} s)")
+    return seconds
 
 
 # --------------------------------------------------------------- main path ----
@@ -3285,6 +3710,11 @@ def main() -> int:
         with full_f32_matmul():
             timings.update(time_flash_attention(device))
         timings["flash_attention"].update(fa_errors)
+        log("[kernels] grouped_mm / grouped_mm_wgrad at the MoE prefill shapes (ms, CUDA "
+            "events, median)")
+        grouped_worst, grouped_timings = check_grouped_kernels(device)
+        worst.update(grouped_worst)
+        timings.update(grouped_timings)
 
     if args.kernels_only:
         log("[kernels-only] stopping before the main path")
@@ -3378,6 +3808,13 @@ def main() -> int:
     mesh_launches, mesh_err, mesh_timing, _ = drive_mesh_train(device, args.seed, rehearsal,
                                                                round1)
     del round1
+
+    # -- 8f. ragged: granite-moe through the grouped products, served and trained
+    ragged_launches, _ = drive_ragged(device, args.seed, rehearsal)
+    launches.update(ragged_launches)
+
+    # -- 8g. examples: every torch example with --smoke, as a user starts it --
+    log(f"[examples] {json.dumps(drive_examples(device))}")
 
     # -- 8e. dryrun: the records of the processes started after the build ----
     finish_dryrun(dryrun)

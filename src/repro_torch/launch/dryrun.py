@@ -34,7 +34,11 @@ reference's ``--lower-only`` and ``--dump-hlo`` have no meaning here (nothing
 is lowered, there is no HLO). The dry run launches no CUDA kernel: the
 baseline runs the plain path (``mix_params_fn=aggregation.mix_params``, the
 reference's default); a kernel's wrapper reached on meta tensors fails the
-pair, as does the ragged MoE, which reads its group sizes on the host.
+pair. The ragged MoE (``ragged_moe``, ``opt_ragged``) steps through its
+grouped products as the custom ops ``repro_torch::grouped_mm`` /
+``grouped_mm_wgrad``: their fake implementations give the shapes on meta
+tensors, their flop formulas 2·M·K·N per product, and their traffic is
+counted as any op's (operand plus result bytes, the whole expert stack).
 
 Importing this module brings up no process group and does not initialise
 CUDA: ``dryrun_pair`` brings up a fake group of its own when none is up, and

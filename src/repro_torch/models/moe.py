@@ -7,11 +7,14 @@ Counterpart of ``repro.models.moe`` (same names, parameter tree and layouts:
   token and folds the router's combine weights into the down projection, so
   the ``[E, N, d]`` all-expert output is never built.
 * ``ragged`` sorts the N*k (token, expert) assignments by expert (a stable
-  sort, as ``jnp.argsort``), runs one product per expert on its contiguous
-  slice where the reference calls ``jax.lax.ragged_dot``, and adds each
-  output back to its token with ``index_add_``. The group sizes are read on
-  the host. On CUDA ``index_add_`` uses atomics, so this path is not bitwise
-  repeatable there: hold it to ``dense`` by tolerance.
+  sort, as ``jnp.argsort``), finds each expert's slice as offsets on the
+  device (``searchsorted`` of the sorted ids: static shapes, nothing read on
+  the host, so it runs on meta tensors), runs the three SwiGLU products as
+  grouped products over those slices where the reference calls
+  ``jax.lax.ragged_dot`` (``kernels.grouped_mm``: the hand-written kernel on
+  CUDA, its plain version on the CPU), and adds each output back to its token
+  with ``index_add_``. On CUDA ``index_add_`` uses atomics, so this path is
+  not bitwise repeatable there: hold it to ``dense`` by tolerance.
 
 Router: softmax over the expert logits in f32, top-k, the selected weights
 renormalised (Mixtral's convention), and the Switch / GShard load-balance
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels.grouped_mm import ops as grouped
 from . import layers
 
 Tensor = torch.Tensor
@@ -66,7 +70,7 @@ def moe_dense(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:
     # the top-k ids of a row are distinct: each (n, e) holds one weight or 0
     combine = weights.new_zeros((x.shape[0], cfg.num_experts)).scatter_(1, idx, weights)  # [N, E]
     if layers.is_dtensor(x):
-        return _experts_on_shards(p, x, combine), aux
+        return _on_shards(_experts, p, x, [combine]), aux
     return _experts(p, x, combine), aux
 
 
@@ -77,14 +81,16 @@ def _experts(p: dict, x: Tensor, combine: Tensor) -> Tensor:
     return torch.einsum("enf,efd->nd", h, p["w_down"])
 
 
-def _experts_on_shards(p: dict, x: Tensor, combine: Tensor) -> Tensor:
-    """``_experts`` of DTensors (a mesh's steps), run on each rank's shards:
-    over a mesh dim that shards the experts' hidden dim f (gate / up
-    column-parallel, down row-parallel) each rank computes its f block for
-    every token and the output is a partial sum there; over a mesh dim that
-    shards the tokens, each rank its tokens; everything else gathered.
-    (DTensor's own propagation would merge a sharded token dim into the
-    broadcast products' batch dim, which some torch versions refuse.)"""
+def _on_shards(fn, p: dict, x: Tensor, per_token: list) -> Tensor:
+    """``fn(weights, x, *per_token)`` (either path's experts) on DTensors (a
+    mesh's steps), run on each rank's shards; ``per_token`` are [N, ...]
+    tensors placed as the tokens. Over a mesh dim that shards the experts'
+    hidden dim f (gate / up column-parallel, down row-parallel) each rank
+    computes its f block for every token and the output is a partial sum
+    there; over a mesh dim that shards the tokens, each rank its tokens;
+    everything else gathered. (DTensor's own propagation would merge a
+    sharded token dim into the broadcast products' batch dim, which some
+    torch versions refuse, and cannot run the grouped products at all.)"""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = x.device_mesh
@@ -98,35 +104,39 @@ def _experts_on_shards(p: dict, x: Tensor, combine: Tensor) -> Tensor:
         x_to.append(Shard(0) if tokens else Replicate())
         out_to.append(Partial() if f_sharded else Shard(0) if tokens else Replicate())
 
-    names = list(w_to)
+    names, t = list(w_to), len(per_token)
     return layers.on_shards(
-        lambda x_l, c_l, *w_l: _experts(dict(zip(names, w_l)), x_l, c_l), mesh,
-        [(x, x_to), (combine, x_to)] + [(p[name], w_to[name]) for name in names], [out_to])
+        lambda x_l, *rest: fn(dict(zip(names, rest[t:])), x_l, *rest[:t]), mesh,
+        [(x, x_to)] + [(y, x_to) for y in per_token]
+        + [(p[name], w_to[name]) for name in names], [out_to])
 
 
 def moe_ragged(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:
-    """Dropless sorted dispatch: N*k assignments sorted by expert id, one
-    SwiGLU per expert on its slice, outputs added back per token."""
-    n = x.shape[0]
-    e, k = cfg.num_experts, cfg.top_k
-    weights, idx, aux = router_topk(x @ p["router"], k)
+    """Dropless sorted dispatch: N*k assignments sorted by expert id, the
+    SwiGLU's three products grouped over the experts' slices, outputs added
+    back per token."""
+    weights, idx, aux = router_topk(x @ p["router"], cfg.top_k)
+    if layers.is_dtensor(x):
+        return _on_shards(lambda w, *local: _ragged(w, *local, cfg.num_experts),
+                          p, x, [weights, idx]), aux
+    return _ragged(p, x, weights, idx, cfg.num_experts), aux
 
+
+def _ragged(p: dict, x: Tensor, weights: Tensor, idx: Tensor, e: int) -> Tensor:
+    k = idx.shape[1]
     flat_expert = idx.reshape(-1)                                             # [N*k]
-    flat_token = torch.arange(n, device=x.device).repeat_interleave(k)       # [N*k]
     order = torch.argsort(flat_expert, stable=True)
-    sorted_token = flat_token[order]
+    sorted_token = order // k                  # flat index n*k + j belongs to token n
     sorted_weight = weights.reshape(-1)[order]
+    # offsets[e] = the number of assignments to experts below e
+    offsets = torch.searchsorted(flat_expert[order],
+                                 torch.arange(e + 1, device=x.device, dtype=idx.dtype),
+                                 out_int32=True)
     xs = x[sorted_token]                                                      # [N*k, d]
-    group_sizes = torch.bincount(flat_expert, minlength=e).tolist()
-
-    y = torch.empty_like(xs)
-    start = 0
-    for j, size in enumerate(group_sizes):
-        rows = slice(start, start + size)
-        y[rows] = layers.swiglu(xs[rows], p["w_gate"][j], p["w_up"][j], p["w_down"][j])
-        start += size
-    out = torch.zeros_like(x).index_add_(0, sorted_token, y * sorted_weight[:, None])
-    return out, aux
+    g = grouped.grouped_mm(xs, p["w_gate"], offsets)
+    u = grouped.grouped_mm(xs, p["w_up"], offsets)
+    y = grouped.grouped_mm(F.silu(g) * u, p["w_down"], offsets)
+    return torch.zeros_like(x).index_add_(0, sorted_token, y * sorted_weight[:, None])
 
 
 def moe_ffn(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:

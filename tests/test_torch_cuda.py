@@ -1188,3 +1188,129 @@ def test_mix_params_cuda__on_a_transformer_tree_of_few_vehicles(card, k):
     wide = torch.eye(100, device=card)
     with pytest.raises(ValueError):
         mix_params_cuda_(wide, {"a": torch.zeros(100, 8, device=card)})
+
+
+# ------------------------------------------------------ grouped products ----
+
+# (M, K, N, group sizes): empty groups first, inside and last; rows past the
+# last group; tiles that straddle several boundaries; ragged K and N
+GROUPED = [(12, 24, 20, [3, 0, 5, 0, 2]), (130, 70, 33, [0, 64, 1, 0, 65]),
+           (300, 128, 64, [50] * 6), (1000, 96, 130, [0] * 7 + [1000]),
+           (257, 40, 256, [100, 0, 0, 157]), (64, 16, 16, [1] * 64)]
+
+
+def _grouped_case(m, k, n, sizes, dtype, seed, card):
+    r = np.random.default_rng(seed)
+    x = torch.as_tensor(r.normal(size=(m, k)).astype(np.float32) / np.sqrt(k))
+    w = torch.as_tensor(r.normal(size=(len(sizes), k, n)).astype(np.float32))
+    dy = torch.as_tensor(r.normal(size=(m, n)).astype(np.float32))
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32))
+    return [t.to(card) if t.dtype == torch.int32 else t.to(dtype).to(card)
+            for t in (x, w, dy, offsets)]
+
+
+def _within_scale(got, want, dtype):
+    if dtype == torch.float32:      # 1e-5 of the plain version's scale
+        return _err(got, want) <= 1e-5 * max(1.0, float(want.float().abs().max()))
+    return torch.allclose(got.float(), want.float(), atol=5e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans_w", [False, True])
+@pytest.mark.parametrize("m,k,n,sizes", GROUPED)
+def test_grouped_mm_kernel_matches_plain_version(card, m, k, n, sizes, trans_w, dtype):
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref, kernel as gk
+    x, w, _, offsets = _grouped_case(m, k, n, sizes, dtype, m + n, card)
+    if trans_w:
+        w = w.transpose(1, 2).contiguous()
+    before = gk.launch_counts["grouped_mm"]
+    got = gk.grouped_mm(x, w, offsets, trans_w)
+    torch.cuda.synchronize()
+    assert gk.launch_counts["grouped_mm"] == before + 1
+    assert got.shape == (m, n) and got.dtype == dtype
+    with full_f32_matmul():
+        want = grouped_mm_ref(x, w, offsets, trans_w)
+    assert _within_scale(got, want, dtype)
+    if sum(sizes) < m:
+        assert not got[sum(sizes):].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,sizes", GROUPED)
+def test_grouped_mm_wgrad_kernel_matches_plain_version(card, m, k, n, sizes, dtype):
+    from repro_torch.kernels.grouped_mm import grouped_mm_wgrad_ref, kernel as gk
+    x, _, dy, offsets = _grouped_case(m, k, n, sizes, dtype, m * n, card)
+    before = gk.launch_counts["grouped_mm_wgrad"]
+    got = gk.grouped_mm_wgrad(x, dy, offsets)
+    torch.cuda.synchronize()
+    assert gk.launch_counts["grouped_mm_wgrad"] == before + 1
+    assert got.shape == (len(sizes), k, n) and got.dtype == dtype
+    with full_f32_matmul():
+        want = grouped_mm_wgrad_ref(x, dy, offsets)
+    assert _within_scale(got, want, dtype)
+    for e, size in enumerate(sizes):
+        if size == 0:
+            assert not got[e].any()
+
+
+def test_grouped_mm_op_gradients_on_the_card_match_the_cpu(card):
+    """The custom op's backward on the card (the product with the transpose
+    flag flipped, and the weight-gradient kernel) against autograd of the
+    plain version on the CPU."""
+    from repro_torch.kernels.grouped_mm import kernel as gk, ops as gops
+    x, w, dy, offsets = _grouped_case(*GROUPED[1], torch.float32, 3, "cpu")
+    grads = {}
+    for device in ("cpu", card):
+        xt = x.to(device).detach().requires_grad_()
+        wt = w.to(device).detach().requires_grad_()
+        gk.reset_launch_counts()
+        with full_f32_matmul():
+            (gops.grouped_mm(xt, wt, offsets.to(device)) * dy.to(device)).sum().backward()
+        grads[str(device)] = (xt.grad.cpu(), wt.grad.cpu())
+    assert gk.launch_counts == {"grouped_mm": 2, "grouped_mm_wgrad": 1}
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _within_scale(got, want, torch.float32)
+
+
+def test_grouped_mm_wrapper_refusals(card):
+    from repro_torch.kernels.grouped_mm import kernel as gk
+    x, w, _, offsets = _grouped_case(*GROUPED[0], torch.float32, 0, card)
+    with pytest.raises(TypeError, match="one dtype"):
+        gk.grouped_mm(x, w.bfloat16(), offsets)
+    with pytest.raises(ValueError, match="int32"):
+        gk.grouped_mm(x, w, offsets.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.grouped_mm(x.T.contiguous().T, w, offsets)
+    with pytest.raises(ValueError, match="do not agree"):
+        gk.grouped_mm(x, w, offsets[:-1])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b"])
+def test_ragged_moe_on_the_card_matches_the_cpu_and_the_dense_path(card, arch):
+    """``moe_ragged`` of a reduced config on the card (three grouped launches
+    forward, six backward) against the CPU, and against ``moe_dense`` on the
+    card: output, the input's and every parameter's gradient (1e-4 of the scale:
+    ``index_add_`` sums with atomics on the card)."""
+    from repro_torch.kernels.grouped_mm import kernel as gk
+    from repro_torch.models import moe
+    cfg = get_config(arch).reduced()
+    params = moe.init_moe(torch.Generator().manual_seed(1), cfg)
+    r = np.random.default_rng(2)
+    x = torch.as_tensor(0.5 * r.normal(size=(96, cfg.d_model)).astype(np.float32))
+    ct = torch.as_tensor(r.normal(size=(96, cfg.d_model)).astype(np.float32))
+    runs = {}
+    for name, device, fn in (("cpu", "cpu", moe.moe_ragged), ("card", card, moe.moe_ragged),
+                             ("dense", card, moe.moe_dense)):
+        p = {n: v.to(device).detach().requires_grad_() for n, v in params.items()}
+        xt = x.to(device).detach().requires_grad_()
+        gk.reset_launch_counts()
+        with full_f32_matmul():
+            out, aux = fn(p, xt, cfg)
+            ((out * ct.to(device)).sum() + aux).backward()
+        torch.cuda.synchronize()
+        if name == "card":
+            assert gk.launch_counts == {"grouped_mm": 6, "grouped_mm_wgrad": 3}
+        runs[name] = [out.detach().cpu(), xt.grad.cpu()] + [p[n].grad.cpu() for n in sorted(p)]
+    for other in ("card", "dense"):
+        for got, want in zip(runs[other], runs["cpu"]):
+            assert _err(got, want) <= 1e-4 * max(1.0, float(want.abs().max())), other

@@ -11,9 +11,12 @@ most twice it (data 2 replicates the reads of each model shard's weights);
 decode on a pod x data x model mesh of 8 ranks moves about half the traffic
 of the data x model mesh of 4 (its KV cache split twice as far); the train
 round's collectives include the gossip mix's reduce-scatter (at least one
-vehicle's local parameter shard), serving has gathers. A pair
-that cannot run ends in an error record naming the port's line (the ragged
-MoE reads its group sizes on the host). ``dryrun_pair`` and the CLI bring up
+vehicle's local parameter shard), serving has gathers. The ragged MoE
+(``ragged_moe``, the reduced granite-moe) runs train, prefill and decode: its
+grouped products are custom ops with fake shapes and flop formulas, and their
+flops come to top_k / num_experts of the dense experts'. A pair that cannot
+run ends in an error record naming the port's line (a variant applied where
+it does not apply). ``dryrun_pair`` and the CLI bring up
 their own 256-rank group and tear it down (one cheap production pair).
 The other families run in ``test_torch_dryrun_families.py`` and
 ``test_torch_dryrun_hybrid_vlm.py`` (``check_family``).
@@ -195,14 +198,58 @@ def test_collectives_by_kind(records):
         assert coll.get("all-gather", 0) + coll.get("all-reduce", 0) > 0, kind
 
 
+class _GroupedFlops(dryrun.DeviceCounter):
+    """The dry run's counter, also keeping the flops of the grouped products."""
+
+    def __init__(self):
+        super().__init__()
+        self.grouped = 0
+        _GroupedFlops.last = self
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = self.flops
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if func.namespace == "repro_torch" and out is not NotImplemented:
+            self.grouped += self.flops - before
+        return out
+
+
+@pytest.mark.parametrize("kind", list(SHAPES))
+def test_a_ragged_pair_runs_on_the_fake_mesh(fake4, kind, monkeypatch):
+    """``ragged_moe`` on the reduced granite-moe: a record like any family's,
+    and the grouped products' flops top_k / num_experts of the dense
+    experts' (which are the dense pair's flops less everything else, the
+    same in both pairs). The train round runs without remat here: with it,
+    the dense path's recompute stops before its down product (whose output
+    no gradient needs), the ragged path's does not (the combine weights'
+    gradient needs it), which is one product more in twelve."""
+    arch = "granite-moe-1b-a400m"
+    cfg = get_config(arch).reduced()
+    overrides = {"p1_steps": P1_STEPS, "remat": False} if kind == "train" else None
+
+    def run(**kw):
+        return dryrun.run_pair(small_mesh(kind), arch, SHAPES[kind], cfg,
+                               step_overrides=overrides, **kw)
+
+    dense = run()
+    monkeypatch.setattr(dryrun, "DeviceCounter", _GroupedFlops)
+    rec = run(variant="ragged_moe")
+    check_family(rec, arch, kind)
+    assert rec["variant"] == "ragged_moe"
+    grouped = _GroupedFlops.last.grouped
+    dense_experts = dense["flops_per_device"] - (rec["flops_per_device"] - grouped)
+    ratio = grouped / dense_experts
+    assert abs(ratio - cfg.top_k / cfg.num_experts) <= 0.02, ratio
+
+
 def test_a_pair_that_cannot_run_records_its_line(fake4):
-    """The ragged MoE reads its expert group sizes on the host
-    (``models/moe.py``), which a meta tensor cannot give."""
+    """A variant applied where it does not apply (``ragged_moe`` on a dense
+    architecture) fails the pair at the port's line that refused it."""
     with pytest.raises(Exception) as err:
-        run_small("granite-moe-1b-a400m", "prefill", variant="ragged_moe")
-    rec = dryrun.error_record("granite-moe-1b-a400m", "prefill_small", False, err.value)
+        run_small(ARCH, "prefill", variant="ragged_moe")
+    rec = dryrun.error_record(ARCH, "prefill_small", False, err.value)
     assert set(rec) == {"arch", "shape", "multi_pod", "error"}
-    assert "models/moe.py:" in rec["error"]
+    assert "launch/variants.py:" in rec["error"] and "not applicable" in rec["error"]
 
 
 def test_dryrun_pair_and_cli_bring_up_and_tear_down_their_group(tmp_path, capsys):
@@ -216,10 +263,10 @@ def test_dryrun_pair_and_cli_bring_up_and_tear_down_their_group(tmp_path, capsys
     assert "[OK] qwen3-1.7b x long_500k (16x16)" in capsys.readouterr().out
     # a failing pair: the sweep goes on, the record holds the error, exit non-zero
     cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "granite-moe-1b-a400m",
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
          "--shape", "long_500k", "--variant", "ragged_moe", "--out", str(out)],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert cli.returncode != 0 and "1 dry-run failures" in cli.stderr
     failed = json.loads(out.read_text().splitlines()[-1])
-    assert "models/moe.py:" in failed["error"] and failed["variant"] == "ragged_moe"
+    assert "launch/variants.py:" in failed["error"] and failed["variant"] == "ragged_moe"

@@ -101,8 +101,9 @@ def test_head_dims_and_the_kernel_table():
     assert kernel.SOURCES["flash_attention"].is_file()
     from repro_torch import kernels
     assert kernel in kernels.KERNEL_MODULES
-    # a source per TPU kernel, and eg_solve.cu for the P1 loop over eg_step
-    assert sum(len(m.SOURCES) for m in kernels.KERNEL_MODULES) == 7
+    # a source per TPU kernel, eg_solve.cu for the P1 loop over eg_step and
+    # grouped_mm.cu for the ragged MoE's products (jax.lax.ragged_dot's port)
+    assert sum(len(m.SOURCES) for m in kernels.KERNEL_MODULES) == 8
 
 
 def test_module_imports_without_nvcc_or_a_gpu():

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` (every module of it) and
-``chip_smoke.py`` brings in neither ``jax`` nor the ``repro`` package; and
-nothing falls back to the CPU on its own."""
+"""The port stands alone: importing ``repro_torch`` (every module of it),
+``chip_smoke.py`` and the torch examples (``examples/torch_*.py``) brings in
+neither ``jax`` nor the ``repro`` package; and nothing falls back to the CPU
+on its own."""
 import pathlib
 import pkgutil
 import subprocess
@@ -47,7 +48,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.steps", "repro_torch.launch.variants",
             "repro_torch.optim.schedules", "repro_torch.launch.shapes",
             "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
-            "repro_torch.roofline.analysis"} <= set(names)
+            "repro_torch.roofline.analysis", "repro_torch.kernels.grouped_mm.kernel",
+            "repro_torch.kernels.grouped_mm.ops",
+            "repro_torch.kernels.grouped_mm.ref"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -87,6 +90,33 @@ def test_chip_smoke_imports_neither_and_fails_without_a_gpu():
                              capture_output=True, text=True, cwd=ROOT, env={"PATH": ""})
         assert run.returncode != 0
         assert '"ok"' not in run.stdout
+
+
+TORCH_EXAMPLES = ["torch_multiarch_dfl.py", "torch_quickstart.py", "torch_scenario_sweep.py",
+                  "torch_serve_batched.py", "torch_vehicular_mnist_e2e.py"]
+
+
+def test_torch_examples_import_neither_jax_nor_repro():
+    import ast
+    assert sorted(p.name for p in (ROOT / "examples").glob("torch_*.py")) == TORCH_EXAMPLES
+    for name in TORCH_EXAMPLES:
+        path = ROOT / "examples" / name
+        imported = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                imported |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                imported.add(node.module.split(".")[0])
+        assert not imported & {"jax", "jaxlib", "repro"} and "repro_torch" in imported, name
+        # loaded as a module (no __main__): its imports bring in neither
+        code = ("import sys, importlib.util\n"
+                f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+                "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+                "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+                "assert not bad, bad\n")
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             cwd=ROOT, env={"PATH": ""})
+        assert out.returncode == 0, (name, out.stderr)
 
 
 def test_importing_the_dry_run_starts_no_group_and_no_cuda():

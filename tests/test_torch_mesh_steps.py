@@ -23,8 +23,12 @@ the CPU), against the single-device steps and the reference.
   - serving meshes (1, 2) and (2, 1) (``data`` x ``model``): prefill and three
     decode steps of the reduced qwen3 (its KV cache sharded over its sequence
     on ``model``: ``write_slot``), and on (1, 2) of the reduced mixtral (its
-    experts on the shards), logits and caches.
+    experts on the shards), logits and caches; the ragged MoE
+    (``moe_impl="ragged"``: the grouped products on each rank's shards) of
+    mixtral on (1, 2) (its experts' hidden dim split, a partial sum) and of
+    granite-moe on (2, 1) (its tokens split).
 """
+import dataclasses
 import os
 import pickle
 import time
@@ -53,8 +57,9 @@ from test_torch_train_step import _one_thread  # noqa: F401  (autouse: one intra
 # the shapes of the meshes the two spawned ranks run on
 TRAIN_MESHES = {"vehicle2": (2, 1, 1), "model2": (1, 1, 2), "fsdp2": (1, 2, 1)}
 SERVE_MESHES = {"model2": (1, 2), "data2": (2, 1)}
-# (mesh, arch): the MoE's experts are split over ``model`` only
-SERVE_CASES = [("model2", "qwen3-1.7b"), ("model2", "mixtral-8x7b"), ("data2", "qwen3-1.7b")]
+# (mesh, arch[:moe_impl]): the MoE's experts are split over ``model`` only
+SERVE_CASES = [("model2", "qwen3-1.7b"), ("model2", "mixtral-8x7b"), ("data2", "qwen3-1.7b"),
+               ("model2", "mixtral-8x7b:ragged"), ("data2", "granite-moe-1b-a400m:ragged")]
 
 ARCH = "qwen3-1.7b"
 
@@ -104,9 +109,13 @@ def _whole(x):
 
 def _serve(arch: str, mesh=None) -> list:
     """Prefill of two 12-token prompts and three decode steps of the reduced
-    ``arch`` (on ``mesh``, its parameters placed by the step's specs): every
-    logits and the final KV cache (in f32), whole."""
-    cfg = get_config(arch).reduced()
+    ``arch`` (``name:ragged`` with the ragged MoE; on ``mesh``, its parameters
+    placed by the step's specs): every logits and the final KV cache (in
+    f32), whole."""
+    name, _, moe_impl = arch.partition(":")
+    cfg = get_config(name).reduced()
+    if moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=moe_impl)
     params = transformer.init_params(torch.Generator().manual_seed(3), cfg)
     tok = torch.randint(0, cfg.true_vocab_size, (2, 12),
                         generator=torch.Generator().manual_seed(4))
