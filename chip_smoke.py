@@ -38,10 +38,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                its bound. ``grouped_mm`` (also transposed: the input gradient) and
                ``grouped_mm_wgrad`` at the MoE prefill shapes of granite-moe (M =
                2 x 1,024 x 8, E=32, 1,024 -> 512) and mixtral (M = 2 x 1,024 x 2,
-               E=8, 4,096 -> 14,336), two experts empty, f32 (1e-5 of the plain
-               version's scale, no TF32) and bf16 (atol 5e-2, rtol 3e-2), each
-               timed beside its bound, its plain loop and ``torch._grouped_mm``
-               where the card's torch takes the dtype (else the loop).
+               E=8, 4,096 -> 14,336), two experts empty, and at granite-moe's
+               decode step (16 rows over 32 experts), f32 (3xTF32, 1e-5 of the
+               plain version's scale) and bf16 (atol 5e-2, rtol 3e-2), each
+               timed beside its bound (by the design that runs), its plain loop
+               and ``torch._grouped_mm`` where the card's torch takes the dtype
+               (else the loop), with its working tiles against the persistent
+               grid.
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
                full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
@@ -210,6 +213,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                against dense routing itself, the (token, layer) pairs whose experts
                differ and the gradients' distance, read (``check_ragged_grads``);
                after the rounds, round 1's parameter change of each, in units of lr.
+               Then the same 3 rounds under the ``opt_ragged`` variant (bf16
+               compute on the f32 master weights, the bf16 gossip payload, the
+               ragged MoE) from the same init and tokens: the bf16 grouped
+               kernels' launches counted by dtype, finite losses, round 1's loss
+               within 1e-2 of the f32 ragged run's, s/round and peak memory.
 8g. examples — every ``examples/torch_*.py`` with ``--smoke --device cuda`` as a
                subprocess, as a user starts it: exit 0 and its ``OK`` line.
 9. prints one ``{"kernels": [...]}`` line (the two mixes also as
@@ -224,10 +232,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 Every path is driven with the launch counters set to 0 just before it and
 read just after. Times are CUDA-event times on the card the script ran on;
 the bound of a kernel is the larger of its bytes over 3.35 TB/s and its
-operations over 67 TFLOP/s for f32 (flash attention's f32: three TF32 products
-per product over 495 TFLOP/s; 989 TFLOP/s for bf16 inputs: the tensor
-cores' rate) — published peaks of one H100 SXM at its full power limit, read
-from ``repro_torch.roofline.hw``.
+operations over 67 TFLOP/s for f32 (flash attention's and the grouped
+products' f32: three TF32 products per product over 495 TFLOP/s; 989 TFLOP/s
+for bf16 inputs: the tensor cores' rate) — published peaks of one H100 SXM at
+its full power limit, read from ``repro_torch.roofline.hw``.
 """
 from __future__ import annotations
 
@@ -406,6 +414,15 @@ SHARD_TIMEOUT_S = 300.0       # a collective waits this long for the other ranks
 RAGGED_ARCH = "granite-moe-1b-a400m"
 RAGGED_SHAPES = ((RAGGED_ARCH, 2 * 1024 * 8, 32, 1024, 512),
                  ("mixtral-8x7b", 2 * 1024 * 2, 8, 4096, 14336))
+# granite-moe's decode step: B=2 tokens x top_k 8 rows over its 32 experts
+RAGGED_DECODE_SHAPE = (RAGGED_ARCH, 2 * 8, 32, 1024, 512)
+# opt_ragged (bf16 compute, bf16 gossip payload, the ragged MoE) against the f32
+# ragged run from the same init and tokens: round 1's loss within this much of
+# it. bf16 keeps 8 significant bits (a rounding moves a value by up to 2^-9 =
+# 2.0e-3 of it); the loss averages 2,048 tokens' cross-entropies whose logits
+# pass 24 layers of bf16 products, so rounding shifts it by a few of those
+# units at most, while a wrong grouped product moves the logits by O(1)
+OPT_RAGGED_LOSS_RTOL = 1e-2
 
 # the cost-model phase: the reference's scale workload (BENCH_scale.json,
 # benchmarks/engine_scale.py) at K=1024, 2 timed epochs after a 1-epoch warm-up,
@@ -2385,21 +2402,50 @@ def _library_grouped(call, loop, dtype, what: str):
     return loop, "per-group torch.matmul loop"
 
 
+def _time_grouped(fn, plain, library, m: int, d: int, f: int, groups: int, e_out: int,
+                  esize: int, f32: bool, work: str, **time_kw) -> dict:
+    """``_timed``'s keys for one grouped product, its bound by the design that
+    runs: the bytes this run's data needs (x and the other operand read once;
+    forward reads the weights of the ``groups`` experts that hold a row, wgrad
+    writes all ``e_out`` of dw) against its operations, bf16 on the bf16 tensor
+    cores and f32 as 3xTF32 (three TF32 products per product); the CUDA-core
+    f32 bound of the first design beside it (``cuda_core_bound_ms``, a record),
+    and the rate reached (useful flops over the kernel's time)."""
+    nbytes = (m * d + m * f + max(groups, e_out) * d * f) * esize
+    flops = 2 * m * d * f
+    row = _timed(fn, plain, library, nbytes, 3 * flops if f32 else flops, work,
+                 flop_rate=hw.TF32_FLOP_PER_S if f32 else hw.BF16_FLOP_PER_S, **time_kw)
+    row["bound_design"] = (
+        f"3xTF32: 3 TF32 products per product at {hw.TF32_FLOP_PER_S / 1e12:g} TFLOP/s"
+        if f32 else f"bf16 tensor cores at {hw.BF16_FLOP_PER_S / 1e12:g} TFLOP/s")
+    if f32:
+        row["cuda_core_bound_ms"] = max(nbytes / hw.HBM_BYTES_PER_S,
+                                        flops / hw.F32_FLOP_PER_S) * 1e3
+    row["tflop_per_s"] = flops / row["ms"] / 1e9
+    return row
+
+
 def check_grouped_kernels(device) -> tuple[dict, dict]:
     """``grouped_mm`` (and its transposed product, the input gradient) and
     ``grouped_mm_wgrad`` against their plain versions on the card, f32 and
-    bf16, at the MoE prefill shapes of ``RAGGED_SHAPES``, two experts empty;
-    then each one's time beside its bound, its plain version's and the
-    library's. Returns the worst errors and the kernels-line timing keys
-    (granite-moe's f32 shape in the row, every shape under ``shapes``)."""
+    bf16, at the MoE prefill shapes of ``RAGGED_SHAPES`` (two experts empty)
+    and granite-moe's decode step (16 rows over 32 experts); then each one's
+    time beside its bound (``_time_grouped``), its plain version's and the
+    library's, and its working tiles against the persistent grid (the
+    schedule's mirror, ``kernel.tile_schedule``, and the grid the launcher
+    takes). Returns the worst errors and the kernels-line timing keys
+    (granite-moe's f32 prefill shape in the row, every shape under
+    ``shapes``)."""
     worst = {"grouped_mm": 0.0, "grouped_mm_wgrad": 0.0}
     rows = {"grouped_mm": [], "grouped_mm_wgrad": []}
-    for arch, m, e, d, f in RAGGED_SHAPES:
+    shapes = [("prefill",) + shape for shape in RAGGED_SHAPES] + [("decode",) + RAGGED_DECODE_SHAPE]
+    for kind, arch, m, e, d, f in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x, w, dy, offsets, sizes = _grouped_inputs(m, e, d, f, dtype, m + e, device)
             bounds = list(zip(np.concatenate([[0], np.cumsum(sizes)])[:-1].tolist(),
                               np.cumsum(sizes).tolist()))
-            tag = f"{arch} prefill {dtype}: M={m}, E={e}, d={d}, f={f}, groups {sizes.tolist()}"
+            f32 = dtype == torch.float32
+            tag = f"{arch} {kind} {dtype}: M={m}, E={e}, d={d}, f={f}, groups {sizes.tolist()}"
             with full_f32_matmul():
                 cases = {
                     "grouped_mm": (lambda: gmm.kernel.grouped_mm(x, w, offsets),
@@ -2419,34 +2465,42 @@ def check_grouped_kernels(device) -> tuple[dict, dict]:
                     check(ok, f"{name} vs plain, {tag}: max err {err:.2e}")
                     del got
                 esize = x.element_size()
-                flop_rate = hw.F32_FLOP_PER_S if dtype == torch.float32 else hw.BF16_FLOP_PER_S
-                flops = 2 * m * d * f
-                big = dict(inner=2, reps=5, warm=2)
+                used = int((sizes > 0).sum())
+                time_kw = dict(inner=2, reps=5, warm=2) if kind == "prefill" else {}
                 ends = offsets[1:].contiguous()
+                tiles = {}
+                for mode, k_, n_ in (("forward", d, f), ("wgrad", d, f)):
+                    sched = gmm.kernel.tile_schedule(offsets.cpu(), m, k_, n_, dtype,
+                                                     wgrad=mode == "wgrad")
+                    tiles[mode] = {"working": sched["count"], "bound": sched["bound"],
+                                   "grid": gmm.kernel.launch_grid(m, k_, n_, e, dtype, mode)}
                 library, lib_name = _library_grouped(
                     lambda: torch._grouped_mm(x, w, offs=ends),
                     lambda: torch.cat([x[lo:hi] @ w[i] for i, (lo, hi) in enumerate(bounds)]),
                     dtype, "torch._grouped_mm(x, w)")
-                row = _timed(cases["grouped_mm"][0], cases["grouped_mm"][1], library,
-                             (m * d + e * d * f + m * f) * esize + (e + 1) * 4, flops,
-                             f"{tag}; library: {lib_name}", flop_rate=flop_rate, **big)
-                rows["grouped_mm"].append({"arch": arch, "dtype": str(dtype), **row})
+                row = _time_grouped(cases["grouped_mm"][0], cases["grouped_mm"][1], library,
+                                    m, d, f, used, 0, esize, f32,
+                                    f"{tag}; library: {lib_name}", **time_kw)
+                row["tiles"] = tiles["forward"]
+                rows["grouped_mm"].append({"arch": arch, "kind": kind, "dtype": str(dtype), **row})
                 # the weight gradient's one call: 2-D x 2-D, the offsets along
                 # the summed axis, [d, M] x [M, f] -> [E, d, f]
                 wlib, wlib_name = _library_grouped(
                     lambda: torch._grouped_mm(x.t(), dy, offs=ends),
                     lambda: torch.stack([x[lo:hi].T @ dy[lo:hi] for lo, hi in bounds]),
                     dtype, "torch._grouped_mm(x.T, dy)")
-                row = _timed(cases["grouped_mm_wgrad"][0], cases["grouped_mm_wgrad"][1], wlib,
-                             (m * d + m * f + e * d * f) * esize + (e + 1) * 4, flops,
-                             f"{tag}; library: {wlib_name}", flop_rate=flop_rate, **big)
-                rows["grouped_mm_wgrad"].append({"arch": arch, "dtype": str(dtype), **row})
+                row = _time_grouped(cases["grouped_mm_wgrad"][0], cases["grouped_mm_wgrad"][1],
+                                    wlib, m, d, f, used, e, esize, f32,
+                                    f"{tag}; library: {wlib_name}", **time_kw)
+                row["tiles"] = tiles["wgrad"]
+                rows["grouped_mm_wgrad"].append({"arch": arch, "kind": kind,
+                                                 "dtype": str(dtype), **row})
             for name in rows:
                 log(f"  {name} {json.dumps(rows[name][-1])}")
             del x, w, dy, offsets
             torch.cuda.empty_cache()
     # the row: granite-moe's f32 prefill shape, the phase's main path
-    timings = {name: {**{k: v for k, v in r[0].items() if k not in ("arch", "dtype")},
+    timings = {name: {**{k: v for k, v in r[0].items() if k not in ("arch", "kind", "dtype")},
                       "shapes": r} for name, r in rows.items()}
     return worst, timings
 
@@ -2678,15 +2732,101 @@ def drive_ragged_train(device: str, seed: int, rehearsal: bool) -> tuple[dict, d
     return launches, report
 
 
+class _dtype_tally:
+    """Counts the grouped kernels' launches by dtype while it is entered (the
+    custom ops call ``kernel.grouped_mm`` / ``kernel.grouped_mm_wgrad``
+    through the module, so wrapping them there sees every launch)."""
+
+    NAMES = ("grouped_mm", "grouped_mm_wgrad")
+
+    def __enter__(self):
+        self.counts, self.real = {}, {n: getattr(gmm.kernel, n) for n in self.NAMES}
+        for name, fn in self.real.items():
+            def counted(x, *args, _fn=fn, _name=name, **kw):
+                key = f"{_name}/{str(x.dtype).replace('torch.', '')}"
+                self.counts[key] = self.counts.get(key, 0) + 1
+                return _fn(x, *args, **kw)
+            setattr(gmm.kernel, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(gmm.kernel, name, fn)
+
+
+def drive_opt_ragged_train(device: str, seed: int, rehearsal: bool,
+                           f32_loss: float) -> tuple[dict, dict]:
+    """granite-moe-1b-a400m at full width under the ``opt_ragged`` variant
+    (``launch.variants``: bf16 compute on the f32 master weights, the bf16
+    gossip payload, the ragged MoE): the path on which the bf16 grouped kernels
+    lie. V=2, B=2 x 1,024, E=1, TRAIN_ROUNDS rounds through
+    ``steps.build_dds_train_step`` from the f32 ragged run's init and tokens
+    (the same seed): launch counts per dtype, finite losses, round 1's loss
+    within OPT_RAGGED_LOSS_RTOL of ``f32_loss``, s/round and peak memory."""
+    on_card = device != "cpu"
+    whole = get_config(RAGGED_ARCH)
+    cfg, v, b, s = whole, TRAIN_V, TRAIN_B, TRAIN_S
+    if rehearsal:
+        cfg, s = whole.reduced(), 32
+    run_cfg, overrides = variants.apply_variant("opt_ragged", cfg, "train")
+    contact = train_cli.ring_contact(v, device)
+    target = torch.full((v,), 1.0 / v, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, opt, sm = steps.init_train_state(run_cfg, v, gen, device=device)
+    ts = steps.build_dds_train_step(run_cfg, lr=TRAIN_LR, p1_steps=TRAIN_P1, **overrides)
+    probe = _probe(params)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels_lib.reset_launch_counts()
+    history = []
+    with _dtype_tally() as tally:
+        for _ in range(TRAIN_ROUNDS):
+            tokens = torch.randint(0, cfg.true_vocab_size, (v, b, s), generator=gen,
+                                   device=device)
+            t0 = time.perf_counter()
+            params, opt, sm, metrics = ts.fn(params, opt, sm, tokens, contact, target)
+            history.append({**{k: float(x) for k, x in metrics.items()},
+                            "seconds": time.perf_counter() - t0})
+    report = _train_report(run_cfg, whole, v, b, s, history, _ragged_launches(), on_card,
+                           variant="opt_ragged", compute_dtype=str(overrides["compute_dtype"]),
+                           launches_by_dtype=tally.counts,
+                           round1_loss_f32_ragged=f32_loss, loss_rtol=OPT_RAGGED_LOSS_RTOL)
+    _round_checks(f"{run_cfg.name} (opt_ragged)", history, sm, _moved(params, probe))
+    loss = history[0]["loss"]
+    check(abs(loss - f32_loss) <= OPT_RAGGED_LOSS_RTOL * abs(f32_loss),
+          f"{cfg.name} opt_ragged round 1 loss {loss:.6f} vs the f32 ragged run's "
+          f"{f32_loss:.6f}: {abs(loss - f32_loss) / abs(f32_loss):.2e} relative "
+          f"(rtol {OPT_RAGGED_LOSS_RTOL:g})")
+    launches = {k: report[k] for k in ("grouped_mm", "grouped_mm_wgrad")}
+    if on_card:
+        products = 3 * cfg.num_layers * v * TRAIN_ROUNDS
+        check(tally.counts.get("grouped_mm_wgrad/bfloat16", 0) == products
+              == launches["grouped_mm_wgrad"]
+              and tally.counts.get("grouped_mm/bfloat16", 0) == launches["grouped_mm"]
+              >= 2 * products,
+              f"{cfg.name} opt_ragged rounds: the bf16 kernels launched {tally.counts} "
+              f"(grouped_mm_wgrad = 3 products x {cfg.num_layers} layers x {v} vehicles x "
+              f"{TRAIN_ROUNDS} rounds = {products}; grouped_mm at least twice that)")
+    del params, opt, sm, ts
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[ragged] opt_ragged {json.dumps(report)}")
+    return launches, report
+
+
 def drive_ragged(device: str, seed: int, rehearsal: bool) -> tuple[dict, dict]:
-    """The ragged phase's two main paths. Returns their launches, summed,
-    and the report."""
+    """The ragged phase's three main paths: serving, the f32 rounds and the
+    opt_ragged rounds. Returns their launches, summed, and the report."""
     t0 = time.perf_counter()
     serve_launches, serve_report = drive_ragged_serve(device, seed, rehearsal)
     train_launches, train_report = drive_ragged_train(device, seed, rehearsal)
-    launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
+    opt_launches, opt_report = drive_opt_ragged_train(device, seed, rehearsal,
+                                                      train_report["ragged"]["loss"][0])
+    launches = {k: serve_launches[k] + train_launches[k] + opt_launches[k]
+                for k in serve_launches}
     log(f"[ragged] phase took {time.perf_counter() - t0:.1f} s; launches {launches}")
-    return launches, {"serve": serve_report, "train": train_report}
+    return launches, {"serve": serve_report, "train": train_report, "opt_ragged": opt_report}
 
 
 # ---------------------------------------------------------------- examples ----

@@ -1,5 +1,12 @@
 """The grouped products as custom ops, and the entry point the MoE calls.
 
+The port of ``jax.lax.ragged_dot`` (no Pallas kernel: the reference leaves it
+to XLA). On the card its bodies are the hand-written Hopper kernels of
+``kernel``: bound by operations at prefill shapes, they run bf16 on
+``wgmma`` and f32 as 3xTF32 on ``mma.sync``, each product one persistent
+launch on a tile schedule built on the device from the offsets, fed by TMA
+(design note in ``csrc/grouped_mm.cu``).
+
 ``repro_torch::grouped_mm(x, w, offsets, trans_w=False)`` and
 ``repro_torch::grouped_mm_wgrad(x, dy, offsets)`` are registered with
 ``torch.library.custom_op``:

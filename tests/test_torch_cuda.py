@@ -1193,10 +1193,19 @@ def test_mix_params_cuda__on_a_transformer_tree_of_few_vehicles(card, k):
 # ------------------------------------------------------ grouped products ----
 
 # (M, K, N, group sizes): empty groups first, inside and last; rows past the
-# last group; tiles that straddle several boundaries; ragged K and N
+# last group; tiles that straddle several boundaries; ragged K and N. Then
+# the persistent kernel's edges: a group ending inside a 128-row tile with
+# the next starting there; one group of several row tiles; N = 136 (a
+# multiple of 8, not of the 128-column tile); K = 72 (16-byte rows, not a
+# multiple of either stage depth, 32 or 64); the decode case, 16 rows over 32
+# experts, most of them empty
+DECODE_SIZES = [2, 0, 0, 1, 0, 3, 0, 0, 0, 1, 0, 0, 2, 0, 0, 0,
+                1, 0, 0, 0, 0, 4, 0, 0, 0, 0, 1, 0, 0, 1, 0, 0]
 GROUPED = [(12, 24, 20, [3, 0, 5, 0, 2]), (130, 70, 33, [0, 64, 1, 0, 65]),
            (300, 128, 64, [50] * 6), (1000, 96, 130, [0] * 7 + [1000]),
-           (257, 40, 256, [100, 0, 0, 157]), (64, 16, 16, [1] * 64)]
+           (257, 40, 256, [100, 0, 0, 157]), (64, 16, 16, [1] * 64),
+           (300, 64, 64, [100, 200]), (700, 48, 128, [700]), (200, 64, 136, [80, 0, 120]),
+           (150, 72, 40, [60, 90]), (16, 1024, 512, DECODE_SIZES)]
 
 
 def _grouped_case(m, k, n, sizes, dtype, seed, card):
@@ -1270,6 +1279,53 @@ def test_grouped_mm_op_gradients_on_the_card_match_the_cpu(card):
     assert gk.launch_counts == {"grouped_mm": 2, "grouped_mm_wgrad": 1}
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert _within_scale(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans_w", [False, True])
+def test_grouped_mm_zeroes_the_rows_in_no_group(card, trans_w, dtype):
+    """Offsets that start past row 0 and end before M: the launch zeroes
+    [0, offsets[0]) and [offsets[E], M) as well (into an output that held
+    other values)."""
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref, kernel as gk
+    x, w, _, _ = _grouped_case(300, 64, 96, [1, 1, 1], dtype, 5, card)
+    if trans_w:
+        w = w.transpose(1, 2).contiguous()
+    offsets = torch.tensor([20, 150, 150, 270], dtype=torch.int32, device=card)
+    torch.empty((300, 96), dtype=dtype, device=card).fill_(7.0)   # reused by the next alloc
+    got = gk.grouped_mm(x, w, offsets, trans_w)
+    torch.cuda.synchronize()
+    with full_f32_matmul():
+        want = grouped_mm_ref(x, w, offsets, trans_w)
+    assert _within_scale(got, want, dtype)
+    assert not got[:20].any() and not got[270:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_mm_replays_in_a_cuda_graph_with_new_offsets(card, dtype):
+    """The launch reads no group size on the host: captured once in a CUDA
+    graph, it follows new sizes written into the same offsets tensor (the
+    forward, its transpose and the weight gradient)."""
+    from repro_torch.kernels.grouped_mm import grouped_mm_ref, grouped_mm_wgrad_ref, kernel as gk
+    x, w, dy, offsets = _grouped_case(300, 64, 96, [100, 0, 150, 50], dtype, 4, card)
+    calls = (lambda: gk.grouped_mm(x, w, offsets), lambda: gk.grouped_mm(dy, w, offsets, True),
+             lambda: gk.grouped_mm_wgrad(x, dy, offsets))
+    for fn in calls:                     # build and size the launches outside the capture
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in calls]
+    for sizes in ([100, 0, 150, 50], [7, 130, 0, 120], [0, 0, 0, 290]):
+        offsets.copy_(torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        with full_f32_matmul():
+            wants = (grouped_mm_ref(x, w, offsets), grouped_mm_ref(dy, w, offsets, True),
+                     grouped_mm_wgrad_ref(x, dy, offsets))
+        for got, want in zip(outs, wants):
+            assert _within_scale(got, want, dtype), sizes
+        assert not outs[0][sum(sizes):].any()
 
 
 def test_grouped_mm_wrapper_refusals(card):

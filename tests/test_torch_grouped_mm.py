@@ -9,9 +9,14 @@ and the card), against ``jax.grad`` of ``ragged_dot`` in f32 and bf16; the port'
 ``moe_ragged`` against the reference's at the reduced granite-moe-1b-a400m,
 output and every parameter's gradient (1e-5 of the scale, f32); the custom
 ops through ``torch.library.opcheck``; ``moe_ragged`` on meta tensors (no
-group size read on the host); the flop formulas (2·M·K·N per product). Inputs
-come from seeded numpy. The kernel itself is held against the plain version
-on the card in ``tests/test_torch_cuda.py``.
+group size read on the host); the flop formulas (2·M·K·N per product). The
+kernel's arithmetic and schedule, which only the card runs: its f32 3xTF32
+products emulated in torch (short chains at mixtral's K = 4,096, a wgrad
+reduction of 2,048 rows) within 1e-5 of the plain version's scale, where one
+TF32 product is not; ``kernel.tile_schedule``, the mirror of the device's tile
+enumeration, against the rules the kernel keeps. Inputs come from seeded
+numpy. The kernel itself is held against the plain version on the card in
+``tests/test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -248,3 +253,171 @@ def test_moe_ragged_runs_on_meta_tensors(granite):
     expert_flops = 3 * 2 * n_k * cfg.d_model * cfg.d_ff
     router_flops = 2 * x.shape[0] * cfg.d_model * cfg.num_experts
     assert counter.flops == expert_flops + router_flops
+
+
+# ------------------------------------------------- the kernel's arithmetic ----
+# The f32 path of the kernel runs 3xTF32 on the tensor cores: each operand is
+# split into big = tf32(a) (rounded to nearest) and small = a - big, which the
+# tensor cores read cut to tf32; each BK-slice of the reduction is summed from
+# 0 in one chain and added into f32 sums. Emulated here in plain torch against
+# the plain version.
+
+def _tf32(x):
+    """Round float32 to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """float32 as the tensor cores read a .tf32 operand: the low 13 bits cut."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _chained(a, b, terms):
+    """a [R, K] @ b [K, C] as the kernel sums it: chains of the f32 tile's
+    BK along K, each from 0, added into f32 sums; 3 terms (3xTF32) or 1 (one
+    TF32 product)."""
+    chain = kernel.BLOCK_TILE[torch.float32][2]
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], chain):
+        sa, sb = a[:, k0:k0 + chain], b[k0:k0 + chain]
+        a_big, b_big = _tf32(sa), _tf32(sb)
+        big = a_big @ b_big
+        if terms == 1:
+            out += big
+        else:
+            out += big + _tf32_cut(sa - a_big) @ b_big + a_big @ _tf32_cut(sb - b_big)
+    return out
+
+
+def _emulated_grouped(x, w, offsets, terms):
+    bounds = offsets.tolist()
+    out = torch.zeros(x.shape[0], w.shape[2])
+    for e in range(w.shape[0]):
+        lo, hi = bounds[e], bounds[e + 1]
+        out[lo:hi] = _chained(x[lo:hi], w[e], terms)
+    return out
+
+
+def _scale_err(got, want):
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("terms,holds", [(3, True), (1, False)], ids=["3xtf32", "tf32"])
+def test_3xtf32_grouped_product_holds_the_f32_tolerance(terms, holds):
+    """grouped_mm at mixtral's reduction width (K = 4,096) over a few groups,
+    one of them empty: 3xTF32 within 1e-5 of the plain version's scale, one
+    TF32 product not."""
+    r = np.random.default_rng(5)
+    k, n, sizes = 4096, 48, [20, 0, 33, 11]
+    x = torch.as_tensor((r.normal(size=(sum(sizes), k)) / np.sqrt(k)).astype(np.float32))
+    w = torch.as_tensor(r.normal(size=(len(sizes), k, n)).astype(np.float32))
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32))
+    err = _scale_err(_emulated_grouped(x, w, offsets, terms), grouped_mm_ref(x, w, offsets))
+    assert (err <= ATOL) == holds, f"{terms} term(s): {err:.2e} of scale"
+
+
+@pytest.mark.parametrize("terms,holds", [(3, True), (1, False)], ids=["3xtf32", "tf32"])
+def test_3xtf32_wgrad_reduction_holds_the_f32_tolerance(terms, holds):
+    """grouped_mm_wgrad's reduction over one group of 2,048 rows (the rows
+    are the chained axis): 3xTF32 within 1e-5 of the plain version's scale,
+    one TF32 product not."""
+    r = np.random.default_rng(6)
+    m, k, n = 2048, 64, 40
+    x = torch.as_tensor(r.normal(size=(m, k)).astype(np.float32))
+    dy = torch.as_tensor(r.normal(size=(m, n)).astype(np.float32))
+    offsets = torch.tensor([0, m], dtype=torch.int32)
+    want = grouped_mm_wgrad_ref(x, dy, offsets)[0]
+    err = _scale_err(_chained(x.T.contiguous(), dy, terms), want)
+    assert (err <= ATOL) == holds, f"{terms} term(s): {err:.2e} of scale"
+
+
+# ---------------------------------------------------- the tile schedule ----
+
+def _decode_sizes():
+    sizes = [0] * 32                        # 16 rows (B = 2 x top_k 8) over 32 experts
+    for e, c in {0: 2, 3: 1, 5: 3, 9: 1, 12: 2, 16: 1, 21: 4, 26: 1, 29: 1}.items():
+        sizes[e] = c
+    return sizes
+
+
+def _granite_sizes():
+    r = np.random.default_rng(9)
+    p = r.dirichlet(np.ones(32))
+    p[[0, 16]] = 0.0
+    return r.multinomial(16384, p / p.sum()).tolist()
+
+
+# (m, k, n, offsets): empty groups with rows past the last one; one giant
+# group; the decode case; rows in no group at both ends; granite's prefill
+SCHEDULES = {
+    "empty_groups": (300, 70, 33, np.cumsum([0, 0, 100, 0, 150, 0]).tolist()),
+    "one_giant_group": (5000, 96, 136, [0, 0, 5000, 5000, 5000]),
+    "decode_16_rows_32_experts": (16, 1024, 512, np.cumsum([0] + _decode_sizes()).tolist()),
+    "rows_in_no_group": (120, 24, 20, [20, 50, 50, 90]),
+    "granite_prefill": (16384, 1024, 512, np.cumsum([0] + _granite_sizes()).tolist()),
+}
+
+
+def _bounds(offs, m):
+    out = []
+    for lo, hi in zip(offs[:-1], offs[1:]):
+        lo = min(max(lo, 0), m)
+        out.append((lo, min(max(hi, lo), m)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(SCHEDULES))
+def test_forward_schedule_covers_each_group_row_once(case, dtype):
+    """Every row of every group is in exactly one tile per column tile, no
+    tile straddles a group or exceeds BM rows, the rows in no group are the
+    zeroed ranges, and the count never exceeds the grid's bound from the
+    shapes alone."""
+    m, k, n, offs = SCHEDULES[case]
+    bm, bn, _ = kernel.BLOCK_TILE[dtype]
+    sched = kernel.tile_schedule(offs, m, k, n, dtype)
+    tn = -(-n // bn)
+    cover = np.zeros((m, tn), np.int64)
+    bounds = _bounds(offs, m)
+    for e, r0, r_end, c0 in sched["tiles"]:
+        lo, hi = bounds[e]
+        assert lo <= r0 < r_end <= hi and r_end - r0 <= bm and c0 % bn == 0 and c0 < n
+        cover[r0:r_end, c0 // bn] += 1
+    in_group = np.zeros(m, bool)
+    for lo, hi in bounds:
+        in_group[lo:hi] = True
+    assert (cover[in_group] == 1).all() and (cover[~in_group] == 0).all()
+    zeroed = np.zeros(m, bool)
+    for lo, hi in sched["zero_rows"]:
+        assert not zeroed[lo:hi].any()
+        zeroed[lo:hi] = True
+    assert (zeroed == ~in_group).all()
+    assert sched["count"] == len(sched["tiles"]) <= sched["bound"]
+    assert sched["bound"] == (-(-m // bm) + len(offs) - 1) * tn
+    assert sched["count"] == sum(-(-(hi - lo) // bm) for lo, hi in bounds) * tn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(SCHEDULES))
+def test_wgrad_schedule_writes_every_output_tile_once(case, dtype):
+    """One tile per (group, K tile, N tile), an empty group's included (it
+    writes zeros), each reducing over its group's clamped rows; the count is
+    the bound."""
+    m, k, n, offs = SCHEDULES[case]
+    bm, bn, _ = kernel.BLOCK_TILE[dtype]
+    sched = kernel.tile_schedule(offs, m, k, n, dtype, wgrad=True)
+    bounds = _bounds(offs, m)
+    seen = {(e, i0, j0) for e, i0, j0, _, _ in sched["tiles"]}
+    assert len(seen) == sched["count"] == sched["bound"]
+    assert seen == {(e, i0, j0) for e in range(len(bounds)) for i0 in range(0, k, bm)
+                    for j0 in range(0, n, bn)}
+    assert all((lo, hi) == bounds[e] for e, _, _, lo, hi in sched["tiles"])
+    assert sched["zero_rows"] == []
+
+
+def test_wrappers_refuse_more_groups_than_the_kernel_takes():
+    with pytest.raises(ValueError, match="at most 1024"):
+        kernel._check_groups("grouped_mm", kernel.MAX_GROUPS + 1)
+    kernel._check_groups("grouped_mm", kernel.MAX_GROUPS)
