@@ -22,7 +22,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and 4 (W ``[100, 50]`` / ``[100, 25]``, ids remapped and clipped
                into ``[0, 50)`` / ``[0, 25)``; the partials sum to the global
                mix), the wrappers' refusals, and each kernel's time there (kl_simplex kernels also
-               at K = 1024; the P1 solve per 200-step solve; flash attention at
+               at K = 1024, ``kl_rows`` / ``entropy_rows`` on the launcher's
+               other paths — K off the 16-byte loads, bases off 16 bytes, g
+               staged in chunks at K = 65,536, V = K = 1 — and their launch
+               floor at V = 1, K = 32; the P1 solve per 200-step solve; flash attention at
                the serving shape B=4, S=T=2048, H=16, KV=8, hd=128); flash attention
                also at the zoo's prefill shapes (hd 64 with G = 1, 2, 5; hd 128 with
                G = 6; prefixes of 64 / 256 positions; mixtral's 4,096 window).
@@ -1111,10 +1114,39 @@ def _p1_case(v, k, seed, device, empty_row: bool = True):
     return s, g, torch.as_tensor(c.astype(np.float32)).to(device)
 
 
+def _row_edge_cases(device) -> list:
+    """(label, states, target, dtype) for the paths of the row kernels' launcher
+    beyond the aligned shapes: K off the 16-byte loads (f32 K % 4, bf16 K % 8),
+    a row slice ``s[1:]`` of ``[V, 101]`` and a K % 4 == 0 matrix whose base is
+    off a 16-byte boundary, V = 4 at K = 65,536 (g staged in chunks), V = K = 1,
+    a one-hot row beside an RSU row (all zero, a zero target entry)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for dtype in (f32, bf16):
+        cases.append((f"[37,203] {dtype} (K off the 16-byte loads)",
+                      *_state_case(37, 203, dtype, 203, device), dtype))
+        s, g = _state_case(9, 101, dtype, 101, device)
+        cases.append((f"s[1:] of [9,101] {dtype} (base off 16 bytes)", s[1:], g, dtype))
+        cases.append((f"[4,65536] {dtype} (g staged in chunks)",
+                      *_state_case(4, 65536, dtype, 4, device), dtype))
+    s, g = _state_case(9, 64, f32, 64, device)
+    flat = torch.empty(9 * 64 + 1, device=device)
+    flat[1:] = s.reshape(-1)
+    cases.append(("[9,64] float32 at a base 4 bytes off 16", flat[1:].view(9, 64), g, f32))
+    cases.append(("[1,1] float32", torch.full((1, 1), 0.75, device=device),
+                  torch.ones(1, device=device), f32))
+    s, g = _state_case(6, 100, f32, 6, device, rsu_row=True)
+    s[2] = 0.0
+    s[2, 37] = 1.0
+    cases.append(("[6,100] float32 with a one-hot and an RSU row", s, g, f32))
+    return cases
+
+
 def check_kl_kernels(device, k: int, p1_steps: int) -> dict[str, float]:
     """The four kl_simplex kernels against their plain versions on the card,
     at the reference's shapes, the main path's K (and K + 1 with an RSU row),
-    K = 1024 and K = 4096; the one-launch P1 solve at K = 8, the main path's K
+    K = 1024 and K = 4096 and the launcher's other paths (``_row_edge_cases``),
+    one launch each; the one-launch P1 solve at K = 8, the main path's K
     and the library's limit, over 1 and ``p1_steps`` steps; the empty-mask
     rule of eg_step and eg_solve; the wrappers' refusals. Returns the largest
     absolute error per kernel."""
@@ -1123,16 +1155,22 @@ def check_kl_kernels(device, k: int, p1_steps: int) -> dict[str, float]:
     row_cases = [(v, kk, f32, False) for v, kk in KL_REF_SHAPES]
     row_cases += [(k, k, f32, False), (k + 1, k + 1, f32, True)]
     row_cases += [(v, kk, dt, False) for v, kk in ((1024, 1024), (64, 4096)) for dt in (f32, bf16)]
-    for v, kk, dtype, rsu in row_cases:
-        s, g = _state_case(v, kk, dtype, v * 7 + kk, device, rsu)
+    cases = [(f"[{v},{kk}] {dtype}{' with an RSU row' if rsu else ''}",
+              *_state_case(v, kk, dtype, v * 7 + kk, device, rsu), dtype)
+             for v, kk, dtype, rsu in row_cases]
+    cases += _row_edge_cases(device)
+    for what, s, g, dtype in cases:
+        before = {n: kl_simplex.kernel.launch_counts[n] for n in ("kl_rows", "entropy_rows")}
         got_kl = kl_simplex.kl_rows_kernel(s, g)
         got_h = kl_simplex.entropy_rows_kernel(s)
         torch.cuda.synchronize()
+        once = all(kl_simplex.kernel.launch_counts[n] == before[n] + 1 for n in before)
         err_kl = _max_err(got_kl, kl_simplex.kl_rows_ref(s, g))
         err_h = _max_err(got_h, kl_simplex.entropy_rows_ref(s))
-        check(got_kl.shape == got_h.shape == (v,) and max(err_kl, err_h) <= ATOL[dtype],
-              f"kl_rows / entropy_rows [{v},{kk}] {dtype}{' with an RSU row' if rsu else ''} "
-              f"max err {err_kl:.2e} / {err_h:.2e}")
+        check(once and got_kl.shape == got_h.shape == s.shape[:1]
+              and max(err_kl, err_h) <= ATOL[dtype],
+              f"kl_rows / entropy_rows {what}, one launch each: max err "
+              f"{err_kl:.2e} / {err_h:.2e}")
         worst["kl_rows"] = max(worst["kl_rows"], err_kl)
         worst["entropy_rows"] = max(worst["entropy_rows"], err_h)
     eg_cases = [(v, kk, f32) for v, kk in KL_REF_SHAPES]
@@ -1211,7 +1249,8 @@ def time_kl_kernels(device, k: int, p1_steps: int) -> dict[str, dict]:
     P1 step, one diagnostic of a state matrix, one whole P1 solve of
     ``p1_steps`` steps) and at K = 1024, the largest K of the scale sweep
     (not the solve: past its limit), each beside its plain version, its
-    library call and its bound. Returns the timing keys of the kernels line."""
+    library call and its bound; the row kernels also with ``floor_ms``, their
+    time at V = 1, K = 32. Returns the timing keys of the kernels line."""
     out = {}
     for kk in (k, 1024):
         s, g = _state_case(kk, kk, torch.float32, kk, device)
@@ -1243,6 +1282,16 @@ def time_kl_kernels(device, k: int, p1_steps: int) -> dict[str, dict]:
                 out[name] = row
             else:
                 out[name][f"k{kk}"] = row
+    # the launch floor the row kernels' K = 100 times are read against: the
+    # same kernel and protocol at V = 1, K = 32
+    s, g = _state_case(1, 32, torch.float32, 32, device)
+    for name, fn, plain in (
+            ("kl_rows", lambda: kl_simplex.kl_rows_kernel(s, g),
+             lambda: kl_simplex.kl_rows_ref(s, g)),
+            ("entropy_rows", lambda: kl_simplex.entropy_rows_kernel(s),
+             lambda: kl_simplex.entropy_rows_ref(s))):
+        out[name]["floor_ms"] = _timed(fn, plain, None, 4 * 33, 5 * 32,
+                                       "one launch, V=1, K=32, f32")["ms"]
     # the solve: S, g and the mask read once, alpha written once; two
     # [V, V] x [V, K] products of FMAs per step
     s, g, c = _p1_case(k, k, k, device)

@@ -42,7 +42,7 @@
 //   rows, largest first: a tile's work is its group's rows, and in group order
 //   the Dirichlet-sized groups of granite's prefill left some block with far
 //   more than the mean (f32 weight gradient 0.507 ms in group order, 0.366 ms
-//   ranked, in one run of scripts/torch_grouped_variants.py). Blocks take tile
+//   ranked, in one run of scripts/torch_kernel_variants.py grouped). Blocks take tile
 //   indices in rounds, in a snake: block b takes r * G + b in even rounds r,
 //   r * G + G - 1 - b in odd ones (G blocks). An empty group's wgrad tiles
 //   write zeros.
@@ -76,7 +76,7 @@
 //   every row's 128 bytes go out coalesced: storing the accumulators' 4-byte
 //   pairs straight from registers took a third of wgrad's time (mixtral
 //   1.563 -> 1.051 ms, granite's forward 0.062 -> 0.049, in one run of
-//   scripts/torch_grouped_variants.py). Widths not a multiple of 8 keep the
+//   scripts/torch_kernel_variants.py grouped). Widths not a multiple of 8 keep the
 //   paired stores.
 // * f32 as 3xTF32 on `mma.sync.m16n8k8` (as flash_attention.cu's f32 path):
 //   a 64 x 256 tile per block of eight warps (each 32 x 64), BK = 32, 5

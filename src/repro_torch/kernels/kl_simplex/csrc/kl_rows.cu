@@ -8,62 +8,26 @@
 // Replaces the Pallas TPU kernel `_kl_kernel` / `kl_rows` in
 // src/repro/kernels/kl_simplex/kernel.py.
 //
-// What bounds it on this card: bytes. Each element of S is read once for a
-// handful of f32 operations (two log2, a subtract, a multiply-add), far
-// below the card's ~20 operations per byte, so its floor is V*K*4 bytes over
-// the memory rate (0.012 us at V = K = 100, 1.25 us at K = 1024); at the
-// paper's K = 100 every launch sits at launch latency instead.
-//
-// What the design does about it: one warp per row, lanes striding over K so
-// that a warp reads 128 contiguous bytes (f32) per step, the partial sums
-// combined with shuffles (row_reduce.cuh). Any K: the loop masks the ragged
-// edge of the row, where the TPU kernel padded a copy of S to 128 lanes.
-// g is re-read by every row through the read-only cache; it is K floats.
+// What bounds it on this card: bytes at K = 1024 (V*K*4 bytes of S over the
+// memory rate, 1.25 us; g is K floats) and as much the issue of its precise
+// log2f; the launch floor at the paper's K = 100 (0.012 us of bytes). What
+// the design does about it is in row_stream.cuh, shared with entropy_rows.cu:
+// 16-byte loads where the rows allow them, a batch of each thread's loads in
+// flight before any log2f, warps per row and rows per block picked from V
+// and K, log2 clip(g) staged once per block in shared memory (in chunks past
+// 8,192 columns), so that every element of S costs one log2f, and a
+// programmatic dependent launch; the TPU kernel padded a copy of S to 128 lanes, here the
+// ragged edge of a row is masked.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw
 // device pointers and the current stream, and raises on the returned error.
-#include "row_reduce.cuh"
-
-namespace {
-
-using namespace kl_simplex;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    kl_rows_kernel(const T* __restrict__ s, const float* __restrict__ g,
-                   float* __restrict__ out, int v, int k) {
-  const long long row = warp_row();
-  if (row >= v) return;
-  const int lane = threadIdx.x & 31;
-  const T* s_row = s + row * k;
-  float acc = 0.0f;
-  for (int j = lane; j < k; j += 32) {
-    const float x = to_float(s_row[j]);
-    if (x > kEps) {
-      acc += x * (log2f(clip_unit(x)) - log2f(clip_unit(__ldg(g + j))));
-    }
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) out[row] = acc;
-}
-
-template <typename T>
-cudaError_t launch(const void* s, const float* g, float* out, int v, int k,
-                   cudaStream_t stream) {
-  kl_rows_kernel<T><<<grid_for(v), kThreads, 0, stream>>>(
-      static_cast<const T*>(s), g, out, v, k);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "row_stream.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (of S). Returns the launch's cudaError_t.
 extern "C" int kl_rows_launch(const void* s, const float* g, float* out, int v,
                               int k, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(s, g, out, v, k, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(s, g, out, v, k, st);
-  return cudaErrorInvalidValue;
+  return kl_simplex::row_stream::launch<true>(s, g, out, v, k, dtype,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kl_rows_error_string(int code) {

@@ -3,7 +3,9 @@
 * ``kl_rows(states, target)`` — per-row ``D_KL(states[v] || target)`` in bits
   (``csrc/kl_rows.cu``), Eq. (9) over a whole state matrix;
 * ``entropy_rows(states)`` — per-row entropy in bits
-  (``csrc/entropy_rows.cu``), Eq. (8);
+  (``csrc/entropy_rows.cu``), Eq. (8); both on the row reduction of
+  ``csrc/row_stream.cuh``, whose launcher picks warps per row and rows per
+  block from V and K;
 * ``eg_step(alpha, grad, mask, step_size=)`` — one masked
   exponentiated-gradient step of the P1 solver per row (``csrc/eg_step.cu``);
 * ``eg_solve(states, target, mask, num_steps=, step_size=)`` — every EG step
@@ -18,8 +20,10 @@ needs neither a GPU nor a compiler.
 Each wrapper takes CUDA tensors only and raises on anything the kernel does
 not take (``ops`` routes CPU tensors to the plain versions in ``ref``). It
 allocates the output with ``torch.empty``, launches on PyTorch's current
-stream, does not synchronise, raises if the launch was refused, and adds one
-to ``launch_counts[name]`` per launch.
+stream (the row kernels as programmatic dependent launches, which wait for
+the stream's previous kernel before touching memory), does not synchronise,
+raises if the launch was refused, and adds one to ``launch_counts[name]``
+per launch.
 """
 from __future__ import annotations
 

@@ -285,6 +285,127 @@ def test_row_kernels_match_plain_versions(card, v, k, dtype):
     assert _err(got_h, kl_simplex.entropy_rows_ref(s)) <= ATOL[dtype]
 
 
+def _row_edge_case(name, card):
+    """(states, target, dtype) of one edge case of the row kernels' paths:
+    K off the 16-byte loads, bases off a 16-byte boundary, g staged in
+    chunks, a single element, a one-hot row beside an RSU row (all zero, with
+    a zero target entry)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    if name in ("ragged_f32", "ragged_bf16"):               # K % 4, K % 8 != 0
+        dtype = f32 if name == "ragged_f32" else bf16
+        return (*_state_rows(37, 203, dtype, 203, card), dtype)
+    if name in ("row_slice_f32", "row_slice_bf16"):         # s[1:] of [V, 101]
+        dtype = f32 if name == "row_slice_f32" else bf16
+        s, g = _state_rows(9, 101, dtype, 101, card)
+        return s[1:], g, dtype
+    if name == "offset_base_f32":                           # K % 4 == 0, base 4 B off
+        s, g = _state_rows(9, 64, f32, 64, card)
+        flat = torch.empty(9 * 64 + 1, device=card)
+        flat[1:] = s.reshape(-1)
+        return flat[1:].view(9, 64), g, f32
+    if name in ("chunked_f32", "chunked_bf16"):             # g staged in 8 chunks
+        dtype = f32 if name == "chunked_f32" else bf16
+        return (*_state_rows(4, 65536, dtype, 4, card), dtype)
+    if name == "single":                                    # V = K = 1
+        return torch.full((1, 1), 0.75, device=card), torch.ones(1, device=card), f32
+    if name == "one_hot_and_rsu":
+        s, g = _state_rows(6, 100, f32, 6, card)
+        s[2] = 0.0
+        s[2, 37] = 1.0
+        s[5] = 0.0
+        g[99] = 0.0
+        return s, g, f32
+    raise KeyError(name)
+
+
+ROW_EDGE_CASES = ["ragged_f32", "ragged_bf16", "row_slice_f32", "row_slice_bf16",
+                  "offset_base_f32", "chunked_f32", "chunked_bf16", "single",
+                  "one_hot_and_rsu"]
+
+
+@pytest.mark.parametrize("name", ROW_EDGE_CASES)
+def test_row_kernels_match_plain_versions_on_every_path(card, name):
+    s, g, dtype = _row_edge_case(name, card)
+    assert s.is_contiguous()
+    before = dict(kl_simplex.kernel.launch_counts)
+    got_kl = kl_simplex.kl_rows(s, g)
+    got_h = kl_simplex.entropy_rows(s)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["kl_rows"] == before["kl_rows"] + 1
+    assert kl_simplex.kernel.launch_counts["entropy_rows"] == before["entropy_rows"] + 1
+    assert got_kl.shape == got_h.shape == (s.shape[0],)
+    assert _err(got_kl, kl_simplex.kl_rows_ref(s, g)) <= ATOL[dtype]
+    assert _err(got_h, kl_simplex.entropy_rows_ref(s)) <= ATOL[dtype]
+    if name == "one_hot_and_rsu":
+        assert float(got_h[2]) == 0.0 and float(got_h[5]) == 0.0 and float(got_kl[5]) == 0.0
+
+
+def _row_mapping(s, sms):
+    """(16-byte loads, rows per block, warps per row): the mapping
+    ``csrc/row_stream.cuh``'s ``pick_mapping`` takes for the states ``s`` on a
+    card of ``sms`` SMs, mirrored to choose the shapes below."""
+    v, k = s.shape
+    n = 4 if s.dtype == torch.float32 else 8
+    vec = s.data_ptr() % 16 == 0 and k % n == 0 and k // n >= 32
+    packs = k // n if vec else k
+    p = 1
+    while p < 16 and 32 * 16 * p < k:                 # at most 16 elements a thread
+        p *= 2
+    while p < 16 and 64 * p <= packs and v * p < 4 * sms:   # too few rows to fill the card
+        p *= 2
+    r = 1
+    while 2 * r * p <= 16 and -(-v // (2 * r)) >= sms:    # every SM keeps a block
+        r *= 2
+    return int(vec), r, p
+
+
+def _mapping_case(name, sms):
+    """(V, K, dtype) of a shape that takes one branch of the launcher's
+    mapping; the mapping on 132 SMs in the comment."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    if name.startswith("rows_"):                      # (1, r, 1): V = r x SMs, K = 128
+        return int(name[5:]) * sms, 128, f32
+    return {"one_element": (1, 1, f32),               # (0, 1, 1)
+            "short_rows": (100, 100, f32),            # (0, 1, 2): 25 loads, 2 warps to fill
+            "ragged_rows": (37, 203, bf16),           # (0, 1, 4): 4-byte loads, 4 warps to fill
+            "k_1024": (1024, 1024, f32),              # (1, 4, 2): 2 warps for 1,024 columns
+            "k_2048": (200, 2048, f32),               # (1, 1, 4)
+            "k_4096": (300, 4096, bf16),              # (1, 2, 8)
+            "few_long_rows": (64, 4096, f32),         # (1, 1, 16): 8 warps by K, 16 to fill
+            "longest_rows": (2, 20000, f32),          # (1, 1, 16): by K, g in 3 chunks
+            }[name]
+
+
+ROW_MAPPING_CASES = ["one_element", "short_rows", "ragged_rows", "k_1024", "k_2048", "k_4096",
+                     "few_long_rows", "longest_rows", "rows_2", "rows_4", "rows_8", "rows_16"]
+
+
+@pytest.mark.parametrize("name", ROW_MAPPING_CASES)
+def test_row_kernels_match_plain_versions_at_each_mapping(card, name):
+    """One shape per branch of the launcher's mapping, against the plain
+    versions: rows past V in the last block, threads past a row's end,
+    teams of 2-16 warps, g in chunks."""
+    v, k, dtype = _mapping_case(name, torch.cuda.get_device_properties(card).multi_processor_count)
+    s, g = _state_rows(v, k, dtype, v + k, card)
+    got_kl = kl_simplex.kl_rows(s, g)
+    got_h = kl_simplex.entropy_rows(s)
+    torch.cuda.synchronize()
+    assert _err(got_kl, kl_simplex.kl_rows_ref(s, g)) <= ATOL[dtype]
+    assert _err(got_h, kl_simplex.entropy_rows_ref(s)) <= ATOL[dtype]
+
+
+def test_row_mapping_cases_reach_every_branch(card):
+    """The cases above take both load widths and every rows per block and
+    warps per row the launcher can pick on this card."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    picked = []
+    for name in ROW_MAPPING_CASES:
+        v, k, dtype = _mapping_case(name, sms)
+        picked.append(_row_mapping(torch.empty((v, k), dtype=dtype, device=card), sms))
+    assert {m[0] for m in picked} == {0, 1}
+    assert {m[1] for m in picked} == {m[2] for m in picked} == {1, 2, 4, 8, 16}
+
+
 @pytest.mark.parametrize("v,k,dtype", [(4, 8, torch.float32), (33, 100, torch.float32),
                                        (128, 16, torch.float32), (100, 100, torch.float32),
                                        (64, 1024, torch.float32), (8, 4096, torch.float32),

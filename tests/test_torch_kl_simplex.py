@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.optimize import minimize
 
 from repro.kernels import kl_simplex as ref_kl
 from repro_torch.core import contacts, kl_solver
@@ -16,8 +17,11 @@ from repro_torch.kernels import kl_simplex
 
 T = torch.as_tensor
 
-# V in 1..40, K in 2..50 (the reference's property sweep), corners included
-ROW_SHAPES = [(1, 2), (40, 50), (7, 13), (23, 2), (1, 50), (16, 31), (40, 3), (9, 48)]
+# V in 1..40, K in 2..50 (the reference's property sweep), corners included;
+# a K off the CUDA kernels' 16-byte loads at a width of a few hundred, and the
+# scale sweep's K = 1,024 with few rows
+ROW_SHAPES = [(1, 2), (40, 50), (7, 13), (23, 2), (1, 50), (16, 31), (40, 3), (9, 48),
+              (6, 301), (3, 1024)]
 
 
 def _rows(v, k, seed):
@@ -186,3 +190,48 @@ def test_eg_solve_ref_is_the_loop_over_eg_step_ref():
     np.testing.assert_array_equal(got.numpy(), alpha.numpy())
     zero = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=0)
     np.testing.assert_array_equal(zero.numpy(), (T(c) / T(c).sum(1, keepdim=True)).numpy())
+
+
+def _scipy_optimum(s, g, mask):
+    """P1's optimum in nats by SLSQP over the contact set (as
+    tests/test_kl_solver.py finds it for the reference)."""
+    k = len(g)
+    idx = np.where(mask)[0]
+
+    def f(a_active):
+        a = np.zeros(k)
+        a[idx] = a_active
+        u = a @ s
+        return float(np.sum(np.where(
+            u > 1e-12, u * (np.log(np.clip(u, 1e-12, 1)) - np.log(np.clip(g, 1e-12, 1))), 0)))
+
+    res = minimize(f, np.ones(len(idx)) / len(idx), bounds=[(0, 1)] * len(idx),
+                   constraints=({"type": "eq", "fun": lambda a: a.sum() - 1},),
+                   method="SLSQP", options={"maxiter": 500, "ftol": 1e-12})
+    return res.fun
+
+
+@pytest.mark.parametrize("solver", ["solve_p1", "solve_p1_all", "solve_p1_all_fused"])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_solvers_reach_the_scipy_optimum(seed, solver):
+    """The port's P1 solvers on the CPU (the single-row solve, the batched
+    one, the fused entry point's plain route) within 5e-5 nats of SLSQP's
+    optimum, the reference's own bound; rows 0 and 1 of a contact matrix."""
+    r = np.random.default_rng(seed)
+    k = int(r.integers(4, 20))
+    s = r.dirichlet(np.ones(k) * r.uniform(0.3, 4), size=k).astype(np.float32)
+    g = r.dirichlet(np.ones(k) * r.uniform(0.5, 8)).astype(np.float32)
+    c = np.zeros((k, k), np.float32)
+    for i in range(k):
+        c[i, r.choice(k, size=int(r.integers(2, k + 1)), replace=False)] = 1.0
+    if solver == "solve_p1":
+        alphas = [kl_solver.solve_p1(T(s), T(g), T(c[i])) for i in (0, 1)]
+    elif solver == "solve_p1_all":
+        alphas = list(kl_solver.solve_p1_all(T(s), T(g), T(c))[:2])
+    else:
+        alphas = list(kl_simplex.solve_p1_all_fused(T(s), T(g), T(c))[:2])
+    for i, alpha in enumerate(alphas):
+        assert (alpha.numpy()[c[i] == 0] == 0).all()
+        eg = float(kl_solver.kl_objective(alpha, T(s), T(g)))
+        sp = _scipy_optimum(s, g, c[i])
+        assert eg - sp < 5e-5, (i, eg, sp)
