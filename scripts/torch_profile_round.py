@@ -64,7 +64,9 @@ def main() -> int:
     engine.run_with_context(ctx)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    phases = {n: v / cfg.epochs for n, v in sorted(timer.totals_ms().items())}
+    per_epoch = {n: v / cfg.epochs for n, v in sorted(timer.totals_ms().items())}
+    phases = {n: v for n, v in per_epoch.items() if not n.endswith(".host")}
+    host = {n[:-len(".host")]: v for n, v in per_epoch.items() if n.endswith(".host")}
 
     # 2. the same run under the profiler: device time by kernel (a kernel's
     # duration does not depend on the profiler; the host's pace does, so the
@@ -86,6 +88,7 @@ def main() -> int:
                "vehicles": cfg.num_vehicles, "eval_every": cfg.eval_every,
                "wall_ms_per_epoch": wall / cfg.epochs * 1e3,
                "phase_device_ms_per_epoch": phases,
+               "phase_host_ms_per_epoch": host,
                "kernel_device_ms_per_epoch": device_us / 1e3 / cfg.epochs,
                "kernel_launches_per_epoch": launches / cfg.epochs,
                "device_busy_share": device_us / 1e6 / wall}

@@ -46,7 +46,7 @@ class Backend:
     def run(self, ctx: "engine_lib.EngineContext", progress: bool = False):
         raise NotImplementedError
 
-    def run_seeds(self, cfg, seeds, dataset=None, progress: bool = False):
+    def run_seeds(self, cfg, seeds, dataset=None, progress: bool = False, timer=None):
         raise NotImplementedError
 
 
@@ -83,7 +83,7 @@ def _drive_windows(ctx, window_fn, progress: bool, echo: bool = True):
     (the same on every rank of a sharded run); the progress lines are printed
     where ``echo`` is also true."""
     cfg = ctx.cfg
-    t0 = time.time()
+    t0 = time.perf_counter()
     result = engine_lib.SimulationResult(config=cfg,
                                          execution_plan=ctx.execution_plan)
     window_size = engine_lib._default_window(cfg, progress)
@@ -98,7 +98,7 @@ def _drive_windows(ctx, window_fn, progress: bool, echo: bool = True):
         engine_lib._append_window(result, traj, mask, start, cfg.num_vehicles,
                                   progress and echo)
     ctx.final_state = state
-    result.wall_time = time.time() - t0
+    result.wall_time = time.perf_counter() - t0
     return result
 
 
@@ -111,13 +111,14 @@ class VmapBackend(Backend):
     def run(self, ctx, progress: bool = False):
         return _drive_windows(ctx, ctx.window_fn, progress)
 
-    def run_seeds(self, cfg, seeds, dataset=None, progress: bool = False):
+    def run_seeds(self, cfg, seeds, dataset=None, progress: bool = False, timer=None):
         """S independent federations (seeded partitions, mobility traces and
         inits) through ONE window loop over the seed-stacked state. Per-seed
         index tables are padded to a common width and sparse windows to a
-        common D_max so they stack."""
+        common D_max so they stack. The stacked rounds keep the first seed's
+        setup, and with it ``timer``."""
         ds = dataset or data_lib.load_dataset(cfg.dataset, seed=cfg.seed)
-        ctxs = [engine_lib.build_context(replace(cfg, seed=int(s)), dataset=ds)
+        ctxs = [engine_lib.build_context(replace(cfg, seed=int(s)), dataset=ds, timer=timer)
                 for s in seeds]
         batch = engine_lib.stack_contexts(ctxs, ds)
         window_fn = batch.window_fn
@@ -201,11 +202,12 @@ class ShardMapBackend(Backend):
                                                     shard)
         return result
 
-    def run_seeds(self, cfg, seeds, dataset=None, progress: bool = False):
+    def run_seeds(self, cfg, seeds, dataset=None, progress: bool = False, timer=None):
         """Seeds run one after another, each vehicle-sharded over the whole
         group — the ranks go to the vehicle axis, not to a seed axis. Each
         result equals the vmap backend's run of that seed."""
         ds = dataset or data_lib.load_dataset(cfg.dataset, seed=cfg.seed)
-        return [self.run(engine_lib.build_context(replace(cfg, seed=int(s)), dataset=ds),
+        return [self.run(engine_lib.build_context(replace(cfg, seed=int(s)), dataset=ds,
+                                                  timer=timer),
                          progress=progress)
                 for s in seeds]

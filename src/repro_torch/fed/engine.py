@@ -316,10 +316,15 @@ class ContactStream:
     For the sparse format, ``d_max`` is resolved once at construction:
     ``cfg.d_max`` if pinned, else ``ceil(contact_density * Ktot)``, else the
     exact full-horizon probe (``probe_d_max``).
+
+    ``timer`` spans the probe (``d_max_probe``) and each window
+    (``contact_window``).
     """
 
-    def __init__(self, cfg: SimulationConfig, net: topology_lib.RoadNetwork):
+    def __init__(self, cfg: SimulationConfig, net: topology_lib.RoadNetwork,
+                 timer: PhaseTimer | None = None):
         self.cfg = cfg
+        self.timer = timer
         self.mob = mobility_lib.make_mobility(
             cfg.mobility, net, mobility_lib.MobilityConfig(
                 num_vehicles=cfg.num_vehicles, epoch_duration=cfg.epoch_duration,
@@ -337,18 +342,20 @@ class ContactStream:
         if self.cfg.contact_density is not None:
             return max(1, min(total, int(np.ceil(
                 self.cfg.contact_density * total))))
-        return probe_d_max(self.cfg, net)
+        with phase(self.timer, "d_max_probe"):
+            return probe_d_max(self.cfg, net)
 
     def window(self, num_epochs: int):
-        positions = self.mob.advance_positions(num_epochs)
-        if self.format.sparse:
-            idx, mask = extensions_lib.neighbour_window(
+        with phase(self.timer, "contact_window"):
+            positions = self.mob.advance_positions(num_epochs)
+            if self.format.sparse:
+                idx, mask = extensions_lib.neighbour_window(
+                    positions, self.rsu_pos, self.cfg.comm_range, self.cfg.p_drop,
+                    self.drop_rng, self.d_max)
+                return contacts_lib.SparseContacts(idx, mask)
+            return extensions_lib.contact_window(
                 positions, self.rsu_pos, self.cfg.comm_range, self.cfg.p_drop,
-                self.drop_rng, self.d_max)
-            return contacts_lib.SparseContacts(idx, mask)
-        return extensions_lib.contact_window(
-            positions, self.rsu_pos, self.cfg.comm_range, self.cfg.p_drop,
-            self.drop_rng)
+                self.drop_rng)
 
 
 @dataclass
@@ -448,79 +455,82 @@ def build_context(cfg: SimulationConfig, dataset=None, init_params: dict | None 
     ``init_params`` injects ONE vehicle's initial parameters (a dictionary of
     tensors or numpy arrays in the reference's names and layouts) in place
     of the seeded init — how a test starts both stacks from the same point.
-    ``timer`` attaches per-phase timing to the rounds (``profiling``).
+    ``timer`` attaches per-phase timing (``profiling``): a span
+    ``build_context`` around this set-up, the contact stream's spans
+    (``ContactStream``) and the rounds' phases.
 
     ``execution="auto"`` configs are resolved here, before anything else
     (cost-model backend / format selection); the plan rides on
     ``ctx.execution_plan``.
     """
-    cfg, execution_plan = resolve_execution(cfg)
-    device = resolve_device(cfg)
-    from . import backends as backends_lib
+    with phase(timer, "build_context"):
+        cfg, execution_plan = resolve_execution(cfg)
+        device = resolve_device(cfg)
+        from . import backends as backends_lib
 
-    algo = algorithms_lib.get_algorithm(cfg.algorithm)   # both raise on what
-    backends_lib.get_backend(cfg.backend)                # is not ported yet
-    ds = dataset or data_lib.load_dataset(cfg.dataset, seed=cfg.seed)
-    init_fn, loss_fn, accuracy_fn = cnn_lib.make_cnn_task(ds.name)
+        algo = algorithms_lib.get_algorithm(cfg.algorithm)   # both raise on what
+        backends_lib.get_backend(cfg.backend)                # is not ported yet
+        ds = dataset or data_lib.load_dataset(cfg.dataset, seed=cfg.seed)
+        init_fn, loss_fn, accuracy_fn = cnn_lib.make_cnn_task(ds.name)
 
-    idx = _partition(ds, cfg)
-    # extension: RSUs are extra data-less participants appended after vehicles
-    total_nodes = cfg.num_vehicles + cfg.num_rsus
-    if cfg.num_rsus:
-        idx = idx + [np.array([0])] * cfg.num_rsus  # dummy index, zero weight
-    dense, counts = partition_lib.pad_to_uniform(idx, seed=cfg.seed)
-    if cfg.num_rsus:
-        counts = counts.copy()
-        counts[cfg.num_vehicles:] = 0
-    fed_data = pipeline.make_federated_data(ds.train_x, ds.train_y, dense,
-                                            counts, device=device)
-    target = state_vector.target_state(fed_data.counts)
-    local_mask = (torch.as_tensor(extensions_lib.rsu_local_step_mask(
-        cfg.num_vehicles, cfg.num_rsus), device=device) if cfg.num_rsus else None)
+        idx = _partition(ds, cfg)
+        # extension: RSUs are extra data-less participants appended after vehicles
+        total_nodes = cfg.num_vehicles + cfg.num_rsus
+        if cfg.num_rsus:
+            idx = idx + [np.array([0])] * cfg.num_rsus  # dummy index, zero weight
+        dense, counts = partition_lib.pad_to_uniform(idx, seed=cfg.seed)
+        if cfg.num_rsus:
+            counts = counts.copy()
+            counts[cfg.num_vehicles:] = 0
+        fed_data = pipeline.make_federated_data(ds.train_x, ds.train_y, dense,
+                                                counts, device=device)
+        target = state_vector.target_state(fed_data.counts)
+        local_mask = (torch.as_tensor(extensions_lib.rsu_local_step_mask(
+            cfg.num_vehicles, cfg.num_rsus), device=device) if cfg.num_rsus else None)
 
-    net = topology_lib.make_road_network(cfg.road_net, seed=cfg.seed)
-    contacts = ContactStream(cfg, net)
+        net = topology_lib.make_road_network(cfg.road_net, seed=cfg.seed)
+        contacts = ContactStream(cfg, net, timer=timer)
 
-    # identical random init on every vehicle (paper Alg. 1 line 1); drawn on
-    # the host so a seed gives the same model on either device
-    if init_params is None:
-        init_params = init_fn(torch.Generator().manual_seed(cfg.seed))
-    params_stack = {
-        name: p.expand((total_nodes,) + tuple(p.shape)).clone()
-        for name, p in convert.params_from_numpy(init_params, device).items()}
-    rng = torch.Generator(device=device).manual_seed(cfg.seed)
+        # identical random init on every vehicle (paper Alg. 1 line 1); drawn on
+        # the host so a seed gives the same model on either device
+        if init_params is None:
+            init_params = init_fn(torch.Generator().manual_seed(cfg.seed))
+        params_stack = {
+            name: p.expand((total_nodes,) + tuple(p.shape)).clone()
+            for name, p in convert.params_from_numpy(init_params, device).items()}
+        rng = torch.Generator(device=device).manual_seed(cfg.seed)
 
-    optimizer = sgd(cfg.lr)
-    local_train_fn = make_local_train_fn(loss_fn, optimizer)
-    opt_stack = optimizer.init(params_stack, num_stacked=total_nodes)
+        optimizer = sgd(cfg.lr)
+        local_train_fn = make_local_train_fn(loss_fn, optimizer)
+        opt_stack = optimizer.init(params_stack, num_stacked=total_nodes)
 
-    eval_x = torch.as_tensor(ds.test_x[: cfg.eval_samples], device=device)
-    eval_y = torch.as_tensor(ds.test_y[: cfg.eval_samples], device=device).long()
-    eval_fn = make_eval_fn(accuracy_fn, eval_x, eval_y)
+        eval_x = torch.as_tensor(ds.test_x[: cfg.eval_samples], device=device)
+        eval_y = torch.as_tensor(ds.test_y[: cfg.eval_samples], device=device).long()
+        eval_fn = make_eval_fn(accuracy_fn, eval_x, eval_y)
 
-    setup = algorithms_lib.AlgorithmSetup(
-        cfg=cfg, total_nodes=total_nodes, loss_fn=loss_fn,
-        local_train_fn=local_train_fn, params_stack=params_stack,
-        opt_stack=opt_stack, local_mask=local_mask,
-        mix_params_fn=resolve_mix_params_fn(cfg), timer=timer)
+        setup = algorithms_lib.AlgorithmSetup(
+            cfg=cfg, total_nodes=total_nodes, loss_fn=loss_fn,
+            local_train_fn=local_train_fn, params_stack=params_stack,
+            opt_stack=opt_stack, local_mask=local_mask,
+            mix_params_fn=resolve_mix_params_fn(cfg), timer=timer)
 
-    init_state = algo.init_state(setup)
-    if cfg.overlap == "delayed":
-        # the double buffer: the params each vehicle last put on the air.
-        # Round 0 mixes the identical broadcast init — what a real fleet's
-        # first in-flight exchange would carry. Carried through the windows,
-        # so trajectories stay window-chunk-invariant.
-        init_state = (init_state, params_stack)
+        init_state = algo.init_state(setup)
+        if cfg.overlap == "delayed":
+            # the double buffer: the params each vehicle last put on the air.
+            # Round 0 mixes the identical broadcast init — what a real fleet's
+            # first in-flight exchange would carry. Carried through the windows,
+            # so trajectories stay window-chunk-invariant.
+            init_state = (init_state, params_stack)
 
-    return EngineContext(
-        cfg=cfg, device=device, total_nodes=total_nodes, fed_data=fed_data,
-        target=target, local_mask=local_mask, contacts=contacts,
-        init_state=init_state, init_rng=rng,
-        round_fn=partial(algo.round, setup),
-        sample_fn=partial(algo.sample, setup),
-        model_of=partial(algo.model_of, setup),
-        eval_fn=eval_fn, algorithm=algo, setup=setup,
-        execution_plan=execution_plan)
+        return EngineContext(
+            cfg=cfg, device=device, total_nodes=total_nodes, fed_data=fed_data,
+            target=target, local_mask=local_mask, contacts=contacts,
+            init_state=init_state, init_rng=rng,
+            round_fn=partial(algo.round, setup),
+            sample_fn=partial(algo.sample, setup),
+            model_of=partial(algo.model_of, setup),
+            eval_fn=eval_fn, algorithm=algo, setup=setup,
+            execution_plan=execution_plan)
 
 
 def build_window_fn(ctx: EngineContext) -> Callable:
@@ -747,8 +757,8 @@ def run(cfg: SimulationConfig, dataset=None, progress: bool = False) -> Simulati
     return run_with_context(build_context(cfg, dataset=dataset), progress=progress)
 
 
-def run_seeds(cfg: SimulationConfig, seeds, dataset=None,
-              progress: bool = False) -> list[SimulationResult]:
+def run_seeds(cfg: SimulationConfig, seeds, dataset=None, progress: bool = False,
+              timer: PhaseTimer | None = None) -> list[SimulationResult]:
     """Run S independent federations (seeded partitions, mobility traces and
     inits) on the execution backend named by ``cfg.backend`` — one window
     loop over the seed-stacked state on the vmap backend.
@@ -757,7 +767,8 @@ def run_seeds(cfg: SimulationConfig, seeds, dataset=None,
     given). Returns one ``SimulationResult`` per seed, in ``seeds`` order.
     The batch's wall time is the caller's to record (the sweep runner keeps
     it per scenario): all seeds run as one loop, so per-seed ``wall_time``
-    stays 0, as in the reference.
+    stays 0, as in the reference. ``timer`` goes to each seed's
+    ``build_context``, and so to the seeds' contact streams and the rounds.
 
     ``execution="auto"`` is resolved HERE, before backend dispatch — the
     backend name itself is one of the knobs the cost model picks — and the
@@ -768,7 +779,7 @@ def run_seeds(cfg: SimulationConfig, seeds, dataset=None,
     cfg, plan = resolve_execution(cfg)
     with full_f32_matmul():
         results = backends_lib.get_backend(cfg.backend).run_seeds(
-            cfg, seeds, dataset=dataset, progress=progress)
+            cfg, seeds, dataset=dataset, progress=progress, timer=timer)
     if plan is not None:
         for r in results:
             r.execution_plan = plan

@@ -20,6 +20,7 @@ import torch
 from ..core import aggregation
 from ..core import contacts as contacts_lib
 from ..precision import full_f32_matmul
+from ..profiling import PhaseTimer
 from . import engine as engine_lib
 # re-exports: the public simulation API lives here, as in the reference
 from .engine import (  # noqa: F401
@@ -27,9 +28,12 @@ from .engine import (  # noqa: F401
 )
 
 
-def run_simulation(cfg: SimulationConfig, dataset=None,
-                   progress: bool = False) -> SimulationResult:
-    ctx = engine_lib.build_context(cfg, dataset=dataset)   # resolves "auto"
+def run_simulation(cfg: SimulationConfig, dataset=None, progress: bool = False,
+                   timer: PhaseTimer | None = None) -> SimulationResult:
+    """One federation, on the engine or the per-epoch loop; ``timer``
+    (``profiling.PhaseTimer``) spans its set-up, contact stream and rounds
+    on either."""
+    ctx = engine_lib.build_context(cfg, dataset=dataset, timer=timer)   # resolves "auto"
     if ctx.cfg.use_scan_engine:
         return engine_lib.run_with_context(ctx, progress=progress)
     with full_f32_matmul():
@@ -44,7 +48,7 @@ def run_legacy_loop(ctx: EngineContext, progress: bool = False) -> SimulationRes
         raise ValueError(
             "overlap='delayed' needs the scan engine's double-buffered carry "
             "(set use_scan_engine=True)")
-    t0 = time.time()
+    t0 = time.perf_counter()
     result = SimulationResult(config=cfg, execution_plan=ctx.execution_plan)
     state, rng = ctx.init_state, ctx.init_rng
     payload_mb = engine_lib.exchange_payload_mb(ctx)
@@ -65,7 +69,7 @@ def run_legacy_loop(ctx: EngineContext, progress: bool = False) -> SimulationRes
                     progress, num_vehicles=cfg.num_vehicles)
 
     ctx.final_state = state
-    result.wall_time = time.time() - t0
+    result.wall_time = time.perf_counter() - t0
     return result
 
 

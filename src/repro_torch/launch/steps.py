@@ -273,7 +273,9 @@ def build_dds_train_step(cfg: ArchConfig, *,
     ``compute_dtype`` runs the loss in that dtype on the f32 master weights
     (the cast is inside the loss, so the gradients reach the f32 leaves).
     ``timer`` brackets the round's phases (``p1_solve``, ``mix``,
-    ``local_train``, ``state_update``), as the federation engine's rounds.
+    ``local_train``, ``state_update``), as the federation engine's rounds,
+    and each local step's ``forward``, ``backward`` (under ``remat`` with
+    the recomputed forward) and ``adamw`` inside ``local_train``.
 
     ``mesh`` runs the round on a federation mesh (module docstring):
     ``params`` and ``opt_state`` DTensors placed by ``in_specs``
@@ -302,11 +304,13 @@ def build_dds_train_step(cfg: ArchConfig, *,
         mean loss."""
         losses = []
         for _ in range(local_steps):
-            leaves = {name: row.detach().requires_grad_() for name, row in rows.items()}
-            loss = loss_fn(leaves, toks, pre)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            with phase(timer, "forward"):
+                leaves = {name: row.detach().requires_grad_() for name, row in rows.items()}
+                loss = loss_fn(leaves, toks, pre)
+            with phase(timer, "backward"):
+                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             del leaves
-            with torch.no_grad():
+            with phase(timer, "adamw"), torch.no_grad():
                 for name in list(grads):
                     g = {name: grads.pop(name)}
                     p = {name: rows[name]}

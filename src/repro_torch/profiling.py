@@ -1,9 +1,13 @@
-"""Per-phase timing of a federation round.
+"""Per-phase timing of a federation or a train round.
 
-``PhaseTimer`` brackets named phases (P1 solve, gossip mix, local training,
-state update, eval) with CUDA events on a CUDA device — recorded on the
-current stream, so timing adds no synchronisation to the run — or with the
-host clock on the CPU. ``totals_ms()`` synchronises once and sums per phase.
+``PhaseTimer`` brackets named phases (set-up, the contact stream, P1 solve,
+gossip mix, local training and its forward, backward and AdamW, state
+update, eval) on two clocks: the host's (``time.perf_counter_ns``) and, on a
+CUDA device, CUDA events recorded on the current stream, so timing adds no
+synchronisation to the run. Each phase is also a
+``torch.profiler.record_function`` range ``repro_torch.<name>``: under a
+profiler the phases, nested as they ran, share the trace's clock with the
+device's activity. ``totals_ms()`` synchronises once and sums per phase.
 A run without a timer pays nothing: ``phase(None, name)`` is a null context.
 """
 from __future__ import annotations
@@ -19,35 +23,37 @@ class PhaseTimer:
     def __init__(self, device):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
-        self._spans = defaultdict(list)   # name -> [(start, end)]
+        self._events = defaultdict(list)   # name -> [(start, end)] CUDA events
+        self._host_ns = defaultdict(int)   # name -> host ns inside the phase
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        with torch.profiler.record_function(f"repro_torch.{name}"):
+            t0 = time.perf_counter_ns()
+            if self.cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
             try:
                 yield
             finally:
-                end.record()
-                self._spans[name].append((start, end))
-        else:
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                self._spans[name].append((t0, time.perf_counter()))
+                if self.cuda:
+                    end.record()
+                    self._events[name].append((start, end))
+                self._host_ns[name] += time.perf_counter_ns() - t0
 
     def totals_ms(self) -> dict[str, float]:
-        """Milliseconds per phase (device time on CUDA, host time on the
-        CPU)."""
+        """Milliseconds per phase: ``<name>`` device time on CUDA (host time
+        on the CPU), ``<name>.host`` the host's time inside the phase."""
+        host = {name: ns / 1e6 for name, ns in self._host_ns.items()}
         if self.cuda:
             torch.cuda.synchronize(self.device)
-            return {name: sum(s.elapsed_time(e) for s, e in spans)
-                    for name, spans in self._spans.items()}
-        return {name: sum((e - s) * 1e3 for s, e in spans)
-                for name, spans in self._spans.items()}
+            totals = {name: sum(s.elapsed_time(e) for s, e in spans)
+                      for name, spans in self._events.items()}
+        else:
+            totals = dict(host)
+        totals.update({f"{name}.host": ms for name, ms in host.items()})
+        return totals
 
 
 def phase(timer: PhaseTimer | None, name: str):
