@@ -53,17 +53,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
                once per contact format, through the gossip-mix kernels (one
                grouped launch per round over the model's 8 leaves, gather or
-               matmul); checks the launch counters, the traces and the state
-               matrix, the agreement of the two formats and of the kernel path
-               with the plain-torch mix.
+               matmul) and through ``eg_solve`` (one launch per round's P1
+               solve, by ``core.kl_solver.solve_counts`` no eager solve); checks
+               the launch counters, the traces and the state matrix, the
+               agreement of the two formats and of the kernel path with the
+               plain-torch mix.
 5. P1        — ``kernels.kl_simplex.solve_p1_all_fused`` on the dense run's final
                state matrix, target and next contact matrix (one ``eg_solve``
                launch, no ``eg_step``), and on a seeded K = 300 case past the
                one-launch limit (one ``eg_step`` launch per step): each one's
-               per-row objective against the eager ``core.kl_solver.solve_p1_all``,
-               alpha on the simplex and 0 off the contacts; wall time and
-               device events of the one-launch solve, of the per-step loop at
-               the same K and of that loop replayed from a CUDA graph.
+               per-row objective against the eager loop of
+               ``core.kl_solver.solve_p1_all`` (``_solve_p1_eager``), alpha on
+               the simplex and 0 off the contacts; wall time and device events
+               of the one-launch solve, of the per-step loop at the same K, of
+               that loop replayed from a CUDA graph and of the eager loop.
 6. baselines — ``run_simulation`` of ``dfl``, ``d_sgd``, ``d_fedavg`` and ``sp`` at the
                same full width, 2 epochs, both contact formats, through the
                gossip-mix kernels (one grouped launch per round);
@@ -97,7 +100,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6d. cost model — ``roofline.scenario_cost`` and ``execution="auto"`` on the card:
                the constants of the committed ``H100`` profile as this run
                measures them (the main path's spans and wall time, the gather
-               and matmul rows, the eager P1's host time per device event, the
+               and matmul rows, the id-table ``eg_solve`` row's time per step,
+               the eager P1's host time per device event and per step, the
                contact stream timed on the host, the sharded phase's
                reduce-scatters), printed beside the committed ones; the plan
                ``resolve_auto`` makes at K=100 and its predicted epochs/s beside
@@ -1303,9 +1307,86 @@ def time_kl_kernels(device, k: int, p1_steps: int) -> dict[str, dict]:
     out["eg_solve"] = solve
     out["eg_step"].update({"solve_ms": solve["ms"], "solve_bound_ms": solve["bound_ms"],
                            "solve_work": solve["work"]})
+    out["eg_solve"]["id_table"] = time_eg_solve_rows(device, k, p1_steps)
     for name, row in out.items():
         log(f"  {name}: {json.dumps(row)}")
     return out
+
+
+def _stream_neighbours(k: int, seed: int) -> contacts_lib.SparseContacts:
+    """Epoch 0 of a real contact stream at the paper's settings with ``k``
+    vehicles over 50 epochs (the benchmark's federation at K = 100), D_max by
+    the stream's own probe: numpy ids / mask ``[k, D_max]``."""
+    cfg = SimulationConfig(num_vehicles=k, epochs=50, device="cpu", seed=seed)
+    window = engine.ContactStream(cfg, topology.make_road_network(cfg.road_net,
+                                                                  seed=cfg.seed)).window(1)
+    return contacts_lib.SparseContacts(window.idx[0], window.mask[0])
+
+
+def time_eg_solve_rows(device, k: int, p1_steps: int) -> dict[str, dict]:
+    """``eg_solve`` on an id table (``kernel.eg_solve_rows``, the form
+    ``core.kl_solver.solve_p1_all`` takes on the card) at the shapes the
+    benchmark's cells give it: K = ``k`` neighbour lists of a real contact
+    stream (``p1_steps`` steps), 8 such streams on a seed axis (8 K rows), V = 2
+    dense (the train cells: identity ids, 100 steps) and neighbour lists at
+    K = 1,024 with 24 slots. Each row: one launch, held to its plain version
+    (``eg_solve_rows_ref``, atol 1e-5) and timed beside it and its bound: the
+    states, ids, masks and targets read once, alpha written once; two
+    ``[D] x [D, K]`` products of FMAs a row and step."""
+    cases = {}
+    one = _stream_neighbours(k, 0)
+    cases[f"k{k}_sparse_d{one.idx.shape[1]}"] = (
+        _state_case(k, k, torch.float32, 1, device)[0], one.idx, one.mask, p1_steps)
+    seeds = contacts_lib.stack_windows([contacts_lib.SparseContacts(w.idx[None], w.mask[None])
+                                        for w in (_stream_neighbours(k, s) for s in range(8))])
+    cases[f"seeds8_{8 * k}_rows_d{seeds.idx.shape[-1]}"] = (
+        torch.stack([_state_case(k, k, torch.float32, 10 + i, device)[0] for i in range(8)]),
+        seeds.idx[:, 0], seeds.mask[:, 0], p1_steps)
+    cases["v2_dense"] = (_state_case(2, 2, torch.float32, 2, device)[0], None,
+                         np.ones((2, 2), np.float32), TRAIN_P1)
+    r = np.random.default_rng(3)
+    big_idx = np.repeat(np.arange(1024, dtype=np.int32)[:, None], 24, axis=1)
+    big_mask = np.zeros((1024, 24), np.float32)
+    big_mask[:, 0] = 1.0
+    for v in range(1024):
+        others = [u for u in r.choice(1024, size=int(r.integers(0, 24)), replace=False)
+                  if u != v]
+        big_idx[v, 1:1 + len(others)], big_mask[v, 1:1 + len(others)] = others, 1.0
+    cases["k1024_sparse_d24"] = (_state_case(1024, 1024, torch.float32, 3, device)[0],
+                                 big_idx, big_mask, p1_steps)
+    rows = {}
+    for label, (states, ids, mask, steps) in cases.items():
+        seeded = states.dim() == 3
+        kk = states.shape[-1]
+        g = torch.stack([_state_case(1, kk, torch.float32, 20 + i, device)[1]
+                         for i in range(states.shape[0])]) if seeded else \
+            _state_case(1, kk, torch.float32, 20, device)[1]
+        ids_t = None if ids is None else torch.as_tensor(np.ascontiguousarray(ids)).to(device)
+        mask_t = torch.as_tensor(np.ascontiguousarray(mask)).to(device)
+        before = kl_simplex.kernel.launch_counts["eg_solve"]
+        got = kl_simplex.eg_solve_rows(states, ids_t, g, mask_t, num_steps=steps)
+        torch.cuda.synchronize()
+        check(kl_simplex.kernel.launch_counts["eg_solve"] == before + 1,
+              f"eg_solve id table {label}: one launch")
+        with full_f32_matmul():
+            want = kl_simplex.eg_solve_rows_ref(states, ids_t, g, mask_t, num_steps=steps)
+        err = _max_err(got, want)
+        check(err <= 1e-5 and bool((got[mask_t == 0] == 0).all()),
+              f"eg_solve id table {label}: max err {err:.2e} against eg_solve_rows_ref, 0 off "
+              "the mask")
+        n_rows, d = mask_t.numel() // mask_t.shape[-1], mask_t.shape[-1]
+        nbytes = 4 * (states.numel() + g.numel() + 2 * mask_t.numel()
+                      + (0 if ids_t is None else ids_t.numel()))
+        with full_f32_matmul():
+            row = _timed(lambda: kl_simplex.eg_solve_rows(states, ids_t, g, mask_t,
+                                                          num_steps=steps),
+                         lambda: kl_simplex.eg_solve_rows_ref(states, ids_t, g, mask_t,
+                                                              num_steps=steps),
+                         None, nbytes, steps * n_rows * 4 * d * kk,
+                         f"one P1 solve in one launch on an id table: {steps} EG steps, "
+                         f"{n_rows} rows x [{d}, {kk}]", inner=2, reps=5, warm=2)
+        rows[label] = {**row, "max_abs_err": err}
+    return rows
 
 
 # ------------------------------------------------------- flash attention ----
@@ -2914,12 +2995,15 @@ def drive_main_path(cfg: SimulationConfig, dataset):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     kernels_lib.reset_launch_counts()
+    kl_solver.reset_solve_counts()
     t0 = time.perf_counter()
     result = engine.run_with_context(ctx)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernel.launch_counts)
+    p1_route = {"eg_solve": kl_simplex.kernel.launch_counts["eg_solve"],
+                **{f"{r}_solves": n for r, n in kl_solver.solve_counts.items()}}
     phases = timer.totals_ms()
     report = {
         "algorithm": cfg.algorithm, "contact_format": cfg.contact_format,
@@ -2929,7 +3013,7 @@ def drive_main_path(cfg: SimulationConfig, dataset):
         "device_ms_per_epoch": {n: v / cfg.epochs for n, v in sorted(phases.items())},
         "peak_device_memory_mb": (torch.cuda.max_memory_allocated() / 2**20
                                   if torch.cuda.is_available() else None),
-        "launches": launches,
+        "launches": launches, "p1_route": p1_route,
         "avg_accuracy": result.avg_accuracy, "kl_trace": result.kl_trace,
     }
     log(f"  {json.dumps(report)}")
@@ -2957,6 +3041,10 @@ def drive_main_path(cfg: SimulationConfig, dataset):
               f"{cfg.algorithm} {cfg.contact_format}: {used} launched {launches[used]} "
               f"times = {cfg.epochs} mixes x 1 grouped launch over {len(LEAF_WIDTHS)} "
               f"leaves; {other} {launches[other]} times")
+        solves = cfg.epochs if cfg.algorithm == "dds" else 0
+        check(p1_route == {"eg_solve": solves, "kernel_solves": solves, "eager_solves": 0},
+              f"{cfg.algorithm} {cfg.contact_format}: P1 {p1_route}: {solves} eg_solve "
+              "launches, one per round, no eager solve")
     return result, ctx, launches, report
 
 
@@ -3418,7 +3506,8 @@ def _check_p1(cfg: SimulationConfig, states, target, contact_matrix, want: str):
     (``want="eg_step"``) and none of the other. Returns (alpha, the eager
     solver's alpha, the two kernels' launches)."""
     kw = dict(num_steps=cfg.p1_steps, step_size=cfg.p1_step_size)
-    eager_alpha = kl_solver.solve_p1_all(states, target, contact_matrix, **kw)
+    eager_alpha = kl_solver._solve_p1_eager(states, target, contact_matrix, cfg.p1_steps,
+                                            cfg.p1_step_size)
     kernels_lib.reset_launch_counts()
     alpha = kl_simplex.solve_p1_all_fused(states, target, contact_matrix, **kw)
     if torch.cuda.is_available():
@@ -3485,7 +3574,8 @@ def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix,
                                                           cfg.p1_step_size),
         "per_step_cuda_graph_replay": _graph_of(
             lambda: kl_simplex.ops._solve_per_step(s, g, m, cfg.p1_steps, cfg.p1_step_size)),
-        "eager": lambda: kl_solver.solve_p1_all(states, target, contact_matrix, **kw),
+        "eager": lambda: kl_solver._solve_p1_eager(states, target, contact_matrix,
+                                                   cfg.p1_steps, cfg.p1_step_size),
     }
     facts = {name: {"wall_s": _wall_s(fn), "device_events": _device_events(fn)}
              for name, fn in runs.items()}
@@ -3566,8 +3656,10 @@ def fit_h100_profile(full: SimulationConfig, d_max: int, reports: list, timings:
                      p1_facts: dict, sharded: dict, scale: dict) -> dict:
     """The constants of ``scenario_cost.H100`` as this run measures them:
     from the DDS main path's two runs (``reports``: wall s/epoch and phase
-    spans), the kernels line's gather and matmul rows, the P1 facts (the
-    eager solve's wall time over its device events), the contact stream timed
+    spans), the kernels line's gather and matmul rows and its id-table
+    ``eg_solve`` row at K (the one-launch solve's step), the P1 facts (the
+    eager solve's wall time over its device events and over its steps), the
+    contact stream timed
     on the host at the main path's K and at the scale workload's (``scale``,
     ``drive_scale_pair``'s report), and the sharded phase (gloo staged
     through host memory, N ranks sharing this card)."""
@@ -3595,7 +3687,9 @@ def fit_h100_profile(full: SimulationConfig, d_max: int, reports: list, timings:
                                   - contact_s[r["contact_format"]] for r in reports),
 
         "cuda_mix_gain": gather["plain_ms"] / gather["ms"],
-        "p1_step_host_s": _mean(s["p1_solve"] for s in spans) / 1e3 / full.p1_steps,
+        "p1_step_host_s": eager["wall_s"] / full.p1_steps,
+        "p1_kernel_step_s": next(row["ms"] for label, row in timings["eg_solve"]["id_table"].items()
+                                 if label.startswith(f"k{k}_sparse")) / 1e3 / full.p1_steps,
     }
     # one reduce-scatter per round at 8 MiB buckets: t(N) = launch + bytes(N) / rate
     # from N = 2 and 4 (the larger N ships more: (N-1)/N of the partials)
@@ -3942,7 +4036,7 @@ def main() -> int:
     log(f"[main path] {json.dumps({'per_epoch': reports})}")
 
     # -- 5. the P1 entry point at full width (the dense run's last state) ---
-    log("[P1] solve_p1_all_fused vs core.kl_solver.solve_p1_all")
+    log("[P1] solve_p1_all_fused vs the eager loop of core.kl_solver.solve_p1_all")
     with engine.full_f32_matmul():
         p1_launches, p1_facts = check_fused_p1(full, ctx.final_state.state_matrix, ctx.target,
                                                next_contacts, P1_K_PAST_LIMIT, args.seed)

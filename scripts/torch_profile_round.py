@@ -6,7 +6,8 @@
 
 Runs ``run_simulation`` at the paper's MNIST configuration for one warm-up
 epoch, then ``--epochs`` epochs un-profiled (wall time per epoch, per-phase
-CUDA-event split from ``repro_torch.profiling``) and once more under
+CUDA-event split from ``repro_torch.profiling``, the P1 solve's route: its
+``eg_solve`` launches and ``core.kl_solver.solve_counts``) and once more under
 ``torch.profiler`` (kernels by total device time, launches per epoch, the
 device-busy share). Writes the table under ``--out`` (``--trace``: and a
 chrome trace).
@@ -24,9 +25,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
+from repro_torch.core import kl_solver  # noqa: E402
 from repro_torch.data import datasets as data_lib  # noqa: E402
 from repro_torch.fed import engine  # noqa: E402
 from repro_torch.fed.simulator import SimulationConfig  # noqa: E402
+from repro_torch.kernels.kl_simplex import kernel as kl_kernel  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
 
 
@@ -59,11 +62,15 @@ def main() -> int:
     # 1. un-profiled: wall time per epoch and the per-phase CUDA-event split
     timer = PhaseTimer(cfg.device)
     ctx = engine.build_context(cfg, dataset=ds, timer=timer)
+    kl_kernel.reset_launch_counts()
+    kl_solver.reset_solve_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run_with_context(ctx)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    p1_route = {"eg_solve_launches": kl_kernel.launch_counts["eg_solve"],
+                **{f"{route}_solves": n for route, n in kl_solver.solve_counts.items()}}
     per_epoch = {n: v / cfg.epochs for n, v in sorted(timer.totals_ms().items())}
     phases = {n: v for n, v in per_epoch.items() if not n.endswith(".host")}
     host = {n[:-len(".host")]: v for n, v in per_epoch.items() if n.endswith(".host")}
@@ -89,6 +96,7 @@ def main() -> int:
                "wall_ms_per_epoch": wall / cfg.epochs * 1e3,
                "phase_device_ms_per_epoch": phases,
                "phase_host_ms_per_epoch": host,
+               "p1_route": p1_route,
                "kernel_device_ms_per_epoch": device_us / 1e3 / cfg.epochs,
                "kernel_launches_per_epoch": launches / cfg.epochs,
                "device_busy_share": device_us / 1e6 / wall}

@@ -20,6 +20,14 @@ takes: ``contacts.seedwise_matmul``), and the
 neighbour-list solve folds the seeds into its rows, each row against its own
 seed's target.
 
+On the card, ``solve_p1_all`` runs the whole solve as one launch of the
+hand-written ``eg_solve`` kernel wherever a row's ``[D, K]`` states fit one
+block's shared memory (``kernels.kl_simplex.kernel.eg_solve_fits``): on
+neighbour lists through their ids, with a seed axis through the kernel's
+per-seed offsets, so nothing is gathered or repeated first. Past that, and
+on the CPU, it runs the eager loop below. The route is a choice by shape;
+``solve_counts`` counts the solves each route took.
+
 The objective and gradient are in **nats** (the state-vector diagnostics are
 in bits; the argmin is the same).
 """
@@ -27,11 +35,21 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.kl_simplex import kernel as eg_kernel
 from . import contacts as contacts_lib
 
 Tensor = torch.Tensor
 
 _EPS = 1e-12
+
+# solve_p1_all calls by route since the last reset_solve_counts(): "kernel"
+# (one eg_solve launch) or "eager" (the loop of _eg_solve)
+solve_counts: dict[str, int] = {"kernel": 0, "eager": 0}
+
+
+def reset_solve_counts() -> None:
+    for route in solve_counts:
+        solve_counts[route] = 0
 
 
 def _kl_nats(u: Tensor, g: Tensor) -> Tensor:
@@ -153,7 +171,48 @@ def solve_p1_all(
       neighbour-list layout — each vehicle's EG runs over its D_max slots
       against the gathered ``[D_max, K]`` neighbour states (the same solver
       body as the dense path, so the optima agree).
+
+    On the card one ``eg_solve`` launch where a row's states fit one block
+    (the same steps in full f32, within about 2e-7 of the eager loop), else
+    the eager loop; see the module's docstring.
     """
+    if _kernel_takes(states, contacts):
+        solve_counts["kernel"] += 1
+        return _solve_p1_kernel(states, target, contacts, num_steps, step_size)
+    solve_counts["eager"] += 1
+    return _solve_p1_eager(states, target, contacts, num_steps, step_size)
+
+
+def _kernel_takes(states: Tensor, contacts) -> bool:
+    """Whether ``solve_p1_all`` runs as one ``eg_solve`` launch: f32 states on
+    the card whose ``[D, K]`` rows per vehicle (``D`` the neighbour slots, or
+    the state matrix's rows for dense contacts) fit one block."""
+    if not states.is_cuda or states.dtype != torch.float32:
+        return False
+    sparse = isinstance(contacts, contacts_lib.SparseContacts)
+    d = contacts.idx.shape[-1] if sparse else states.shape[-2]
+    return eg_kernel.eg_solve_fits(d, states.shape[-1], states.device)
+
+
+def _solve_p1_kernel(states, target, contacts, num_steps, step_size) -> Tensor:
+    """The whole solve in one launch: neighbour lists as the kernel's id table
+    (seeds through its per-seed offsets), dense contacts as the shared state
+    matrix (with a seed axis, the identity table per seed)."""
+    kw = dict(num_steps=num_steps, step_size=step_size)
+    target = target.to(torch.float32).contiguous()
+    if isinstance(contacts, contacts_lib.SparseContacts):
+        return eg_kernel.eg_solve_rows(
+            states.contiguous(), contacts.idx.to(torch.int32).contiguous(), target,
+            contacts.mask.to(torch.float32).contiguous(), **kw)
+    mask = contacts.to(torch.float32).contiguous()
+    if states.dim() == 3:
+        return eg_kernel.eg_solve_rows(states.contiguous(), None, target, mask, **kw)
+    return eg_kernel.eg_solve(states.contiguous(), target, mask, **kw)
+
+
+def _solve_p1_eager(states, target, contacts, num_steps, step_size) -> Tensor:
+    """``solve_p1_all`` as the loop of ``_eg_solve``: on the CPU, and on the
+    card where a row's states do not fit one block of ``eg_solve``."""
     if isinstance(contacts, contacts_lib.SparseContacts):
         if contacts.idx.dim() == 3:      # seed axis: fold the seeds into rows
             s, k, d = contacts.idx.shape

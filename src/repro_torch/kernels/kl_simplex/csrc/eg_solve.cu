@@ -1,22 +1,40 @@
 // The whole P1 solve in one launch, for Hopper (sm_90a): every
-// exponentiated-gradient step of `solve_p1_all_fused` for a [D, K] state
-// matrix S, a target g [K] and a 0/1 contact mask [R, D] (f32), giving
-// alpha [R, D] f32:
+// exponentiated-gradient step of a P1 solve, one block per row of alpha. A
+// block r stages its own D candidate rows of the states, a [D, K] matrix
+// S_r, beside its target g_r [K] and its 0/1 contact mask m_r [D] (f32), and
+// gives alpha_r [D] f32:
 //
-//     alpha_0 = m / max(sum_j m, 1)
-//     repeat num_steps times, for every row v independently:
-//       u    = max(alpha[v] @ S, 1e-12)                   [K]
-//       grad = (log u - log max(g, 1e-12) + 1) @ S^T      [D]
-//       alpha[v] = the EG update of (alpha[v], grad, m[v]) (eg_update.cuh)
+//     alpha_0 = m_r / max(sum_j m_r[j], 1)
+//     repeat num_steps times:
+//       u     = max(alpha @ S_r, 1e-12)                    [K]
+//       grad  = (log u - log max(g_r, 1e-12) + 1) @ S_r^T  [D]
+//       alpha = the EG update of (alpha, grad, m_r) (eg_update.cuh)
 //
-// The same iteration as the per-step loop over eg_step.cu, with the two
-// products in full f32 on the CUDA cores (no TF32). A row whose mask is all
-// zero gives 0, by the TPU kernel's rule.
+// The same iteration as the per-step loop over eg_step.cu and as the eager
+// loop of core/kl_solver.py, with the two products in full f32 on the CUDA
+// cores (no TF32). A row whose mask is all zero gives 0, by the TPU kernel's
+// rule.
 //
-// Replaces the loop of src/repro/kernels/kl_simplex/ops.py::solve_p1_all_fused
-// over the Pallas TPU kernel `_eg_step_kernel` / `eg_step` in
-// src/repro/kernels/kl_simplex/kernel.py: one launch where that loop makes one
-// per step (and the products between them).
+// Two forms over one kernel body:
+// * dense (eg_solve_launch): one shared S [D, K] and one target for all R
+//   rows, the form of solve_p1_all_fused on a [K, K] contact matrix;
+// * id table (eg_solve_rows_launch): states [S, N, K] (S seeds of N rows,
+//   folded into one [S * N, K] array), ids [S, R, D] int32 (or none: the
+//   identity, row j of its seed's N), targets [S, K] and masks [S, R, D].
+//   Block b = s * R + r stages rows s * N + ids[s, r, j] of the states and
+//   reads target row s, so a seed axis costs no copy (no repeat of the
+//   targets, no offset ids). This is the layout core/kl_solver.py solves
+//   on: neighbour lists (ids = SparseContacts.idx, whose padding slots carry
+//   the row's own id with mask 0: staged, and given alpha 0, as the eager
+//   gather does) and dense contacts with a seed axis (identity ids).
+//
+// Replaces the eager loop of src/repro_torch/core/kl_solver.py
+// (_eg_solve over the [R, D, K] gather of _solve_p1_neighbours: about 25
+// launches a step) and the loop of
+// src/repro/kernels/kl_simplex/ops.py::solve_p1_all_fused over the Pallas
+// TPU kernel `_eg_step_kernel` / `eg_step` in
+// src/repro/kernels/kl_simplex/kernel.py: one launch where those loops
+// make one or more per step (and the products between them).
 //
 // What bounds it on this card: neither bytes nor operations but the chain of
 // dependent steps. At the paper's D = K = 100 a step is 2 x 10^4 FMAs per row
@@ -28,14 +46,19 @@
 // (four dependent warp reductions, a log, an exp and three divisions). On an
 // H100 at 700 W that chain takes 5,100 cycles at K = 100 (u 1,300, log u
 // 350, grad 1,150, update 2,300) and 3,300 at K = 8, most of it latency
-// (scripts/torch_profile_eg_solve.py prints the split).
+// (scripts/torch_profile_eg_solve.py prints the split, for both forms). On
+// neighbour lists (D = D_max, a tenth of K) the products shrink with D and
+// the update does not: 3,750 cycles on the [100, 11] ids of a K = 100
+// contact stream (u 440, log u 340, grad 750, update 2,200), not D / K of
+// the dense chain.
 //
 // What the design does about it: one block of 256 threads per row of alpha
 // for the whole solve. Rows are independent, so blocks never wait for each
 // other (at R = 100, 100 blocks on 132 SMs: one wave, no grid-wide barrier).
-// The block stages S into shared memory once (`cp.async`, 16 bytes at a time
-// where S's rows are 16-byte aligned, else 4), with 0 in the pad columns and
-// log g beside it. Both products read S 16 bytes a lane, and S's pitch is a
+// The block stages its S into shared memory once (`cp.async`, 16 bytes at a
+// time where the rows are 16-byte aligned, else 4; through the id table, one
+// row per id), with 0 in the pad columns and log g beside it. Both products
+// read S 16 bytes a lane, and S's pitch is a
 // multiple of 4 floats with an odd number of 16-byte chunks, so that both
 // directions are free of bank conflicts:
 // * u = alpha[v] @ S: lanes on neighbouring 16-byte chunks of a row of S,
@@ -51,17 +74,22 @@
 // branches, so that the items' log / exp chains overlap). Four block barriers
 // per step. The first design (4-byte reads, grad by warp shuffles, the
 // update with branches) took 0.82 ms per 200-step solve at K = 100; this one
-// 0.52 ms (chip_smoke.py).
+// 0.52 ms (chip_smoke.py). The id table adds a read of the row's id to each
+// staged chunk (from L1 after the first) and leaves the step loop as it was;
+// the dense form does not read it (a template flag), so its code is the one
+// that was timed. On those ids a solve takes 0.37 ms against 55 ms of the
+// eager loop (chip_smoke.py).
 //
-// Why it does not serve every shape: S has to fit one block's shared memory
-// (D x K x 4 bytes plus rows of length K and D: up to D = K = 234 in the
-// H100's 227 KB), and a row's lanes keep ceil(max(D, K) / 32) <= 32 values in
-// registers (D, K <= 1024). The library reports the limit
-// (eg_solve_fits / eg_solve_max_k); past it `solve_p1_all_fused` keeps the
-// per-step loop: cuBLAS f32 products plus one eg_step launch per step. At the
-// scale sweep's K = 1024, S is 4 MB: streamed from L2 by each of 1,024 blocks
-// for both products it would move 8 GB a step, where the library's two
-// products read it about twice.
+// Why it does not serve every shape: a block's S has to fit its shared
+// memory (D x K x 4 bytes plus rows of length K and D: up to D = K = 234 in
+// the H100's 227 KB; at K = 1,024 up to D = 46), and a row's lanes keep
+// ceil(max(D, K) / 32) <= 32 values in registers (D, K <= 1024). The
+// library reports the limit (eg_solve_fits / eg_solve_max_k); past it
+// core/kl_solver.py keeps the eager loop and `solve_p1_all_fused` the
+// per-step loop: cuBLAS f32 products plus one eg_step launch per step. At
+// the scale sweep's dense K = 1024, S is 4 MB: streamed from L2 by each of
+// 1,024 blocks for both products it would move 8 GB a step, where the
+// library's two products read it about twice.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw
 // device pointers and the current stream, and raises on the returned error.
@@ -137,11 +165,15 @@ __device__ __forceinline__ void fma4(float w, const float4& x, float4& acc) {
   acc.w = fmaf(w, x.w, acc.w);
 }
 
-template <int ITEMS>
+// kRows: the id-table form (states of `rows_n` rows per seed, `ids` per block
+// or the identity where null, a target per seed of `rows_r` blocks); else
+// the dense form, which reads neither.
+template <int ITEMS, bool kRows>
 __global__ void __launch_bounds__(kBlockThreads)
-    eg_solve_kernel(const float* __restrict__ states, const float* __restrict__ target,
-                    const float* __restrict__ mask, float* __restrict__ out, int d,
-                    int k, int num_steps, float step) {
+    eg_solve_kernel(const float* __restrict__ states, const int* __restrict__ ids,
+                    const float* __restrict__ target, const float* __restrict__ mask,
+                    float* __restrict__ out, int rows_r, int rows_n, int d, int k,
+                    int num_steps, float step) {
   constexpr int kQuads = (ITEMS + 3) / 4;   // 16-byte column chunks per lane
   extern __shared__ float4 smem_raw[];
   const int ldk = pitch4(k), ldd = pitch4(d), ld = s_pitch(k);
@@ -158,6 +190,16 @@ __global__ void __launch_bounds__(kBlockThreads)
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
+  // the id-table form: this block's seed, its ids and its seed's target
+  const long long seed = kRows ? row / rows_r : 0;
+  const int* id_row = kRows && ids != nullptr ? ids + row * d : nullptr;
+  if (kRows) target += seed * k;
+  // row j of this block's S: the states row it stages
+  auto source_row = [&](int j) -> size_t {
+    if (!kRows) return static_cast<size_t>(j);
+    return static_cast<size_t>(seed * rows_n + (id_row != nullptr ? id_row[j] : j));
+  };
+
   // S into shared memory, once; the pad columns of S and r are 0, so that
   // 16-byte reads past column k add nothing
   if (k % 4 == 0 && reinterpret_cast<uintptr_t>(states) % 16 == 0) {
@@ -165,12 +207,13 @@ __global__ void __launch_bounds__(kBlockThreads)
     for (int i = tid; i < d * quads; i += kBlockThreads) {
       const int j = i / quads;
       const int c = (i - j * quads) * 4;
-      cp_async16(s_s + j * ld + c, states + static_cast<size_t>(j) * k + c);
+      cp_async16(s_s + j * ld + c, states + source_row(j) * k + c);
     }
   } else {
     for (int i = tid; i < d * k; i += kBlockThreads) {
       const int j = i / k;
-      cp_async4(s_s + j * ld + (i - j * k), states + i);
+      const int c = i - j * k;
+      cp_async4(s_s + j * ld + c, states + source_row(j) * k + c);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -308,9 +351,10 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-template <int ITEMS>
-cudaError_t launch(const float* s, const float* g, const float* m, float* out, int r,
-                   int d, int k, int num_steps, float step, cudaStream_t stream) {
+template <int ITEMS, bool kRows>
+cudaError_t launch(const float* s, const int* ids, const float* g, const float* m,
+                   float* out, int blocks, int r, int n, int d, int k, int num_steps,
+                   float step, cudaStream_t stream) {
   const size_t smem = solve_smem_bytes(d, k);
   // above 48 KB a kernel has to opt in to its dynamic shared memory, once
   // per device (the attribute belongs to the device's copy of the kernel)
@@ -322,16 +366,37 @@ cudaError_t launch(const float* s, const float* g, const float* m, float* out, i
     if (err != cudaSuccess) return err;
     size_t& have = opted_in[device % kMaxDevices];
     if (smem > have) {
-      err = cudaFuncSetAttribute(eg_solve_kernel<ITEMS>,
+      err = cudaFuncSetAttribute(eg_solve_kernel<ITEMS, kRows>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       have = smem;
     }
   }
-  eg_solve_kernel<ITEMS><<<r, kBlockThreads, smem, stream>>>(s, g, m, out, d, k,
-                                                             num_steps, step);
+  eg_solve_kernel<ITEMS, kRows><<<blocks, kBlockThreads, smem, stream>>>(
+      s, ids, g, m, out, r, n, d, k, num_steps, step);
   return cudaGetLastError();
+}
+
+// the instantiation for max(d, k): ceil(max / 32) values per lane, rounded up
+// to a power of two
+template <bool kRows>
+cudaError_t launch_items(const float* s, const int* ids, const float* g, const float* m,
+                         float* out, int blocks, int r, int n, int d, int k,
+                         int num_steps, float step, cudaStream_t st) {
+  const int items = ((d > k ? d : k) + 31) / 32;
+  if (items <= 1)
+    return launch<1, kRows>(s, ids, g, m, out, blocks, r, n, d, k, num_steps, step, st);
+  if (items <= 2)
+    return launch<2, kRows>(s, ids, g, m, out, blocks, r, n, d, k, num_steps, step, st);
+  if (items <= 4)
+    return launch<4, kRows>(s, ids, g, m, out, blocks, r, n, d, k, num_steps, step, st);
+  if (items <= 8)
+    return launch<8, kRows>(s, ids, g, m, out, blocks, r, n, d, k, num_steps, step, st);
+  if (items <= 16)
+    return launch<16, kRows>(s, ids, g, m, out, blocks, r, n, d, k, num_steps, step, st);
+  return launch<kMaxItems, kRows>(s, ids, g, m, out, blocks, r, n, d, k, num_steps, step,
+                                  st);
 }
 
 }  // namespace
@@ -363,10 +428,10 @@ extern "C" int eg_solve_max_k(int* n_out) {
   return cudaSuccess;
 }
 
-// One launch of num_steps >= 0 EG steps: states [d, k], target [k], mask
-// [r, d] -> out [r, d], all f32 and contiguous, r >= 1. Returns the launch's
-// cudaError_t (0 = ok); cudaErrorInvalidValue for a shape that does not fit
-// (eg_solve_fits) or a grid past its limit.
+// One launch of num_steps >= 0 EG steps, the dense form: states [d, k],
+// target [k], mask [r, d] -> out [r, d], all f32 and contiguous, r >= 1.
+// Returns the launch's cudaError_t (0 = ok); cudaErrorInvalidValue for a
+// shape that does not fit (eg_solve_fits) or a grid past its limit.
 extern "C" int eg_solve_launch(const float* states, const float* target,
                                const float* mask, float* out, int r, int d, int k,
                                int num_steps, float step, void* stream) {
@@ -374,14 +439,29 @@ extern "C" int eg_solve_launch(const float* states, const float* target,
   const cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
   if (r < 1 || num_steps < 0 || !fits(d, k, limit)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int items = ((d > k ? d : k) + 31) / 32;
-  if (items <= 1) return launch<1>(states, target, mask, out, r, d, k, num_steps, step, st);
-  if (items <= 2) return launch<2>(states, target, mask, out, r, d, k, num_steps, step, st);
-  if (items <= 4) return launch<4>(states, target, mask, out, r, d, k, num_steps, step, st);
-  if (items <= 8) return launch<8>(states, target, mask, out, r, d, k, num_steps, step, st);
-  if (items <= 16) return launch<16>(states, target, mask, out, r, d, k, num_steps, step, st);
-  return launch<kMaxItems>(states, target, mask, out, r, d, k, num_steps, step, st);
+  return launch_items<false>(states, nullptr, target, mask, out, r, r, d, d, k, num_steps,
+                             step, static_cast<cudaStream_t>(stream));
+}
+
+// One launch of num_steps >= 0 EG steps, the id-table form: states
+// [seeds, n, k], ids [seeds, r, d] int32 in [0, n) or null (the identity:
+// d <= n), target [seeds, k], mask [seeds, r, d] -> out [seeds, r, d], all
+// f32 but ids and contiguous, seeds, r >= 1. Block s * r + v stages rows
+// s * n + ids[s, v, :] of the states. Returns the launch's cudaError_t
+// (0 = ok); cudaErrorInvalidValue for a shape that does not fit
+// (eg_solve_fits) or a grid past its limit. The ids are not checked here.
+extern "C" int eg_solve_rows_launch(const float* states, const int* ids, const float* target,
+                                    const float* mask, float* out, int seeds, int r, int n,
+                                    int d, int k, int num_steps, float step, void* stream) {
+  int limit = 0;
+  const cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(seeds) * r;
+  if (seeds < 1 || r < 1 || n < 1 || num_steps < 0 || !fits(d, k, limit) ||
+      blocks > 0x7fffffffLL || (ids == nullptr && d > n))
+    return cudaErrorInvalidValue;
+  return launch_items<true>(states, ids, target, mask, out, static_cast<int>(blocks), r, n,
+                            d, k, num_steps, step, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* eg_solve_error_string(int code) {

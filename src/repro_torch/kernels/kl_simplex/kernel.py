@@ -10,7 +10,11 @@
   exponentiated-gradient step of the P1 solver per row (``csrc/eg_step.cu``);
 * ``eg_solve(states, target, mask, num_steps=, step_size=)`` — every EG step
   of a P1 solve in one launch (``csrc/eg_solve.cu``), for a state matrix
-  that fits one block's shared memory (``eg_solve_fits``, ``eg_solve_max_k``).
+  that fits one block's shared memory (``eg_solve_fits``, ``eg_solve_max_k``);
+* ``eg_solve_rows(states, ids, target, mask, num_steps=, step_size=)`` — the
+  same kernel on an id table: each row of alpha stages its own rows of the
+  states (neighbour lists, a seed axis), the form ``core.kl_solver`` solves
+  on.
 
 Counterparts of the Pallas kernels of ``repro.kernels.kl_simplex.kernel``.
 The sources carry their design notes. They are compiled by ``nvcc`` at first
@@ -28,6 +32,7 @@ per launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 
@@ -69,6 +74,9 @@ def build() -> None:
                                                ctypes.c_float, i32, ptr]
     libs["eg_solve"].eg_solve_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                                  i32, ctypes.c_float, ptr]
+    libs["eg_solve"].eg_solve_rows_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                                      i32, i32, i32, ctypes.c_float, ptr]
+    libs["eg_solve"].eg_solve_rows_launch.restype = i32
     libs["eg_solve"].eg_solve_fits.argtypes = [i32, i32, ctypes.POINTER(i32)]
     libs["eg_solve"].eg_solve_fits.restype = i32
     libs["eg_solve"].eg_solve_max_k.argtypes = [ctypes.POINTER(i32)]
@@ -107,11 +115,13 @@ def _raise_on(code: int, name: str) -> None:
                            f"({text.decode() if text else '?'})")
 
 
-def _launch(name: str, out: Tensor, *args) -> Tensor:
+def _launch(name: str, out: Tensor, *args, entry: str | None = None) -> Tensor:
+    """Launch ``name``'s kernel through the library's ``entry`` (default
+    ``<name>_launch``) on the current stream of ``out``'s device."""
     build()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(_LIBS[name], f"{name}_launch")(*args, stream)
+        code = getattr(_LIBS[name], entry or f"{name}_launch")(*args, stream)
     _raise_on(code, name)
     launch_counts[name] += 1
     return out
@@ -193,9 +203,17 @@ def _device_query(fn_name: str, *args, device=None) -> int:
 
 
 def eg_solve_fits(d: int, k: int, device=None) -> bool:
-    """Whether ``eg_solve`` takes a ``[d, k]`` state matrix on ``device``: S
-    fits one block's shared memory there (builds the kernels on first use)."""
-    return bool(_device_query("eg_solve_fits", d, k, device=device))
+    """Whether ``eg_solve`` / ``eg_solve_rows`` take ``[d, k]`` states per row
+    of alpha on ``device``: they fit one block's shared memory there (builds
+    the kernels on first use). The answer is kept per (d, k, device), so that
+    a route by shape costs the host a dictionary look-up."""
+    index = None if device is None else torch.device(device).index
+    return _fits(int(d), int(k), torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=256)
+def _fits(d: int, k: int, index: int) -> bool:
+    return bool(_device_query("eg_solve_fits", d, k, device=index))
 
 
 def eg_solve_max_k(device=None) -> int:
@@ -254,3 +272,70 @@ def eg_solve(states: Tensor, target: Tensor, mask: Tensor, *, num_steps: int,
         return out
     return _launch(name, out, states.data_ptr(), target.data_ptr(), mask.data_ptr(),
                    out.data_ptr(), r, d, k, int(num_steps), step)
+
+
+def eg_solve_rows(states: Tensor, ids: Tensor | None, target: Tensor, mask: Tensor, *,
+                  num_steps: int, step_size: float = 2.0) -> Tensor:
+    """``eg_solve`` on an id table, in one launch: row r of alpha solves P1
+    over its own ``D`` candidate rows of the states, ``states[ids[r]]``.
+
+    ``states`` ``[N, K]``, ``ids`` ``[R, D]`` int32 in ``[0, N)`` (or None: the
+    identity, every row over ``states[:D]``), ``target`` ``[K]``, ``mask``
+    ``[R, D]`` (0/1 contacts), f32 but the ids, contiguous, on one device ->
+    alpha ``[R, D]`` f32, as ``eg_solve`` gives it. With a leading seed axis
+    (``states`` ``[S, N, K]``, ``ids`` / ``mask`` ``[S, R, D]``, ``target``
+    ``[S, K]``) row r of seed s reads ``states[s, ids[s, r]]`` and
+    ``target[s]`` -> ``[S, R, D]``. Padding slots (the row's own id with
+    mask 0, as ``core.contacts`` lays them out) are staged and get alpha 0.
+    The ids are not checked on the device: one out of range reads another
+    seed's rows or memory past the states. Raises on a shape that does not
+    fit one block (``eg_solve_fits(D, K)``)."""
+    name = "eg_solve"
+    seeded = states.dim() == 3
+    want = 3 if seeded else 2
+    for what, t in (("states", states), ("ids", ids), ("target", target), ("mask", mask)):
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device} "
+                             "(CPU tensors go through kernels.kl_simplex.ref)")
+        if t.device != states.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, states on {states.device}")
+        if t.dtype != (torch.int32 if what == "ids" else torch.float32):
+            raise TypeError(f"{name}: {what} must be "
+                            f"{'int32' if what == 'ids' else 'float32'}, got {t.dtype}")
+        if t.dim() != (want - 1 if what == "target" else want) or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous "
+                             f"{'[S, ...]' if seeded else 'un-seeded'} tensor of "
+                             f"{want - 1 if what == 'target' else want} dims, got shape "
+                             f"{tuple(t.shape)} stride {t.stride()}")
+    s = states.shape[0] if seeded else 1
+    n, k = states.shape[-2:]
+    r, d = mask.shape[-2:]
+    if (seeded and (mask.shape[0] != s or target.shape[0] != s)) or target.shape[-1] != k:
+        raise ValueError(f"{name}: target {tuple(target.shape)} and mask "
+                         f"{tuple(mask.shape)} do not match states {tuple(states.shape)}")
+    if ids is not None and ids.shape != mask.shape:
+        raise ValueError(f"{name}: ids {tuple(ids.shape)} and mask {tuple(mask.shape)} "
+                         "differ in shape")
+    if ids is None and d > n:
+        raise ValueError(f"{name}: the identity table takes D <= N, got D = {d}, N = {n}")
+    if max(s * r, n, k) >= 2 ** 31:
+        raise ValueError(f"{name}: a shape of {tuple(states.shape)} / {tuple(mask.shape)} "
+                         "does not fit int32")
+    if int(num_steps) != num_steps or num_steps < 0:
+        raise ValueError(f"{name}: num_steps must be an integer >= 0, got {num_steps}")
+    step = float(step_size)
+    if not math.isfinite(step):
+        raise ValueError(f"{name}: step_size must be finite, got {step_size}")
+    if not eg_solve_fits(d, k, states.device):
+        raise ValueError(
+            f"{name}: [{d}, {k}] states per row do not fit one block "
+            f"({eg_solve_smem_bytes(d, k)} B of shared memory): core.kl_solver takes the "
+            "eager loop there")
+    out = torch.empty(mask.shape, dtype=torch.float32, device=states.device)
+    if s * r == 0:
+        return out
+    return _launch(name, out, states.data_ptr(), None if ids is None else ids.data_ptr(),
+                   target.data_ptr(), mask.data_ptr(), out.data_ptr(), s, r, n, d, k,
+                   int(num_steps), step, entry="eg_solve_rows_launch")

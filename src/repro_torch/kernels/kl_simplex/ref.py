@@ -56,26 +56,60 @@ def eg_iterate(states: Tensor, target: Tensor, mask: Tensor, num_steps: int,
                step_size: float, step) -> Tensor:
     """The P1 iteration of ``solve_p1_all_fused`` with ``step`` as its EG step
     (``eg_step_ref``, or the ``eg_step`` kernel on the card): alpha ``[R, D]``
-    from states ``[D, K]``, target ``[K]``, mask ``[R, D]``, starting at
+    from states ``[D, K]`` shared by every row (or ``[R, D, K]``, a row's
+    own), target ``[K]`` (or ``[R, K]``), mask ``[R, D]``, starting at
     ``mask / max(sum mask, 1)``; the two products in full f32."""
     s = states.to(torch.float32)
     m = mask.to(torch.float32)
     alpha = m / torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1.0)
     log_g = torch.log(torch.clamp(target.to(torch.float32), min=_EPS))
+    per_row = s.dim() == 3
     with full_f32_matmul():
         for _ in range(num_steps):
-            u = torch.clamp(alpha @ s, min=_EPS)          # [R, K] mixed states
-            grad = (torch.log(u) - log_g + 1.0) @ s.T     # [R, D] dKL/dalpha
+            # [R, K] mixed states, then [R, D] dKL/dalpha
+            if per_row:
+                u = torch.clamp(torch.bmm(alpha.unsqueeze(1), s).squeeze(1), min=_EPS)
+                grad = torch.bmm(s, (torch.log(u) - log_g + 1.0).unsqueeze(-1)).squeeze(-1)
+            else:
+                u = torch.clamp(alpha @ s, min=_EPS)
+                grad = (torch.log(u) - log_g + 1.0) @ s.T
             alpha = step(alpha, grad, m, step_size=step_size)
     return alpha
+
+
+def _zero_empty_rows(alpha: Tensor, mask: Tensor) -> Tensor:
+    """0 on the rows whose mask is empty, the kernel's rule (``eg_step_ref``
+    gives NaN there, and rows never mix, so the NaN stays in that row)."""
+    empty = ~torch.any(mask > 0, dim=-1, keepdim=True)
+    return torch.where(empty, torch.zeros((), device=alpha.device), alpha)
 
 
 def eg_solve_ref(states: Tensor, target: Tensor, mask: Tensor, *, num_steps: int,
                  step_size: float = 2.0) -> Tensor:
     """Plain version of the ``eg_solve`` kernel: ``num_steps`` EG steps of
     ``eg_step_ref`` -> alpha ``[R, D]`` f32. A row with an empty mask is 0,
-    the kernel's rule (``eg_step_ref`` gives NaN there, and rows never mix,
-    so the NaN stays in that row until it is zeroed here)."""
+    the kernel's rule."""
     alpha = eg_iterate(states, target, mask, num_steps, step_size, eg_step_ref)
-    empty = ~torch.any(mask > 0, dim=1, keepdim=True)
-    return torch.where(empty, torch.zeros((), device=alpha.device), alpha)
+    return _zero_empty_rows(alpha, mask)
+
+
+def eg_solve_rows_ref(states: Tensor, ids: Tensor | None, target: Tensor, mask: Tensor, *,
+                      num_steps: int, step_size: float = 2.0) -> Tensor:
+    """Plain version of the ``eg_solve_rows`` kernel: row r of alpha over the
+    gathered ``states[ids[r]]`` (``ids`` None: ``states[:D]``), ``num_steps``
+    EG steps of ``eg_step_ref`` -> alpha ``[R, D]`` f32, or ``[S, R, D]`` with
+    a leading seed axis on states, ids, target and mask (row r of seed s over
+    ``states[s, ids[s, r]]`` against ``target[s]``). A row with an empty mask
+    is 0, the kernel's rule."""
+    seeded = states.dim() == 3
+    st = states if seeded else states.unsqueeze(0)
+    s, n, k = st.shape
+    r, d = mask.shape[-2:]
+    local = (torch.arange(d, device=st.device).expand(s, r, d) if ids is None
+             else ids.reshape(s, r, d).long())
+    rows = local + n * torch.arange(s, device=st.device).reshape(s, 1, 1)
+    gathered = st.reshape(s * n, k)[rows.reshape(s * r, d)]          # [S R, D, K]
+    tgt = target.reshape(s, 1, k).expand(s, r, k).reshape(s * r, k)
+    m = mask.reshape(s * r, d)
+    alpha = eg_iterate(gathered, tgt, m, num_steps, step_size, eg_step_ref)
+    return _zero_empty_rows(alpha, m).reshape(mask.shape)

@@ -15,5 +15,7 @@ HBM_BYTES = 80 * 1024**3       # device memory
 
 SMS = 132                      # streaming multiprocessors
 SMEM_BYTES_PER_SM = 228 * 1024 # shared memory per SM
+SMEM_BYTES_PER_BLOCK = 227 * 1024  # the most one block may opt in to
+THREADS_PER_SM = 2048          # resident threads per SM
 
 NVLINK_BYTES_PER_S = 900e9     # NVLink 4, per card, all links

@@ -22,9 +22,9 @@ The model composes three ingredients:
   ``H100`` is fitted from the port's own runs on the card (``chip_smoke.py``,
   cost-model phase), each constant beside the measurement it comes from.
 
-Three constants the reference lacks, all host time of the port's eager
-Python that XLA's one program per window does not have; at their default 0.0
-every term is the reference's exactly:
+Four constants the reference lacks, three of them host time of the port's
+eager Python that XLA's one program per window does not have; at their
+default 0.0 every term is the reference's exactly:
 
 * ``p1_step_host_s``, the host cost of one eager EG step of the P1 solve.
   The reference's sparse step fuses into a few kernels and its dense step
@@ -36,6 +36,12 @@ every term is the reference's exactly:
   sparse solve runs in row blocks of ``core.kl_solver.P1_BLOCK`` vehicles,
   one eager loop each (the reference maps its blocks inside the program),
   so it pays the host cost once per block.
+* ``p1_kernel_step_s``, the device time of one EG step of the one-launch P1
+  solve (``eg_solve``, one block per vehicle) for one wave of resident
+  blocks. On the card ``core.kl_solver.solve_p1_all`` takes that launch
+  wherever a vehicle's ``[width, K]`` states fit one block
+  (``eg_solve_fits``, mirrored by ``eg_solve_block_bytes``): the solve then
+  costs ``p1_steps`` such steps per wave and no host time per step.
 * ``contact_host_s_per_vehicle`` and ``contact_host_s_per_pair``, the host
   cost per epoch of the contact stream that feeds every window: the numpy
   mobility process (per vehicle) and the pairwise contact matrix and its
@@ -54,6 +60,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from functools import lru_cache
+
+from . import hw
 
 # ------------------------------------------------------------------ profiles
 
@@ -83,6 +91,10 @@ class HostProfile:
     # step costs max(this x row blocks, the reference's per-step form).
     # 0 = the reference
     p1_step_host_s: float = 0.0
+    # device seconds of one EG step of the one-launch P1 solve for one wave
+    # of resident blocks, where a vehicle's states fit one block. 0 = no such
+    # route (the reference)
+    p1_kernel_step_s: float = 0.0
     # host seconds per epoch of the contact stream, per vehicle (mobility)
     # and per pair of vehicles (contact matrix, packing), added to
     # epoch_overhead_s. 0 = the reference
@@ -157,6 +169,10 @@ H100 = HostProfile(
     # (chip_smoke.py, H100 80GB HBM3 at 700.00 W): the p1_solve span per
     # EG step, mean of the sparse and dense runs (K=100, one block)
     p1_step_host_s=2.80815e-4,
+    # (H100 80GB HBM3 at 700.00 W): eg_solve on the ids of a K=100 contact
+    # stream (D_max = 11), 0.3798 ms for 200 steps, one wave (chip_smoke.py's
+    # kernels line, row eg_solve id_table)
+    p1_kernel_step_s=1.899e-6,
     # (chip_smoke.py, H100 80GB HBM3 at 700.00 W): the contact stream
     # timed on the host at K=100 (4.86 ms/epoch) and K=1024 (135.8 ms/epoch)
     contact_host_s_per_vehicle=3.954e-5,
@@ -216,16 +232,48 @@ EG_ELEMWISE_BYTES = 48.0
 MIX_SLOT_BYTES = 12.0
 
 
+def eg_solve_block_bytes(d: int, k: int) -> int:
+    """Shared memory one block of ``eg_solve`` takes for ``[d, k]`` states:
+    ``solve_smem_bytes`` of ``kernels/kl_simplex/csrc/eg_solve.cu`` (the u
+    partial sums of 8 warps, r and log g over K; alpha and the grad slices
+    over D; S at its bank-conflict-free pitch), mirrored here so that the
+    model needs no card; the card's tests hold the two equal."""
+    def pitch4(n: int) -> int:
+        return (n + 3) & ~3
+    pitch = pitch4(k) if (pitch4(k) // 4) % 2 == 1 else pitch4(k) + 4
+    groups = (d + 31) // 32
+    splits = 1 if groups >= 8 else 8 // groups
+    return 4 * (10 * pitch4(k) + (1 + splits) * pitch4(d) + d * pitch)
+
+
+def eg_solve_waves(K: int, width: int) -> int | None:
+    """Waves of resident blocks the one-launch P1 solve takes on an H100 for
+    K vehicles of ``[width, K]`` states (256 threads and one block a
+    vehicle; 1 KB of shared memory reserved a block), or None where the
+    states do not fit one block and the eager loop runs."""
+    block = eg_solve_block_bytes(width, K)
+    if not (1 <= width <= 1024 and 1 <= K <= 1024 and block <= hw.SMEM_BYTES_PER_BLOCK):
+        return None
+    per_sm = min(hw.THREADS_PER_SM // 256, hw.SMEM_BYTES_PER_SM // (block + 1024))
+    return -(-K // (hw.SMS * per_sm))
+
+
 def _p1_epoch_s(K: int, width: int, p1_steps: int, dense: bool,
                 host: HostProfile) -> float:
     """P1 solve (Eq. 11, exponentiated gradient): per EG step each vehicle
     contracts its ``width`` active state rows twice (mixed state + gradient)
-    — ``width = K`` dense, ``D_max`` sparse. The dense path runs as 2 GEMM
-    calls per step (flop-bound at large K, dispatch-bound at small K); the
-    sparse path as a bandwidth-bound gather over the neighbour rows. A step
-    costs at least the host's ``p1_step_host_s`` (the eager loop), once per
-    row block of the sparse solve."""
+    — ``width = K`` dense, ``D_max`` sparse. On a host with the one-launch
+    solve (``p1_kernel_step_s``) whose block takes the states, ``p1_steps``
+    kernel steps per wave. Otherwise the eager loop: the dense path runs as 2
+    GEMM calls per step (flop-bound at large K, dispatch-bound at small K);
+    the sparse path as a bandwidth-bound gather over the neighbour rows. A
+    step costs at least the host's ``p1_step_host_s``, once per row block of
+    the sparse solve."""
     from ..core.kl_solver import P1_BLOCK
+
+    waves = eg_solve_waves(K, width) if host.p1_kernel_step_s > 0 else None
+    if waves is not None:
+        return p1_steps * host.p1_kernel_step_s * waves
 
     flops = 4.0 * K * width * K
     if dense:

@@ -68,8 +68,8 @@ def reports():
 def _ref_profile(host: sc.HostProfile) -> ref_sc.HostProfile:
     """The reference's HostProfile with the port profile's constants."""
     kw = {f.name: getattr(host, f.name) for f in fields(host)
-          if f.name not in ("p1_step_host_s", "contact_host_s_per_vehicle",
-                            "contact_host_s_per_pair")}
+          if f.name not in ("p1_step_host_s", "p1_kernel_step_s",
+                            "contact_host_s_per_vehicle", "contact_host_s_per_pair")}
     kw["pallas_mix_gain"] = kw.pop("cuda_mix_gain")
     return ref_sc.HostProfile(**kw)
 
@@ -115,7 +115,7 @@ def test_closed_form_equals_reference_term_by_term(injected, algorithm, fmt, bac
 
 def test_ci_host_is_the_reference_profile():
     assert _ref_profile(sc.CI_HOST) == ref_sc.CI_HOST
-    assert sc.CI_HOST.p1_step_host_s == 0.0
+    assert sc.CI_HOST.p1_step_host_s == 0.0 == sc.CI_HOST.p1_kernel_step_s
     assert sc.default_host_profile("cpu") is sc.CI_HOST
     assert sc.default_host_profile("cuda") is sc.H100
     assert sc.default_host_profile("cuda:1") is sc.H100
@@ -124,11 +124,11 @@ def test_ci_host_is_the_reference_profile():
 @pytest.mark.parametrize("k", (8, 100, 1024))
 @pytest.mark.parametrize("fmt", ("sparse", "dense"))
 def test_h100_constants_without_the_host_terms_equal_the_reference(injected, fmt, k):
-    """With the three host constants the reference lacks at 0 the port's form
-    is the reference's for any constants: the H100's, moved into a reference
+    """With the four constants the reference lacks at 0 the port's form is the
+    reference's for any constants: the H100's, moved into a reference
     ``HostProfile``."""
-    host = replace(sc.H100, p1_step_host_s=0.0, contact_host_s_per_vehicle=0.0,
-                   contact_host_s_per_pair=0.0)
+    host = replace(sc.H100, p1_step_host_s=0.0, p1_kernel_step_s=0.0,
+                   contact_host_s_per_vehicle=0.0, contact_host_s_per_pair=0.0)
     port, ref = _pair(dict(num_vehicles=k, epochs=4, eval_every=2, local_steps=1,
                            batch_size=4, contact_format=fmt, d_max=9))
     for mixing in ("cuda", "torch"):
@@ -141,21 +141,58 @@ def test_h100_constants_without_the_host_terms_equal_the_reference(injected, fmt
 @pytest.mark.parametrize("k,blocks", [(100, 1), (256, 1), (257, 2), (1024, 4)])
 @pytest.mark.parametrize("fmt", ("sparse", "dense"))
 def test_p1_step_host_s_is_a_floor_per_step_and_block(injected, fmt, k, blocks):
-    """Each EG step costs max(host floor, the reference's step); the sparse
-    solve pays the floor once per row block of ``P1_BLOCK`` vehicles (one
-    eager loop each), the dense solve once."""
+    """On the eager route (no one-launch solve: ``p1_kernel_step_s`` 0) each EG
+    step costs max(host floor, the reference's step); the sparse solve pays
+    the floor once per row block of ``P1_BLOCK`` vehicles (one eager loop
+    each), the dense solve once."""
     from repro_torch.core import kl_solver
     assert kl_solver.P1_BLOCK == 256
     c = replace(sc.bench_engine_config(8), num_vehicles=k, device="cpu", contact_format=fmt)
-    bare_host = replace(sc.H100, p1_step_host_s=0.0)
+    eager_host = replace(sc.H100, p1_kernel_step_s=0.0)
+    bare_host = replace(eager_host, p1_step_host_s=0.0)
     bare = sc.predict_scenario(c, d_max=9, host=bare_host)
-    floor = sc.predict_scenario(c, d_max=9, host=sc.H100)
+    floor = sc.predict_scenario(c, d_max=9, host=eager_host)
     per_step = (blocks if fmt == "sparse" else 1) * sc.H100.p1_step_host_s
     assert floor.terms["p1"] == pytest.approx(
         c.p1_steps * max(bare.terms["p1"] / c.p1_steps, per_step), rel=1e-12)
     assert floor.terms["p1"] >= bare.terms["p1"]
     assert {n: v for n, v in floor.terms.items() if n != "p1"} == {
         n: v for n, v in bare.terms.items() if n != "p1"}
+
+
+@pytest.mark.parametrize("k,fmt,d_max,waves", [(100, "sparse", 11, 1), (100, "dense", 9, 1),
+                                               (234, "dense", 9, 2), (1024, "sparse", 10, 4),
+                                               (1024, "sparse", 46, 8), (1024, "sparse", 47, None),
+                                               (235, "dense", 9, None), (1024, "dense", 9, None)])
+def test_p1_kernel_route_where_the_states_fit_one_block(injected, k, fmt, d_max, waves):
+    """On the H100 profile P1 is ``p1_steps`` one-launch steps a wave where a
+    vehicle's ``[width, K]`` states fit one block of ``eg_solve`` (no host
+    floor), else the eager route's form; every other term is unchanged."""
+    c = replace(sc.bench_engine_config(8), num_vehicles=k, device="cpu", contact_format=fmt)
+    width = k if fmt == "dense" else d_max
+    assert sc.eg_solve_waves(k, width) == waves
+    got = sc.predict_scenario(c, d_max=d_max, host=sc.H100)
+    eager = sc.predict_scenario(c, d_max=d_max, host=replace(sc.H100, p1_kernel_step_s=0.0))
+    if waves is None:
+        assert got.terms == eager.terms
+    else:
+        assert got.terms["p1"] == pytest.approx(c.p1_steps * sc.H100.p1_kernel_step_s * waves,
+                                                rel=1e-12)
+        assert got.terms["p1"] < eager.terms["p1"]
+        assert {n: v for n, v in got.terms.items() if n != "p1"} == {
+            n: v for n, v in eager.terms.items() if n != "p1"}
+
+
+def test_eg_solve_block_bytes_mirrors_the_kernel_source():
+    """The mirror of ``solve_smem_bytes`` at the shapes that set the limits:
+    the largest square state matrix is 234 (``eg_solve_max_k`` on an H100),
+    and at K = 1,024 up to 46 neighbour slots fit."""
+    limit = sc.hw.SMEM_BYTES_PER_BLOCK
+    assert sc.eg_solve_block_bytes(234, 234) <= limit < sc.eg_solve_block_bytes(235, 235)
+    assert sc.eg_solve_block_bytes(46, 1024) <= limit < sc.eg_solve_block_bytes(47, 1024)
+    # u partial sums and r, log g over K = 100; alpha and 8 grad slices over
+    # D = 11 (pitch 12); S [11, 100] at pitch 100 (25 chunks, odd)
+    assert sc.eg_solve_block_bytes(11, 100) == 4 * (10 * 100 + 9 * 12 + 11 * 100)
 
 
 def test_contact_host_cost_scales_the_overhead_with_the_fleet(injected):

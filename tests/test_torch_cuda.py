@@ -10,6 +10,8 @@ attention 2e-5 / 3e-2, its own). Paths that launch them are held card
 against CPU: reduced federations, ``serve.generate`` and one DDS train round
 (``launch.steps``) of every reduced architecture (1e-4).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -574,6 +576,220 @@ def test_eg_solve_wrapper_raises_on_what_the_kernel_does_not_take(card):
         kl_simplex.eg_solve(s, g, c, num_steps=-1)
     with pytest.raises(ValueError):
         kl_simplex.eg_solve(s, g, c, num_steps=2, step_size=float("nan"))
+
+
+# ------------------------------------ the P1 solve on the main path ----
+
+@functools.lru_cache(maxsize=None)
+def _stream_epoch(seed):
+    """Epoch 0 of a real contact stream at the paper's settings (K = 100,
+    grid, Manhattan mobility, 100 m, 50 epochs: the benchmark's federation),
+    D_max from the stream's own probe: numpy ids / mask ``[K, D_max]``."""
+    from repro_torch.fed import engine, topology
+    cfg = SimulationConfig(epochs=50, device="cpu", seed=seed)
+    window = engine.ContactStream(cfg, topology.make_road_network(cfg.road_net,
+                                                                  seed=cfg.seed)).window(1)
+    return contacts.SparseContacts(window.idx[0], window.mask[0])
+
+
+def _random_states(shape, seed, card):
+    r = np.random.default_rng(seed)
+    k = shape[-1]
+    s = r.dirichlet(np.ones(k) * 0.5, size=shape[:-1]).astype(np.float32)
+    s[..., r.integers(0, k)] = 0.0                  # a data source nobody holds
+    g = r.dirichlet(np.ones(k) * 2, size=shape[:-2]).astype(np.float32)
+    return (torch.as_tensor(s / s.sum(-1, keepdims=True)).to(card),
+            torch.as_tensor(g).to(card))
+
+
+def _random_neighbours(k, d, seed, card, empty_row=False):
+    """Neighbour lists ``[K, d]``: self in slot 0, up to d - 1 others, the
+    rest padding (own id, mask 0); with ``empty_row``, row 1 has no slot."""
+    r = np.random.default_rng(seed)
+    idx = np.repeat(np.arange(k, dtype=np.int32)[:, None], d, axis=1)
+    mask = np.zeros((k, d), np.float32)
+    mask[:, 0] = 1.0
+    for v in range(k):
+        others = [u for u in r.choice(k, size=int(r.integers(0, d)), replace=False) if u != v]
+        idx[v, 1:1 + len(others)] = others
+        mask[v, 1:1 + len(others)] = 1.0
+    if empty_row:
+        mask[1] = 0.0
+    return torch.as_tensor(idx).to(card), torch.as_tensor(mask).to(card)
+
+
+def _p1_rows_case(name, card):
+    """(states, ids, target, mask, steps) of the id-table form at the shapes
+    the main path takes: the K = 100 neighbour lists of a
+    real contact stream, 8 such streams on a seed axis (800 rows), a sparse
+    K = 1,024, V = 2 dense (identity ids), and rows with padding slots and an
+    empty mask."""
+    if name == "k100_stream":
+        sc = _stream_epoch(0)
+        s, g = _random_states((100, 100), 1, card)
+        return s, torch.as_tensor(sc.idx).to(card), g, torch.as_tensor(sc.mask).to(card), 200
+    if name == "k100_stream_seeds8":
+        sc = contacts.stack_windows([contacts.SparseContacts(w.idx[None], w.mask[None])
+                                     for w in map(_stream_epoch, range(8))])
+        s, g = _random_states((8, 100, 100), 2, card)
+        return (s, torch.as_tensor(sc.idx[:, 0]).to(card), g,
+                torch.as_tensor(sc.mask[:, 0]).to(card), 200)
+    if name == "k1024_sparse":
+        s, g = _random_states((1024, 1024), 3, card)
+        ids, mask = _random_neighbours(1024, 24, 3, card)
+        return s, ids, g, mask, 200
+    if name == "v2_dense":
+        s, g = _random_states((2, 2), 4, card)
+        return s, None, g, torch.ones(2, 2, device=card), 100
+    s, g = _random_states((20, 20), 5, card)
+    ids, mask = _random_neighbours(20, 8, 5, card, empty_row=True)
+    return s, ids, g, mask, 200
+
+
+P1_ROWS_CASES = ["k100_stream", "k100_stream_seeds8", "k1024_sparse", "v2_dense",
+                 "padding_and_empty_row"]
+
+
+def _eager_p1(states, ids, target, mask, steps):
+    """The eager loop of ``solve_p1_all`` on the same layout."""
+    from repro_torch.core import kl_solver
+    layout = mask if ids is None else contacts.SparseContacts(ids, mask)
+    return kl_solver._solve_p1_eager(states, target, layout, steps, 2.0)
+
+
+@pytest.mark.parametrize("name", P1_ROWS_CASES)
+def test_eg_solve_rows_matches_the_eager_solve_and_its_plain_version(card, name):
+    """The id-table form in one launch against its plain version and against
+    the eager loop it replaces on the main path (``_solve_p1_neighbours``,
+    ``_eg_solve``), f32 atol 1e-6: exactly 0 on padding and on a row with no
+    contact (where the eager loop gives NaN), rows on the simplex."""
+    states, ids, target, mask, steps = _p1_rows_case(name, card)
+    before = dict(kl_simplex.kernel.launch_counts)
+    got = kl_simplex.eg_solve_rows(states, ids, target, mask, num_steps=steps, step_size=2.0)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["eg_solve"] == before["eg_solve"] + 1
+    assert kl_simplex.kernel.launch_counts["eg_step"] == before["eg_step"]
+    assert got.shape == mask.shape and got.dtype == torch.float32
+    with full_f32_matmul():
+        want = kl_simplex.eg_solve_rows_ref(states, ids, target, mask, num_steps=steps,
+                                            step_size=2.0)
+        eager = _eager_p1(states, ids, target, mask, steps)
+    assert _err(got, want) <= 1e-6
+    live = mask.sum(-1) > 0
+    assert _err(got[live], eager[live]) <= 1e-6
+    assert bool((got[mask == 0] == 0).all()) and bool((got[~live] == 0).all())
+    rows = got.sum(-1)[live]
+    assert torch.allclose(rows, torch.ones_like(rows), atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["sparse", "sparse_seeds", "dense", "dense_seeds", "v2_dense"])
+def test_solve_p1_all_on_the_card_is_one_eg_solve_launch(card, layout):
+    """``solve_p1_all`` on CUDA tensors at every layout the main path hands it:
+    one ``eg_solve`` launch, one kernel solve and no eager one by the
+    counters, alpha within 1e-6 of the eager loop."""
+    from repro_torch.core import kl_solver
+    if layout in ("sparse", "sparse_seeds"):
+        name = "k100_stream" if layout == "sparse" else "k100_stream_seeds8"
+        states, ids, target, mask, steps = _p1_rows_case(name, card)
+        arg = contacts.SparseContacts(ids, mask)
+    elif layout == "v2_dense":
+        states, _, target, arg, steps = _p1_rows_case("v2_dense", card)
+    else:
+        seeds = 3 if layout == "dense_seeds" else 1
+        states, target = _random_states((seeds, 100, 100), 6, card)
+        arg = (torch.rand(seeds, 100, 100, generator=torch.Generator().manual_seed(6)) < 0.1)
+        arg = (arg | torch.eye(100, dtype=torch.bool)).to(torch.float32).to(card)
+        if seeds == 1:
+            states, target, arg = states[0], target[0], arg[0]
+        steps = 200
+    kl_simplex.kernel.reset_launch_counts()
+    kl_solver.reset_solve_counts()
+    got = kl_solver.solve_p1_all(states, target, arg, num_steps=steps, step_size=2.0)
+    torch.cuda.synchronize()
+    assert kl_solver.solve_counts == {"kernel": 1, "eager": 0}
+    assert kl_simplex.kernel.launch_counts["eg_solve"] == 1
+    assert kl_simplex.kernel.launch_counts["eg_step"] == 0
+    with full_f32_matmul():
+        eager = kl_solver._solve_p1_eager(states, target, arg, steps, 2.0)
+    assert got.shape == eager.shape and _err(got, eager) <= 1e-6
+
+
+def test_a_sparse_dds_round_is_one_eg_solve_launch_and_no_eager_solve(card):
+    """A sparse federation on the card: each epoch's ``dds_round`` solves P1
+    in exactly one ``eg_solve`` launch, and no solve takes the eager loop."""
+    from repro_torch.core import kl_solver
+    ds = synthetic_mnist(n_train=1200, n_test=200)
+    cfg = SimulationConfig(num_vehicles=8, epochs=3, eval_every=3, eval_samples=200,
+                           local_steps=2, batch_size=16, p1_steps=40, comm_range=250.0,
+                           contact_format="sparse", device="cuda")
+    kl_simplex.kernel.reset_launch_counts()
+    kl_solver.reset_solve_counts()
+    run_simulation(cfg, dataset=ds)
+    torch.cuda.synchronize()
+    assert kl_simplex.kernel.launch_counts["eg_solve"] == cfg.epochs
+    assert kl_solver.solve_counts == {"kernel": cfg.epochs, "eager": 0}
+
+
+@pytest.mark.parametrize("layout", ["sparse_k1024_d64", "dense_k300"])
+def test_a_shape_past_one_block_still_takes_the_eager_loop(card, layout):
+    """States per row that do not fit one block of ``eg_solve`` (64 neighbour
+    slots at K = 1,024; a dense K = 300) take the eager loop: no launch of
+    the kernel, one eager solve."""
+    from repro_torch.core import kl_solver
+    k, d = (1024, 64) if layout == "sparse_k1024_d64" else (300, 300)
+    assert not kl_simplex.kernel.eg_solve_fits(d, k)
+    states, target = _random_states((k, k), 7, card)
+    if layout == "dense_k300":
+        arg = torch.ones(k, k, device=card)
+    else:
+        arg = contacts.SparseContacts(*_random_neighbours(k, d, 7, card))
+    kl_simplex.kernel.reset_launch_counts()
+    kl_solver.reset_solve_counts()
+    alpha = kl_solver.solve_p1_all(states, target, arg, num_steps=20, step_size=2.0)
+    torch.cuda.synchronize()
+    assert kl_solver.solve_counts == {"kernel": 0, "eager": 1}
+    assert kl_simplex.kernel.launch_counts["eg_solve"] == 0
+    rows = alpha.sum(-1)
+    assert torch.allclose(rows, torch.ones_like(rows), atol=1e-5)
+
+
+def test_the_cost_models_block_mirror_equals_the_library(card):
+    """``roofline.scenario_cost.eg_solve_block_bytes`` and ``eg_solve_waves``
+    agree with the library's own shared-memory size and fit test."""
+    from repro_torch.roofline import scenario_cost as sc
+    for d, k in ((1, 1), (2, 2), (11, 100), (100, 100), (234, 234), (235, 235), (7, 30),
+                 (24, 1024), (46, 1024), (47, 1024), (33, 97), (300, 300)):
+        assert sc.eg_solve_block_bytes(d, k) == kl_simplex.kernel.eg_solve_smem_bytes(d, k)
+        assert (sc.eg_solve_waves(k, d) is not None) == kl_simplex.kernel.eg_solve_fits(d, k)
+
+
+def test_eg_solve_rows_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    s, g = _random_states((2, 12, 12), 8, card)
+    ids, mask = _random_neighbours(12, 5, 8, card)
+    ids, mask = ids.expand(2, 12, 5).contiguous(), mask.expand(2, 12, 5).contiguous()
+    ok = kl_simplex.eg_solve_rows(s, ids, g, mask, num_steps=3)
+    assert ok.shape == (2, 12, 5)
+    for bad, err in ((lambda: kl_simplex.eg_solve_rows(s, ids.long(), g, mask, num_steps=3),
+                      TypeError),
+                     (lambda: kl_simplex.eg_solve_rows(s, ids, g.double(), mask, num_steps=3),
+                      TypeError),
+                     (lambda: kl_simplex.eg_solve_rows(s, ids[:, :, :4].contiguous(), g, mask,
+                                                       num_steps=3), ValueError),
+                     (lambda: kl_simplex.eg_solve_rows(s, ids, g[:1].contiguous(), mask,
+                                                       num_steps=3), ValueError),
+                     (lambda: kl_simplex.eg_solve_rows(s, ids.transpose(1, 2), g,
+                                                       mask.transpose(1, 2), num_steps=3),
+                      ValueError),
+                     (lambda: kl_simplex.eg_solve_rows(s, ids, g.cpu(), mask, num_steps=3),
+                      ValueError),
+                     (lambda: kl_simplex.eg_solve_rows(s[0], ids, g[0], mask, num_steps=3),
+                      ValueError),
+                     (lambda: kl_simplex.eg_solve_rows(s, ids, g, mask, num_steps=-1),
+                      ValueError),
+                     (lambda: kl_simplex.eg_solve_rows(s[:, :4].contiguous(), None, g, mask,
+                                                       num_steps=3), ValueError)):
+        with pytest.raises(err):
+            bad()
 
 
 def test_sp_run_on_the_card_matches_the_cpu(card):

@@ -132,7 +132,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                  lambda: kl_simplex.entropy_rows_kernel(T(s)),
                  lambda: kl_simplex.eg_step(T(a), T(gr), T(m)),
                  lambda: kl_simplex.eg_solve(T(s), T(g), T(m[:, :3]).contiguous(),
-                                             num_steps=2)):
+                                             num_steps=2),
+                 lambda: kl_simplex.eg_solve_rows(T(s), None, T(g), T(m[:, :3]).contiguous(),
+                                                  num_steps=2)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert sorted(kl_simplex.kernel.launch_counts) == ["eg_solve", "eg_step", "entropy_rows",
@@ -190,6 +192,101 @@ def test_eg_solve_ref_is_the_loop_over_eg_step_ref():
     np.testing.assert_array_equal(got.numpy(), alpha.numpy())
     zero = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=0)
     np.testing.assert_array_equal(zero.numpy(), (T(c) / T(c).sum(1, keepdim=True)).numpy())
+
+
+def _neighbour_case(k, seeds, seed, pad=1, empty_row=False):
+    """Seeded P1 inputs on neighbour lists: states ``[S, K, K]``, targets
+    ``[S, K]``, and ids / mask ``[S, K, D]`` from symmetric contacts with
+    self-loops (``fed.topology.neighbour_lists``: padding slots carry the row's
+    own id, mask 0), ``pad`` slots past the largest contact set; with
+    ``empty_row``, row 1 of every seed has no contact at all."""
+    from repro_torch.fed import topology
+    r = np.random.default_rng(seed)
+    s = r.dirichlet(np.ones(k) * 0.5, size=(seeds, k)).astype(np.float32)
+    s[..., r.integers(0, k)] = 0.0                  # a data source nobody holds
+    s = (s / s.sum(-1, keepdims=True)).astype(np.float32)
+    g = r.dirichlet(np.ones(k) * 2, size=seeds).astype(np.float32)
+    cs = []
+    for _ in range(seeds):
+        c = np.triu(r.random((k, k)) < 0.3, 1)
+        cs.append((c | c.T | np.eye(k, dtype=bool)).astype(np.float32))
+    d = max(topology.max_contact_degree(c) for c in cs) + pad
+    idx, mask = (np.stack(x) for x in zip(*(topology.neighbour_lists(c, d) for c in cs)))
+    if empty_row:
+        mask[:, 1] = 0.0
+    return (T(s), T(g), T(idx.astype(np.int32)), T(mask.astype(np.float32)))
+
+
+@pytest.mark.parametrize("k,seeds,pad", [(9, 1, 1), (20, 1, 3), (16, 3, 1), (7, 4, 2)])
+def test_eg_solve_rows_ref_equals_the_eager_neighbour_solve(k, seeds, pad):
+    """The plain version of the id-table form against the eager
+    ``_solve_p1_neighbours`` behind ``solve_p1_all`` on the CPU: one run
+    ([K, D] ids), and S runs with their seeds folded into the rows ([S, K, D]
+    ids, each seed against its own target); padding slots get 0."""
+    s, g, idx, mask = _neighbour_case(k, seeds, k * 10 + seeds, pad)
+    steps = 60
+    got = kl_simplex.eg_solve_rows_ref(s, idx, g, mask, num_steps=steps, step_size=2.0)
+    assert got.shape == mask.shape and got.dtype == torch.float32
+    eager = kl_solver.solve_p1_all(s, g, contacts.SparseContacts(idx, mask),
+                                   num_steps=steps, step_size=2.0)
+    np.testing.assert_allclose(got.numpy(), eager.numpy(), atol=1e-6)
+    for i in range(seeds):
+        one = kl_solver._solve_p1_neighbours(s[i], g[i], contacts.SparseContacts(idx[i], mask[i]),
+                                             steps, 2.0)
+        np.testing.assert_allclose(got[i].numpy(), one.numpy(), atol=1e-6)
+        np.testing.assert_allclose(
+            kl_simplex.eg_solve_rows_ref(s[i], idx[i], g[i], mask[i], num_steps=steps,
+                                         step_size=2.0).numpy(), one.numpy(), atol=1e-6)
+    assert (got.numpy()[mask.numpy() == 0] == 0).all()
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+def test_eg_solve_rows_ref_with_identity_ids_is_eg_solve_ref():
+    """Identity ids (None, or ``arange(D)`` on every row) give the shared-state
+    solve ``eg_solve_ref``, a row with no contact included (0 in both); with a
+    seed axis each seed gives its own run's."""
+    s, g, c = (T(x) for x in _p1_case(12, 12, 3, empty_row=True))
+    want = kl_simplex.eg_solve_ref(s, g, c, num_steps=80)
+    ids = torch.arange(12, dtype=torch.int32).expand(12, 12).contiguous()
+    for table in (None, ids):
+        got = kl_simplex.eg_solve_rows_ref(s, table, g, c, num_steps=80)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+        assert (got.numpy()[1] == 0).all()
+    s2, g2, c2 = (T(x) for x in _p1_case(12, 12, 4, empty_row=False))
+    seeded = kl_simplex.eg_solve_rows_ref(torch.stack([s, s2]), None, torch.stack([g, g2]),
+                                          torch.stack([c, c2]), num_steps=80)
+    np.testing.assert_allclose(seeded[0].numpy(), want.numpy(), atol=1e-6)
+    np.testing.assert_allclose(seeded[1].numpy(),
+                               kl_simplex.eg_solve_ref(s2, g2, c2, num_steps=80).numpy(),
+                               atol=1e-6)
+
+
+def test_eg_solve_rows_ref_gives_zero_on_an_empty_row_and_on_padding():
+    """Padding slots and a row with no contact: 0, the kernel's rule; the other
+    rows as the eager solve gives them (which gives NaN on the empty row)."""
+    s, g, idx, mask = _neighbour_case(10, 2, 7, pad=2, empty_row=True)
+    got = kl_simplex.eg_solve_rows_ref(s, idx, g, mask, num_steps=40)
+    assert (got[:, 1] == 0).all() and (got.numpy()[mask.numpy() == 0] == 0).all()
+    eager = kl_solver.solve_p1_all(s, g, contacts.SparseContacts(idx, mask), num_steps=40)
+    assert torch.isnan(eager[:, 1]).all()
+    keep = [0] + list(range(2, 10))
+    np.testing.assert_allclose(got[:, keep].numpy(), eager[:, keep].numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse", "dense_seeds", "sparse_seeds"])
+def test_solve_p1_all_on_the_cpu_takes_the_eager_loop(layout):
+    """On CPU tensors ``solve_p1_all`` counts one eager solve and no kernel
+    solve, in every layout, and gives the eager loop's alpha bit for bit."""
+    s, g, idx, mask = _neighbour_case(8, 2, 11)
+    c = torch.as_tensor(np.stack([contacts.mixing_to_dense(contacts.SparseMixing(idx[i], mask[i]))
+                                  for i in range(2)]) > 0).to(torch.float32)
+    args = {"dense": (s[0], g[0], c[0]), "sparse": (s[0], g[0], contacts.SparseContacts(idx[0], mask[0])),
+            "dense_seeds": (s, g, c), "sparse_seeds": (s, g, contacts.SparseContacts(idx, mask))}[layout]
+    kl_solver.reset_solve_counts()
+    got = kl_solver.solve_p1_all(*args, num_steps=30)
+    assert kl_solver.solve_counts == {"kernel": 0, "eager": 1}
+    want = kl_solver._solve_p1_eager(*args, 30, 2.0)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def _scipy_optimum(s, g, mask):
