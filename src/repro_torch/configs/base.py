@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import ClassVar
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -53,6 +54,19 @@ class ArchConfig:
     true_num_heads: int = 0
     true_num_kv_heads: int = 0
 
+    # port-only options, fields of ``DeepseekV3Config``: neutral here, so the
+    # reference's architectures keep the reference's fields exactly
+    kv_lora_rank: ClassVar[int] = 0
+    qk_rope_dim: ClassVar[int] = 0
+    v_head_dim: ClassVar[int] = 0
+    first_dense_layers: ClassVar[int] = 0
+    dense_d_ff: ClassVar[int] = 0
+    shared_experts: ClassVar[int] = 0
+    router: ClassVar[str] = "softmax"
+    routed_scale: ClassVar[float] = 1.0
+    expert_range: ClassVar[tuple[int, int] | None] = None
+    aux_weight: ClassVar[float] = 0.01
+
     def __post_init__(self):
         if self.true_vocab_size == 0:
             object.__setattr__(self, "true_vocab_size", self.vocab_size)
@@ -67,12 +81,32 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def value_dim(self) -> int:
+        """The value head width (head_dim unless MLA gives its own)."""
+        return self.v_head_dim or self.head_dim
+
+    @property
+    def held_experts(self) -> tuple[int, int]:
+        """The experts this device holds, ``[lo, hi)`` of the router's."""
+        return self.expert_range or (0, self.num_experts)
+
     def param_count(self) -> int:
-        """Total parameter count N (with current padding)."""
-        d, L = self.d_model, self.num_layers
+        """Total parameter count N (with current padding; of an expert share,
+        the experts held)."""
+        d, L, L0 = self.d_model, self.num_layers, self.first_dense_layers
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         per_layer = 0
-        if not self.attn_free:
+        if self.is_mla:
+            h, r, rope = self.num_heads, self.kv_lora_rank, self.qk_rope_dim
+            per_layer += (d * h * self.head_dim + d * (r + rope) + r
+                          + r * h * (self.head_dim - rope + self.value_dim)
+                          + h * self.value_dim * d)
+        elif not self.attn_free:
             q = d * self.num_heads * self.head_dim
             kv = 2 * d * self.num_kv_heads * self.head_dim
             o = self.num_heads * self.head_dim * d
@@ -84,19 +118,26 @@ class ArchConfig:
             per_layer += 2 * d * 32 * 6     # ddlerp / decay loras (approx)
         if self.hybrid:     # mamba branch alongside attention
             per_layer += 2 * d * d + 2 * d * self.ssm_state * 2
-        if self.is_moe:
-            per_layer += self.num_experts * 3 * d * self.d_ff + d * self.num_experts
-        else:
-            per_layer += 3 * d * self.d_ff
         per_layer += 2 * d  # norms
-        return emb + L * per_layer + d
+        if self.is_moe:
+            lo, hi = self.held_experts
+            ffn = (hi - lo) * 3 * d * self.d_ff + d * self.num_experts
+            ffn += self.shared_experts * 3 * d * self.d_ff
+            if self.router == "sigmoid":
+                ffn += self.num_experts
+        else:
+            ffn = 3 * d * self.d_ff
+        return emb + L * per_layer + (L - L0) * ffn + L0 * 3 * d * self.dense_d_ff + d
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: only top_k experts)."""
+        """Active params per token (MoE: only top_k experts; of an expert
+        share, its expected part of them, rounded down)."""
         if not self.is_moe:
             return self.param_count()
-        d, L = self.d_model, self.num_layers
-        inactive = L * (self.num_experts - self.top_k) * 3 * d * self.d_ff
+        d, L = self.d_model, self.num_layers - self.first_dense_layers
+        lo, hi = self.held_experts
+        held, e = hi - lo, self.num_experts
+        inactive = L * 3 * d * self.d_ff * (held * e - self.top_k * held) // e
         return self.param_count() - inactive
 
     # --------------------------------------------------------------- padding
@@ -146,6 +187,15 @@ class ArchConfig:
         nkv = max(1, min(self.num_kv_heads, nh)) if self.num_kv_heads else 0
         if nkv and nh % nkv:
             nkv = 1
+        extra: dict = {}
+        if self.is_mla:
+            extra.update(kv_lora_rank=min(self.kv_lora_rank, 32),
+                         qk_rope_dim=min(self.qk_rope_dim, hd // 4),
+                         v_head_dim=min(self.value_dim, hd // 2))
+        if self.first_dense_layers:
+            extra.update(first_dense_layers=1, dense_d_ff=min(self.dense_d_ff, 512))
+        if self.expert_range is not None:
+            extra["expert_range"] = None
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
@@ -161,7 +211,34 @@ class ArchConfig:
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else None,
             frontend_tokens=min(self.frontend_tokens, 16) if self.frontend_tokens else 0,
             true_vocab_size=0, true_num_heads=0, true_num_kv_heads=0,
+            **extra,
         )
+
+
+@dataclass(frozen=True)
+class DeepseekV3Config(ArchConfig):
+    """A deepseek_v3 architecture (a port-only family: the JAX package has
+    none)."""
+
+    # latent attention (MLA, deepseek_v3), on where kv_lora_rank > 0: head_dim
+    # is the query / key width, qk_nope + qk_rope_dim; v_head_dim the value's
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # deepseek_v3 MoE: leading dense layers of SwiGLU width dense_d_ff before
+    # the MoE layers; shared experts (one SwiGLU of width shared_experts x
+    # d_ff); the router ("softmax" with the Switch aux loss, or "sigmoid": a
+    # selection-only bias, routed_scale on the renormalised weights and
+    # DeepSeek-V3's sequence-wise aux loss); the held share of the router's
+    # num_experts, [lo, hi) (None: all); the aux loss's weight
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    shared_experts: int = 0
+    router: str = "softmax"
+    routed_scale: float = 1.0
+    expert_range: tuple[int, int] | None = None
+    aux_weight: float = 0.01
 
 
 def _gcd_pad(num_heads: int, num_kv: int) -> int:

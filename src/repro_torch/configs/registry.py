@@ -7,6 +7,7 @@ from .granite_moe_1b_a400m import CONFIG as GRANITE_MOE
 from .hymba_1_5b import CONFIG as HYMBA
 from .internvl2_26b import CONFIG as INTERNVL2
 from .mixtral_8x7b import CONFIG as MIXTRAL
+from .moonlight_16b_a3b import CONFIG as MOONLIGHT
 from .musicgen_large import CONFIG as MUSICGEN
 from .paper_cnns import CIFAR_CNN, MNIST_CNN
 from .qwen1_5_4b import CONFIG as QWEN15_4B
@@ -25,11 +26,17 @@ PAPER_MODELS: dict[str, ArchConfig] = {c.name: c for c in [MNIST_CNN, CIFAR_CNN]
 
 ALL_CONFIGS = {**ARCHITECTURES, **PAPER_MODELS}
 
+# architectures of the port alone (the JAX package has no counterpart): they
+# train through the same steps; the lists above stay the JAX package's
+PORT_ONLY: dict[str, ArchConfig] = {c.name: c for c in [MOONLIGHT]}
+
 
 def get_config(name: str) -> ArchConfig:
-    if name not in ALL_CONFIGS:
-        raise KeyError(f"unknown arch {name!r}; available: {sorted(ALL_CONFIGS)}")
-    return ALL_CONFIGS[name]
+    found = ALL_CONFIGS.get(name) or PORT_ONLY.get(name)
+    if found is None:
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{sorted(ALL_CONFIGS) + sorted(PORT_ONLY)}")
+    return found
 
 
 def assigned_architectures() -> list[str]:

@@ -138,6 +138,11 @@ def drop_leading(spec: P, n: int = 1) -> P:
 # ------------------------------------------------------------ per family ----
 
 def _attn_specs(cfg: ArchConfig, model: str, fsdp) -> dict:
+    if cfg.is_mla:
+        # heads over the model axis; the latent projection and its norm whole
+        return {"wq": P(None, fsdp, model), "wkv_a": P(None, fsdp, None),
+                "kv_norm": P(None, None), "wkv_b": P(None, None, model),
+                "wo": P(None, model, fsdp)}
     kv_ok = (cfg.num_kv_heads * cfg.head_dim) % 16 == 0
     kvs = model if kv_ok else None
     spec = {
@@ -164,13 +169,18 @@ def _mlp_specs(model: str, fsdp) -> dict:
     }
 
 
-def _moe_specs(model: str, fsdp) -> dict:
-    return {
+def _moe_specs(cfg: ArchConfig, model: str, fsdp) -> dict:
+    spec = {
         "router": P(None, fsdp, None),
         "w_gate": P(None, None, fsdp, model),
         "w_up": P(None, None, fsdp, model),
         "w_down": P(None, None, model, fsdp),
     }
+    if cfg.router == "sigmoid":
+        spec["router_bias"] = P(None, None)
+    if cfg.shared_experts:
+        spec["shared"] = _mlp_specs(model, fsdp)
+    return spec
 
 
 def _time_mix_specs(model: str, fsdp) -> dict:
@@ -219,6 +229,10 @@ def build_param_specs(cfg: ArchConfig, *, model: str = "model",
                       fsdp: str | None = None) -> dict:
     """Spec tree mirroring ``models.transformer.init_params(cfg)``."""
     blocks: dict = {"norm1": P(None, None), "norm2": P(None, None)}
+    dense_blocks = None
+    if cfg.first_dense_layers:
+        dense_blocks = dict(blocks, attn=_attn_specs(cfg, model, fsdp),
+                            mlp=_mlp_specs(model, fsdp))
     if cfg.family == "ssm":
         blocks["norm1_b"] = P(None, None)
         blocks["norm2_b"] = P(None, None)
@@ -231,7 +245,7 @@ def build_param_specs(cfg: ArchConfig, *, model: str = "model",
             blocks["branch_norm_attn"] = P(None, None)
             blocks["branch_norm_ssm"] = P(None, None)
         if cfg.is_moe:
-            blocks["moe"] = _moe_specs(model, fsdp)
+            blocks["moe"] = _moe_specs(cfg, model, fsdp)
         else:
             blocks["mlp"] = _mlp_specs(model, fsdp)
 
@@ -244,6 +258,8 @@ def build_param_specs(cfg: ArchConfig, *, model: str = "model",
         specs["final_norm_b"] = P(None)
     if not cfg.tie_embeddings:
         specs["lm_head"] = P(None, model)
+    if dense_blocks is not None:
+        specs["dense_blocks"] = dense_blocks
     return specs
 
 

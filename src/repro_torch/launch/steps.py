@@ -275,7 +275,10 @@ def build_dds_train_step(cfg: ArchConfig, *,
     ``timer`` brackets the round's phases (``p1_solve``, ``mix``,
     ``local_train``, ``state_update``), as the federation engine's rounds,
     and each local step's ``forward``, ``backward`` (under ``remat`` with
-    the recomputed forward) and ``adamw`` inside ``local_train``.
+    the recomputed forward) and ``adamw`` inside ``local_train``; where
+    ``timer.blocks``, the model also opens its blocks' spans (``mla``,
+    ``moe``) and the MoE's ``moe.held_rows`` counter on it
+    (``models/transformer``).
 
     ``mesh`` runs the round on a federation mesh (module docstring):
     ``params`` and ``opt_state`` DTensors placed by ``in_specs``
@@ -291,7 +294,8 @@ def build_dds_train_step(cfg: ArchConfig, *,
         if compute_dtype is not None:
             leaves = {name: x.to(compute_dtype) for name, x in leaves.items()}
         loss = transformer.lm_loss(unflatten(leaves), toks, cfg, prefix_embeds=pre,
-                                   remat=remat, attn_impl=attn_impl)
+                                   remat=remat, attn_impl=attn_impl,
+                                   timer=timer if timer is not None and timer.blocks else None)
         if is_dtensor(loss):      # a partial sum over the sub-mesh, summed
             from torch.distributed.tensor import Replicate
             loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
@@ -308,7 +312,10 @@ def build_dds_train_step(cfg: ArchConfig, *,
                 leaves = {name: row.detach().requires_grad_() for name, row in rows.items()}
                 loss = loss_fn(leaves, toks, pre)
             with phase(timer, "backward"):
-                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+                # a leaf the loss does not reach (a selection-only router
+                # bias) gets a zero gradient
+                grads = dict(zip(leaves, torch.autograd.grad(
+                    loss, list(leaves.values()), allow_unused=True, materialize_grads=True)))
             del leaves
             with phase(timer, "adamw"), torch.no_grad():
                 for name in list(grads):

@@ -11,7 +11,8 @@ Counterpart of ``repro.launch.train``. Two modes:
     random model on a ring contact graph, each step a round on fresh random
     tokens (and, for a VLM / audio config, frontend prefix embeddings) drawn
     from a ``torch.Generator`` seeded by ``--seed``; one ``loss`` / ``kl`` line
-    per step. ``--reduced`` gives the 2-layer variant for the CPU; with
+    per step (the port-only ``moonlight-16b-a3b`` too). ``--reduced`` gives
+    the 2-layer variant for the CPU; with
     ``--checkpoint-dir`` the stacked parameters are checkpointed after the
     run in the reference's ``.npz`` layout.
 
@@ -35,7 +36,7 @@ import time
 import torch
 
 from .. import checkpoint as ckpt_lib
-from ..configs.registry import ARCHITECTURES, PAPER_MODELS, get_config
+from ..configs.registry import ARCHITECTURES, PAPER_MODELS, PORT_ONLY, get_config
 from ..fed.simulator import SimulationConfig, run_simulation
 from . import steps as steps_lib
 from .serve import resolve_device
@@ -124,7 +125,7 @@ def run_transformer_federation(args):
 def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True,
-                    choices=sorted(ARCHITECTURES) + sorted(PAPER_MODELS))
+                    choices=sorted(ARCHITECTURES) + sorted(PORT_ONLY) + sorted(PAPER_MODELS))
     ap.add_argument("--algorithm", default="dds", choices=["dds", "dfl", "sp"])
     ap.add_argument("--road-net", default="grid", choices=["grid", "random", "spider"])
     ap.add_argument("--distribution", default="balanced_noniid",

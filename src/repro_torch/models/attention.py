@@ -1,4 +1,5 @@
-"""GQA multi-head attention: train / prefill and cached decode paths.
+"""GQA multi-head attention: train / prefill and cached decode paths; latent
+attention (MLA) for training.
 
 Counterpart of ``repro.models.attention``: grouped-query attention (any
 kv <= q head ratio), rotary embeddings, optional QKV bias (qwen1.5/2.5),
@@ -15,6 +16,16 @@ adapter drops it; eager PyTorch would pay for it in every layer).
 ``blocked_sdpa`` / ``make_blocked_impl`` are the reference's plain twin of the
 flash kernel (an online softmax over q and kv blocks): an ``attn_impl`` for
 tests and for ``launch/variants.py``; no path on the card runs them.
+
+Latent attention (``cfg.is_mla``, deepseek_v3 with no query compression;
+a port-only architecture, no counterpart in the reference): ``q = h wq``,
+per head ``[q_nope ; q_pe]``; ``[c, k_pe] = h wkv_a``, ``c`` RMS-normed by
+``kv_norm``; ``[k_nope, v] = c wkv_b`` per head; rotary on interleaved pairs
+of ``q_pe`` and of the one ``k_pe`` every head shares; causal softmax of
+``q.k / sqrt(head_dim)`` over ``k = [k_nope ; k_pe]``; ``o = p v`` at the
+value width ``cfg.value_dim``, out through ``wo``. It trains and does not
+serve (no latent KV cache yet): ``transformer.prefill`` and
+``init_decode_state`` refuse it.
 
 Decode writes the new token's k/v into the cache **in place** (the returned
 ``KVCache`` shares the input's tensors): the reference's
@@ -49,6 +60,11 @@ def init_attn(generator: torch.Generator, cfg: ArchConfig, device=None,
     def const(value, n):
         return torch.full(lead + (n,), value, dtype=torch.float32, device=device)
 
+    if cfg.is_mla:
+        r, nope, vd = cfg.kv_lora_rank, hd - cfg.qk_rope_dim, cfg.value_dim
+        return {"wq": linear(d, h * hd), "wkv_a": linear(d, r + cfg.qk_rope_dim),
+                "kv_norm": const(1.0, r), "wkv_b": linear(r, h * (nope + vd)),
+                "wo": linear(h * vd, d)}
     p = {"wq": linear(d, h * hd), "wk": linear(d, kv * hd), "wv": linear(d, kv * hd),
          "wo": linear(h * hd, d)}
     if cfg.qkv_bias:
@@ -87,7 +103,8 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor
     q: [B, S, H, hd]; k/v: [B, T, KV, hd]; mask: [S, T] or [B, S, T] bool.
     Both contractions in f32 (a bf16 cache is widened, as the reference's
     ``preferred_element_type=f32`` does), masked logits at f32's lowest value.
-    DTensors (a mesh's steps) go through ``_sdpa_on_shards``.
+    v may have its own head width (latent attention's), which the output
+    takes. DTensors (a mesh's steps) go through ``_sdpa_on_shards``.
     """
     if layers.is_dtensor(q) or layers.is_dtensor(k):
         return _sdpa_on_shards(q, k, v, mask, scale)
@@ -101,7 +118,7 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor
     logits = torch.where(mask_b, logits, torch.finfo(f32).min)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(f32), v.to(f32))
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
 def _sdpa_on_shards(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float) -> Tensor:
@@ -170,14 +187,15 @@ def blocked_sdpa(q: Tensor, k: Tensor, v: Tensor, mask, scale: float,
     group = h // kv
     f32 = torch.float32
     qs = (q.reshape(b, s, kv, group, hd) * scale).to(f32)
-    out = torch.empty((b, s, kv, group, hd), dtype=f32, device=q.device)
+    vd = v.shape[-1]
+    out = torch.empty((b, s, kv, group, vd), dtype=f32, device=q.device)
     for q0 in range(0, s, block):
         qblk = qs[:, q0:q0 + block]
         bq = qblk.shape[1]
         q_pos = torch.arange(q0, q0 + bq, device=q.device)[:, None]
         m_run = torch.full((b, kv, group, bq), -1e30, dtype=f32, device=q.device)
         l_run = torch.zeros((b, kv, group, bq), dtype=f32, device=q.device)
-        acc = torch.zeros((b, kv, group, bq, hd), dtype=f32, device=q.device)
+        acc = torch.zeros((b, kv, group, bq, vd), dtype=f32, device=q.device)
         for k0 in range(0, t, block):
             kblk, vblk = k[:, k0:k0 + block].to(f32), v[:, k0:k0 + block].to(f32)
             k_pos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)[None, :]
@@ -194,7 +212,7 @@ def blocked_sdpa(q: Tensor, k: Tensor, v: Tensor, mask, scale: float,
             m_run = m_new
         blk = acc / torch.clamp(l_run, min=1e-30)[..., None]        # [b, kv, g, bq, hd]
         out[:, q0:q0 + bq] = blk.permute(0, 3, 1, 2, 4)
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    return out.reshape(b, s, h, vd).to(q.dtype)
 
 
 def make_blocked_impl(window: int | None = None, block: int = 512):
@@ -218,11 +236,30 @@ def _attend_causal(q: Tensor, k: Tensor, v: Tensor, cfg: ArchConfig,
     return _sdpa(q, k, v, layers.causal_mask(s, s, 0, win, device=q.device), scale)
 
 
+def _project_mla(p: dict, x: Tensor, cfg: ArchConfig, positions: Tensor):
+    """Latent attention's q / k / v (module docstring): q and k ``[B, S, H,
+    head_dim]``, v ``[B, S, H, value_dim]``."""
+    b, s, _ = x.shape
+    h, rope, r, vd = cfg.num_heads, cfg.qk_rope_dim, cfg.kv_lora_rank, cfg.value_dim
+    nope = cfg.head_dim - rope
+    q_nope, q_pe = layers.split_heads(x @ p["wq"], h, nope + rope).split([nope, rope], -1)
+    c, k_pe = (x @ p["wkv_a"]).split([r, rope], -1)
+    c = layers.rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    k_nope, v = layers.split_heads(c @ p["wkv_b"], h, nope + vd).split([nope, vd], -1)
+    cos, sin = layers.rotary_cos_sin(positions, rope, cfg.rope_theta)
+    q_pe = layers.apply_rotary_interleaved(q_pe, cos, sin)
+    k_pe = layers.apply_rotary_interleaved(k_pe[:, :, None], cos, sin)      # one head
+    q = torch.cat([q_nope, q_pe], -1)
+    k = torch.cat([k_nope, k_pe.expand(b, s, h, rope)], -1)
+    return q, k, v
+
+
 def attention(p: dict, x: Tensor, cfg: ArchConfig, *,
               positions: Tensor | None = None,
               window: int | None = None,
               attn_impl=None) -> Tensor:
-    """Full-sequence causal attention (train / prefill).
+    """Full-sequence causal attention (train / prefill), latent attention
+    where ``cfg.is_mla``.
 
     ``attn_impl``: optional drop-in kernel with the ``_sdpa`` signature (the
     flash kernel's adapter; it is handed ``None`` as the mask) — defaults to
@@ -231,7 +268,8 @@ def attention(p: dict, x: Tensor, cfg: ArchConfig, *,
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    project = _project_mla if cfg.is_mla else _project_qkv
+    q, k, v = project(p, x, cfg, positions)
     out = _attend_causal(q, k, v, cfg, window, attn_impl)
     return out.reshape(b, s, -1) @ p["wo"]
 

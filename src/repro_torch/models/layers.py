@@ -59,6 +59,20 @@ def apply_rotary(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     return out.to(dtype)
 
 
+def apply_rotary_interleaved(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """``apply_rotary`` on interleaved pairs ``(x[2i], x[2i + 1])`` (HF
+    deepseek_v3's convention), returned in halves order ``[even ; odd]``, as
+    HF's permute-then-rotate does: a query and a key rotated alike give the
+    same dot product as rotated in place."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(dtype)
+
+
 def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
     """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

@@ -19,6 +19,23 @@ Counterpart of ``repro.models.moe`` (same names, parameter tree and layouts:
 Router: softmax over the expert logits in f32, top-k, the selected weights
 renormalised (Mixtral's convention), and the Switch / GShard load-balance
 loss, returned beside the output as in the reference.
+
+deepseek_v3's MoE (``cfg.router == "sigmoid"``, port-only): sigmoid scores
+``s`` over all experts; the top-k of ``s + router_bias`` chosen (the bias
+selects and weighs nothing, so its gradient is 0); weights ``s[top]``
+renormalised and scaled by ``cfg.routed_scale``; DeepSeek-V3's
+sequence-wise balance loss; shared experts
+(``p["shared"]``, one SwiGLU) added to every token.
+
+An expert share (``cfg.held_experts``, ``[lo, hi)`` of the router's
+``num_experts``): the router scores every expert, the expert stacks hold
+``hi - lo``, and each path computes the held experts' part of the output
+alone (dense: the held columns of the combine weights; ragged: offsets over
+the held range of the sorted assignments, so rows routed elsewhere lie
+outside every group and give 0, with nothing read on the host). Holding
+every expert is the path above, unchanged. With a ``PhaseTimer`` the rows
+routed to held experts are summed on the device (counter
+``moe.held_rows``).
 """
 from __future__ import annotations
 
@@ -27,9 +44,13 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.grouped_mm import ops as grouped
+from ..profiling import PhaseTimer
 from . import layers
 
 Tensor = torch.Tensor
+
+# the selection bias drawn at init: large enough to change many tokens' top-k
+ROUTER_BIAS_STD = 0.05
 
 
 def init_moe(generator: torch.Generator, cfg: ArchConfig, device=None,
@@ -43,6 +64,16 @@ def init_moe(generator: torch.Generator, cfg: ArchConfig, device=None,
     def draw(shape, scale):
         return layers.init_linear(generator, lead + shape, scale=scale, device=device)
 
+    if cfg.router == "sigmoid":
+        lo, hi = cfg.held_experts
+        fs = cfg.shared_experts * f
+        return {"router": draw((d, e), d ** -0.5),
+                "router_bias": draw((e,), ROUTER_BIAS_STD),
+                "w_gate": draw((hi - lo, d, f), d ** -0.5),
+                "w_up": draw((hi - lo, d, f), d ** -0.5),
+                "w_down": draw((hi - lo, f, d), f ** -0.5),
+                "shared": {"w_gate": draw((d, fs), d ** -0.5), "w_up": draw((d, fs), d ** -0.5),
+                           "w_down": draw((fs, d), fs ** -0.5)}}
     return {"router": draw((d, e), d ** -0.5), "w_gate": draw((e, d, f), e ** -0.5),
             "w_up": draw((e, d, f), e ** -0.5), "w_down": draw((e, f, d), e ** -0.5)}
 
@@ -60,15 +91,54 @@ def router_topk(logits: Tensor, top_k: int) -> tuple[Tensor, Tensor, Tensor]:
     return weights.to(logits.dtype), idx, aux
 
 
-def moe_dense(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:
+def router_sigmoid(logits: Tensor, bias: Tensor, top_k: int, scale: float,
+                   batch: int = 1) -> tuple[Tensor, Tensor, Tensor]:
+    """deepseek_v3's router (``noaux_tc``, one group). Returns (weights
+    [N, k], indices [N, k], aux_loss 0-d): the top-k of ``sigmoid(logits) +
+    bias``, weighed by the sigmoid scores alone, renormalised and scaled.
+    The aux loss is DeepSeek-V3's sequence-wise balance loss (arXiv
+    2412.19437 Sec. 2.1.2) over the ``batch`` sequences of the N rows, without
+    its weight: per sequence ``sum_i f_i P_i``, ``f_i = E / (k T) x`` the
+    tokens choosing i, ``P_i`` the mean of the scores normalised over the
+    experts; the mean over sequences. ``f_i`` counts the biased selection
+    that the layer runs, as Megatron-style implementations do; the paper's
+    eq. 18 writes the top-k of the plain scores."""
+    f32 = torch.float32
+    s = torch.sigmoid(logits.to(f32))
+    idx = torch.topk(s + bias.to(f32), top_k, dim=-1).indices
+    weights = torch.gather(s, 1, idx)
+    weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20) * scale
+    n, e = s.shape
+    chosen = s.new_zeros((n, e)).scatter_(1, idx, 1.0).view(batch, n // batch, e)
+    share = (s / s.sum(dim=-1, keepdim=True)).view(batch, n // batch, e)
+    aux = torch.sum(chosen.mean(dim=1) * (e / top_k) * share.mean(dim=1), dim=-1).mean()
+    return weights.to(logits.dtype), idx, aux
+
+
+def route(p: dict, x: Tensor, cfg: ArchConfig, batch: int = 1) -> tuple[Tensor, Tensor, Tensor]:
+    """The config's router on x [N, d] (``batch`` sequences of N / batch)."""
+    if cfg.router == "sigmoid":
+        return router_sigmoid(x @ p["router"], p["router_bias"], cfg.top_k, cfg.routed_scale,
+                              batch)
+    return router_topk(x @ p["router"], cfg.top_k)
+
+
+def moe_dense(p: dict, x: Tensor, cfg: ArchConfig, batch: int = 1,
+              timer: PhaseTimer | None = None) -> tuple[Tensor, Tensor]:
     """Dense-compute path. x: [N, d] -> ([N, d], aux_loss).
 
         out[n, :] = sum_{e,f} (c[n, e] * h[e, n, f]) Wd[e, f, :]
 
-    one product over (e, f) together, as the reference's einsum."""
-    weights, idx, aux = router_topk(x @ p["router"], cfg.top_k)
+    one product over (e, f) together, as the reference's einsum; of an
+    expert share, over the held experts' columns of c."""
+    weights, idx, aux = route(p, x, cfg, batch)
     # the top-k ids of a row are distinct: each (n, e) holds one weight or 0
     combine = weights.new_zeros((x.shape[0], cfg.num_experts)).scatter_(1, idx, weights)  # [N, E]
+    lo, hi = cfg.held_experts
+    if (lo, hi) != (0, cfg.num_experts):
+        combine = combine[:, lo:hi]
+    if timer is not None:
+        timer.count("moe.held_rows", ((idx >= lo) & (idx < hi)).sum())
     if layers.is_dtensor(x):
         return _on_shards(_experts, p, x, [combine]), aux
     return _experts(p, x, combine), aux
@@ -111,18 +181,23 @@ def _on_shards(fn, p: dict, x: Tensor, per_token: list) -> Tensor:
         + [(p[name], w_to[name]) for name in names], [out_to])
 
 
-def moe_ragged(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:
+def moe_ragged(p: dict, x: Tensor, cfg: ArchConfig, batch: int = 1,
+               timer: PhaseTimer | None = None) -> tuple[Tensor, Tensor]:
     """Dropless sorted dispatch: N*k assignments sorted by expert id, the
-    SwiGLU's three products grouped over the experts' slices, outputs added
-    back per token."""
-    weights, idx, aux = router_topk(x @ p["router"], cfg.top_k)
+    SwiGLU's three products grouped over the held experts' slices, outputs
+    added back per token."""
+    weights, idx, aux = route(p, x, cfg, batch)
+    lo, hi = cfg.held_experts
     if layers.is_dtensor(x):
-        return _on_shards(lambda w, *local: _ragged(w, *local, cfg.num_experts),
+        return _on_shards(lambda w, *local: _ragged(w, *local, hi - lo, lo),
                           p, x, [weights, idx]), aux
-    return _ragged(p, x, weights, idx, cfg.num_experts), aux
+    return _ragged(p, x, weights, idx, hi - lo, lo, timer), aux
 
 
-def _ragged(p: dict, x: Tensor, weights: Tensor, idx: Tensor, e: int) -> Tensor:
+def _ragged(p: dict, x: Tensor, weights: Tensor, idx: Tensor, e: int, lo: int = 0,
+            timer: PhaseTimer | None = None) -> Tensor:
+    """The ``e`` held experts from ``lo`` on; assignments to other experts
+    sort before ``offsets[0]`` or after ``offsets[e]`` and give 0."""
     k = idx.shape[1]
     flat_expert = idx.reshape(-1)                                             # [N*k]
     order = torch.argsort(flat_expert, stable=True)
@@ -130,8 +205,10 @@ def _ragged(p: dict, x: Tensor, weights: Tensor, idx: Tensor, e: int) -> Tensor:
     sorted_weight = weights.reshape(-1)[order]
     # offsets[e] = the number of assignments to experts below e
     offsets = torch.searchsorted(flat_expert[order],
-                                 torch.arange(e + 1, device=x.device, dtype=idx.dtype),
+                                 torch.arange(lo, lo + e + 1, device=x.device, dtype=idx.dtype),
                                  out_int32=True)
+    if timer is not None:
+        timer.count("moe.held_rows", offsets[-1] - offsets[0])
     xs = x[sorted_token]                                                      # [N*k, d]
     g = grouped.grouped_mm(xs, p["w_gate"], offsets)
     u = grouped.grouped_mm(xs, p["w_up"], offsets)
@@ -139,9 +216,16 @@ def _ragged(p: dict, x: Tensor, weights: Tensor, idx: Tensor, e: int) -> Tensor:
     return torch.zeros_like(x).index_add_(0, sorted_token, y * sorted_weight[:, None])
 
 
-def moe_ffn(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor]:
-    """Dispatch on ``cfg.moe_impl``. x may be [B, S, d] or [N, d]."""
+def moe_ffn(p: dict, x: Tensor, cfg: ArchConfig,
+            timer: PhaseTimer | None = None) -> tuple[Tensor, Tensor]:
+    """Dispatch on ``cfg.moe_impl``, plus the shared experts. x may be
+    [B, S, d] (B sequences for a sequence-wise aux loss) or [N, d]."""
     shape = x.shape
+    flat = x.reshape(-1, shape[-1])
+    batch = shape[0] if x.dim() == 3 and cfg.router == "sigmoid" else 1
     fn = moe_ragged if cfg.moe_impl == "ragged" else moe_dense
-    out, aux = fn(p, x.reshape(-1, shape[-1]), cfg)
+    out, aux = fn(p, flat, cfg, batch, timer)
+    if cfg.shared_experts:
+        sh = p["shared"]
+        out = out + layers.swiglu(flat, sh["w_gate"], sh["w_up"], sh["w_down"])
     return out.reshape(shape), aux

@@ -3,7 +3,11 @@
 Counterpart of ``repro.models.transformer``. Families:
 
   dense / vlm / audio : pre-norm GQA attention + pre-norm SwiGLU MLP
-  moe                 : pre-norm GQA attention + pre-norm MoE FFN (``models/moe``)
+  moe                 : pre-norm GQA attention + pre-norm MoE FFN (``models/moe``);
+                        deepseek_v3 (port-only, training): latent attention
+                        (``attention``, ``cfg.is_mla``), ``first_dense_layers``
+                        leading SwiGLU layers on their own ``dense_blocks``
+                        stack before the MoE ``blocks``, shared experts
   ssm (rwkv6)         : time-mix + channel-mix, LayerNorm with bias, token shift
                         (``models/rwkv6``)
   hybrid (hymba)      : parallel {attention, selective SSM} branches, each
@@ -22,6 +26,9 @@ the sum of the layers' MoE load-balance losses (0 for the other families) and
 ``lm_loss`` is the training objective built on it; ``forward`` drops the aux
 loss, as the reference's does. ``remat=True`` recomputes each block in the
 backward pass (``torch.utils.checkpoint``, the twin of ``jax.checkpoint``).
+A ``PhaseTimer`` passed to ``forward_with_aux`` / ``lm_loss`` brackets each
+block's latent attention (span ``mla``) and MoE (``moe``); under remat they
+open again in the recompute.
 
 ``decode_step`` updates ``state`` in place: each layer's new k/v are written
 into ``state.kv`` (see ``attention.decode_attention``) and the recurrent
@@ -37,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..profiling import PhaseTimer, phase
 from . import attention, layers, moe, rwkv6, ssm
 
 Tensor = torch.Tensor
@@ -50,16 +58,26 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32
     device when not given): the reference's tree and layouts — ``embed``
     ``[V, d]``, ``blocks`` with ``[L, ...]`` leaves, ``final_norm`` (and
     ``final_norm_b`` for rwkv6), and ``lm_head`` ``[d, V]`` unless embeddings
-    are tied."""
+    are tied; with ``first_dense_layers`` L0, ``dense_blocks`` (``[L0, ...]``
+    leaves, a SwiGLU of width ``dense_d_ff``) and ``blocks`` of ``L - L0``."""
     device = generator.device if device is None else device
-    L, d = cfg.num_layers, cfg.d_model
+    L0, d = cfg.first_dense_layers, cfg.d_model
+    L = cfg.num_layers - L0
 
     def const(value, *shape):
         return torch.full(shape, value, dtype=torch.float32, device=device)
 
-    def linear(d_in, d_out):
-        return layers.init_linear(generator, (L, d_in, d_out), scale=d_in ** -0.5,
+    def linear(d_in, d_out, n=L):
+        return layers.init_linear(generator, (n, d_in, d_out), scale=d_in ** -0.5,
                                   device=device)
+
+    dense_blocks = None
+    if L0:
+        f = cfg.dense_d_ff
+        dense_blocks = {"norm1": const(1.0, L0, d), "norm2": const(1.0, L0, d),
+                        "attn": attention.init_attn(generator, cfg, device=device, num_layers=L0),
+                        "mlp": {"w_gate": linear(d, f, L0), "w_up": linear(d, f, L0),
+                                "w_down": linear(f, d, L0)}}
 
     blocks = {"norm1": const(1.0, L, d), "norm2": const(1.0, L, d)}
     if cfg.family == "ssm":   # rwkv6: LayerNorm has a bias
@@ -83,6 +101,8 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32
         "blocks": blocks,
         "final_norm": const(1.0, d),
     }
+    if dense_blocks is not None:
+        params["dense_blocks"] = dense_blocks
     if cfg.family == "ssm":
         params["final_norm_b"] = const(0.0, d)
     if not cfg.tie_embeddings:
@@ -102,6 +122,20 @@ def layer_params(blocks: dict, i: int) -> dict:
     return _tree_map(lambda x: x[i], blocks)
 
 
+def _stacks(params: dict, cfg: ArchConfig) -> list[tuple[dict, int, bool]]:
+    """The layer stacks in order: (tree, layers, whether its FFN is the
+    dense MLP of the leading dense layers)."""
+    L0 = cfg.first_dense_layers
+    lead = [(params["dense_blocks"], L0, True)] if L0 else []
+    return lead + [(params["blocks"], cfg.num_layers - L0, False)]
+
+
+def _serves(cfg: ArchConfig) -> None:
+    if cfg.first_dense_layers or cfg.is_mla:
+        raise NotImplementedError(f"{cfg.name} trains only: serving waits for a latent KV "
+                                  "cache")
+
+
 def _embed(params: dict, tokens: Tensor, prefix_embeds: Tensor | None) -> Tensor:
     x = layers.embed(tokens, params["embed"])
     if prefix_embeds is not None:
@@ -118,12 +152,15 @@ def _logits(params: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
     return layers.unembed(x, head, cfg.true_vocab_size)
 
 
-def _ffn(p: dict, x: Tensor, cfg: ArchConfig) -> tuple[Tensor, Tensor | None]:
-    """The second half of an attention-family block: pre-norm MLP or MoE.
-    Returns (x, the MoE aux loss; None for an MLP)."""
+def _ffn(p: dict, x: Tensor, cfg: ArchConfig, timer: PhaseTimer | None = None,
+         dense: bool = False) -> tuple[Tensor, Tensor | None]:
+    """The second half of an attention-family block: pre-norm MLP or MoE
+    (``dense``: a leading dense layer's MLP). Returns (x, the MoE aux loss;
+    None for an MLP)."""
     h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-    if cfg.is_moe:
-        out, aux = moe.moe_ffn(p["moe"], h, cfg)
+    if cfg.is_moe and not dense:
+        with phase(timer, "moe"):
+            out, aux = moe.moe_ffn(p["moe"], h, cfg, timer)
         return x + out, aux
     return x + layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), None
 
@@ -148,37 +185,41 @@ def _rwkv_block(p: dict, x: Tensor, cfg: ArchConfig, time_mix, cm_shift: Tensor)
 # --------------------------------------------------------- forward ----------
 
 def _block_forward(p: dict, x: Tensor, cfg: ArchConfig, window: int | None,
-                   attn_impl) -> tuple[Tensor, Tensor | None]:
+                   attn_impl, timer: PhaseTimer | None = None,
+                   dense: bool = False) -> tuple[Tensor, Tensor | None]:
     """Full-sequence block. Returns (x, the layer's MoE aux loss or None)."""
     if cfg.family == "ssm":
         x, _ = _rwkv_block(p, x, cfg, lambda h: rwkv6.time_mix(p["time_mix"], h, cfg),
                            torch.zeros_like(x[:, 0]))
         return x, None
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    a = attention.attention(p["attn"], h, cfg, window=window, attn_impl=attn_impl)
+    with phase(timer if cfg.is_mla else None, "mla"):
+        a = attention.attention(p["attn"], h, cfg, window=window, attn_impl=attn_impl)
     if cfg.hybrid:
         s, _ = ssm.ssm_forward(p["ssm"], h, cfg)
         a = _mix_branches(p, a, s, cfg)
-    return _ffn(p, x + a, cfg)
+    return _ffn(p, x + a, cfg, timer, dense)
 
 
 def forward_with_aux(params: dict, tokens: Tensor, cfg: ArchConfig, *,
                      prefix_embeds: Tensor | None = None, window: int | None = None,
-                     attn_impl=None, remat: bool = False) -> tuple[Tensor, Tensor]:
+                     attn_impl=None, remat: bool = False,
+                     timer: PhaseTimer | None = None) -> tuple[Tensor, Tensor]:
     """Train / prefill forward: tokens [B, S] -> (logits [B, P + S, V], the
     layers' summed MoE aux loss, an f32 0-d tensor: 0 for the other
     families)."""
     x = _embed(params, tokens, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        p = layer_params(params["blocks"], i)
-        if remat:
-            x, aux_l = checkpoint(_block_forward, p, x, cfg, window, attn_impl,
-                                  use_reentrant=False)
-        else:
-            x, aux_l = _block_forward(p, x, cfg, window, attn_impl)
-        if aux_l is not None:
-            aux = aux + aux_l
+    for blocks, n, dense in _stacks(params, cfg):
+        for i in range(n):
+            p = layer_params(blocks, i)
+            if remat:
+                x, aux_l = checkpoint(_block_forward, p, x, cfg, window, attn_impl, timer,
+                                      dense, use_reentrant=False)
+            else:
+                x, aux_l = _block_forward(p, x, cfg, window, attn_impl, timer, dense)
+            if aux_l is not None:
+                aux = aux + aux_l
     return _logits(params, x, cfg), aux
 
 
@@ -235,6 +276,7 @@ def prefill(params: dict, tokens: Tensor, cfg: ArchConfig, *,
     holds ``kv`` (None for rwkv6; leaves ``[L, B, T, KV, hd]`` in
     ``cache_dtype``), ``rwkv`` {shift, wkv, cm_shift} or ``ssm`` {conv, h},
     each stacked on ``[L]``, and ``position`` = P + S."""
+    _serves(cfg)
     x = _embed(params, tokens, prefix_embeds)
     s_total, L = x.shape[1], cfg.num_layers
     kv = rk = sm = None
@@ -268,6 +310,7 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16, device=None) -> DecodeState:
+    _serves(cfg)
     L = cfg.num_layers
 
     def zeros(*shape, dtype=torch.float32):
@@ -338,10 +381,13 @@ def decode_step(params: dict, tokens: Tensor, state: DecodeState,
 # ------------------------------------------------------------- loss ---------
 
 def lm_loss(params: dict, tokens: Tensor, cfg: ArchConfig, *,
-            prefix_embeds: Tensor | None = None, aux_weight: float = 0.01, **kw) -> Tensor:
-    """Next-token cross-entropy (+ ``aux_weight`` x the MoE load-balance aux
-    loss). Labels are the tokens shifted by one; the prefix (frontend)
-    positions are left out of the loss. ``kw`` goes to ``forward_with_aux``."""
+            prefix_embeds: Tensor | None = None, aux_weight: float | None = None,
+            **kw) -> Tensor:
+    """Next-token cross-entropy (+ ``aux_weight``, by default
+    ``cfg.aux_weight``, x the MoE aux loss of the config's form). Labels are
+    the tokens shifted by one; the prefix (frontend) positions are left out
+    of the loss. ``kw`` goes to ``forward_with_aux``."""
+    aux_weight = cfg.aux_weight if aux_weight is None else aux_weight
     logits, aux = forward_with_aux(params, tokens, cfg, prefix_embeds=prefix_embeds, **kw)
     p = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     logits = logits[:, p:, :]

@@ -9,6 +9,10 @@ synchronisation to the run. Each phase is also a
 profiler the phases, nested as they ran, share the trace's clock with the
 device's activity. ``totals_ms()`` synchronises once and sums per phase.
 A run without a timer pays nothing: ``phase(None, name)`` is a null context.
+``count(name, value)`` adds to a counter on the value's device (no
+synchronisation); ``counts()`` reads them, beside ``totals_ms()``.
+``blocks`` asks the train step to hand the timer to the model too, which
+then opens spans inside each block (``models/transformer``).
 """
 from __future__ import annotations
 
@@ -20,11 +24,13 @@ import torch
 
 
 class PhaseTimer:
-    def __init__(self, device):
+    def __init__(self, device, blocks: bool = False):
         self.device = torch.device(device)
+        self.blocks = blocks
         self.cuda = self.device.type == "cuda"
         self._events = defaultdict(list)   # name -> [(start, end)] CUDA events
         self._host_ns = defaultdict(int)   # name -> host ns inside the phase
+        self._counts = {}                  # name -> running sum (a tensor where added so)
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -41,6 +47,15 @@ class PhaseTimer:
                     end.record()
                     self._events[name].append((start, end))
                 self._host_ns[name] += time.perf_counter_ns() - t0
+
+    def count(self, name: str, value) -> None:
+        """Adds ``value`` (a number, or a 0-d tensor summed where it lives)
+        to counter ``name``."""
+        self._counts[name] = self._counts.get(name, 0) + value
+
+    def counts(self) -> dict[str, float]:
+        """Every counter's sum (one read of each)."""
+        return {name: float(v) for name, v in self._counts.items()}
 
     def totals_ms(self) -> dict[str, float]:
         """Milliseconds per phase: ``<name>`` device time on CUDA (host time

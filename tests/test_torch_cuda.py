@@ -20,7 +20,7 @@ from repro_torch.core import aggregation, contacts
 from repro_torch.data.synthetic import synthetic_mnist
 from repro_torch.fed.simulator import SimulationConfig, run_simulation
 from repro_torch.configs import get_config
-from repro_torch.configs.registry import ARCHITECTURES
+from repro_torch.configs.registry import ARCHITECTURES, PORT_ONLY
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kl_simplex
 from repro_torch.precision import full_f32_matmul
@@ -1251,7 +1251,7 @@ def _train_state(arch, v, seed=0):
     return cfg, (params, opt, sm), tokens, prefix
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
+@pytest.mark.parametrize("arch", sorted(ARCHITECTURES) + sorted(PORT_ONLY))
 def test_reduced_train_round_on_the_card_matches_the_cpu(card, arch):
     """One ``build_dds_train_step`` round of a reduced config, 4 vehicles on a
     ring, on the card against the CPU: one grouped ``gossip_mix_matmul``

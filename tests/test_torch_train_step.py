@@ -33,7 +33,7 @@ from repro.optim import AdamState as JAdamState
 from repro_torch import checkpoint as ckpt
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.configs.registry import ARCHITECTURES
+from repro_torch.configs.registry import ARCHITECTURES, PORT_ONLY
 from repro_torch.core import aggregation
 from repro_torch.launch import steps, train, variants
 from repro_torch.models import attention, transformer
@@ -438,7 +438,7 @@ def test_train_cli_transformer_checkpoint_restores_in_the_reference(tmp_path, ca
                                                             "step": 2}
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
+@pytest.mark.parametrize("arch", sorted(ARCHITECTURES) + sorted(PORT_ONLY))
 def test_train_cli_runs_every_transformer(arch, capsys):
     _, _, _, history = train.main(["--arch", arch, "--reduced", "--device", "cpu",
                                    "--vehicles", "4", "--steps", "2", "--seq-len", "8"])
