@@ -28,7 +28,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                floor at V = 1, K = 32; the P1 solve per 200-step solve; flash attention at
                the serving shape B=4, S=T=2048, H=16, KV=8, hd=128); flash attention
                also at the zoo's prefill shapes (hd 64 with G = 1, 2, 5; hd 128 with
-               G = 6; prefixes of 64 / 256 positions; mixtral's 4,096 window).
+               G = 6; prefixes of 64 / 256 positions; mixtral's 4,096 window);
+               the train step's attention (``flash_train_fwd``, ``flash_train_bwd``:
+               the dQ then dK / dV launches) at cells 6's and 2's per-layer shapes
+               against the exact f32 result and ``_sdpa``'s own error, its backward
+               the same bits twice, timed beside ``_sdpa`` and the library call.
                ``gossip_mix_matmul``'s column mapping (few rows): K = 1-17 over
                ragged widths on both sides of its limit, the mapping the launcher
                picked printed per case, in place equal to out of place bit for
@@ -223,8 +227,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                Then the same 3 rounds under the ``opt_ragged`` variant (bf16
                compute on the f32 master weights, the bf16 gossip payload, the
                ragged MoE) from the same init and tokens: the bf16 grouped
-               kernels' launches counted by dtype, finite losses, round 1's loss
-               within 1e-2 of the f32 ragged run's, s/round and peak memory.
+               kernels' launches counted by dtype, the train step's attention
+               through the training kernels (2 L V forward launches a round,
+               forward and remat's recompute, and L V of each backward kernel; none
+               in the f32 rounds), finite losses, round 1's loss within 1e-2 of the
+               f32 ragged run's, s/round and peak memory.
 8g. examples — every ``examples/torch_*.py`` with ``--smoke --device cuda`` as a
                subprocess, as a user starts it: exit 0 and its ``OK`` line.
 9. prints one ``{"kernels": [...]}`` line (the two mixes also as
@@ -336,6 +343,20 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+    },
+    # the train step's causal attention, forward and backward: no TPU kernel
+    # (the Pallas flash_attention is forward only; the reference trains
+    # through its plain attention)
+    "flash_train_fwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_train.cu",
+        "replaces": "not a TPU kernel (the plain training attention, models/attention._sdpa)",
+    },
+    "flash_train_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_train.cu",
+        "replaces": "not a TPU kernel (autograd of models/attention._sdpa): "
+                    "flash_train_dq then flash_train_dkdv",
     },
     # the port of jax.lax.ragged_dot (the reference's moe_ragged), not of a Pallas kernel
     "grouped_mm": {
@@ -1572,6 +1593,108 @@ def time_flash_attention(device) -> dict:
         del q, k, v, qt, kt, vt
     log(f"  flash_attention: {json.dumps(out)}")
     return {"flash_attention": out}
+
+
+# ------------------------------------------------------ training attention ----
+
+# (label, B, S, H, KV, dqk, dv): one layer's attention of one vehicle in cell 6
+# (Moonlight, the row) and cell 2 (granite, nested)
+TRAIN_ATTN_SHAPES = (("moonlight_s8192", 1, 8192, 16, 16, 192, 128),
+                     ("granite_s4096", 1, 4096, 16, 8, 64, 64))
+
+
+def _sdpa_train(q, k, v, do=None):
+    """The model's plain attention on the training path (``_sdpa`` with the
+    causal mask); with ``do``, forward and backward."""
+    from repro_torch.models import attention
+    s = q.shape[1]
+    mask = layers.causal_mask(s, s, 0, None, device=q.device)
+    if do is None:
+        with torch.no_grad():
+            return attention._sdpa(q, k, v, mask, q.shape[-1] ** -0.5)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = attention._sdpa(*leaves, mask, q.shape[-1] ** -0.5)
+    return (out,) + torch.autograd.grad(out, leaves, do)
+
+
+def check_and_time_train_attention(device) -> tuple[dict, dict]:
+    """The training kernels (rows 6t, 6b) at cells 6's and 2's per-layer
+    shapes: o, dq, dk, dv against the exact f32 result (the plain twins on the
+    bf16 inputs widened), each no worse than 2.5x ``_sdpa``'s own error on the
+    same bf16 inputs (``tests/test_torch_cuda.py`` holds them element-wise),
+    the backward the same bits twice; then timed against ``_sdpa`` (forward;
+    forward and backward) and, as a yardstick the port never calls,
+    ``F.scaled_dot_product_attention`` (``enable_gqa``). Bounds: the
+    operations at the bf16 rate, 2 (dqk + dv) per kept (query, key) pair per
+    head forward and 2 (3 dqk + 2 dv) backward (the five products; the design
+    forms S and dP twice, 2 (4 dqk + 3 dv)); bytes: q, k, v, o (and dO, the
+    gradients) once. Returns (worst errors, rows) keyed by kernel."""
+    worst = {"flash_train_fwd": 0.0, "flash_train_bwd": 0.0}
+    rows = {}
+    for label, b, s, h, kv, dqk, dv in TRAIN_ATTN_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(s + dqk)
+        mk = lambda *shape: torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        q, k, v, do = mk(b, s, h, dqk), mk(b, s, kv, dqk), mk(b, s, kv, dv), mk(b, s, h, dv)
+        o, lse = fa.kernel.flash_train_forward(q, k, v)
+        grads = fa.kernel.flash_train_backward(q, k, v, o, lse, do)
+        again = fa.kernel.flash_train_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"flash_train backward at {label}: the same bits twice")
+        f = lambda x: x.float()
+        with torch.no_grad():
+            eo, else_ = fa.flash_train_forward_ref(f(q), f(k), f(v))
+            exact = (eo,) + fa.flash_train_backward_ref(f(q), f(k), f(v), eo, else_, f(do))
+        plain = _sdpa_train(q, k, v, do)
+        errs = {}
+        for name, got, ex, pl in zip(("o", "dq", "dk", "dv"), (o,) + grads, exact, plain):
+            errs[name] = (_max_err(got, ex), _max_err(pl.detach(), ex))
+            check(errs[name][0] <= 2.5 * errs[name][1] + 1e-6,
+                  f"flash_train {name} at {label}: max err {errs[name][0]:.3e} against the "
+                  f"exact f32 result, _sdpa's {errs[name][1]:.3e} (at most 2.5x)")
+        check(_max_err(lse, else_) <= 1e-4, f"flash_train lse at {label}: max err "
+              f"{_max_err(lse, else_):.2e}")
+        worst["flash_train_fwd"] = max(worst["flash_train_fwd"], errs["o"][0])
+        worst["flash_train_bwd"] = max(worst["flash_train_bwd"],
+                                       *(errs[n][0] for n in ("dq", "dk", "dv")))
+        del eo, else_, exact, plain, grads, again
+
+        pairs = _attention_pairs(s, s, True, None)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+
+        def library_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+
+        def library_fwd_bwd():
+            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out, leaves, dot)
+
+        io = 2 * (b * s * h * (dqk + dv) + b * s * kv * (dqk + dv))   # q, k, v, o in bf16
+        work = f"one layer of one vehicle: B={b}, S={s}, H={h}, KV={kv}, q/k {dqk}, v {dv}, causal, bf16"
+        fwd = _timed(lambda: fa.kernel.flash_train_forward(q, k, v), lambda: _sdpa_train(q, k, v),
+                     library_fwd, io + 4 * b * h * s, 2 * b * h * pairs * (dqk + dv),
+                     f"forward (o and lse), {work}", flop_rate=hw.BF16_FLOP_PER_S,
+                     inner=3, reps=5)
+        bwd = _timed(lambda: fa.kernel.flash_train_backward(q, k, v, o, lse, do),
+                     lambda: _sdpa_train(q, k, v, do), library_fwd_bwd,
+                     2 * io + 12 * b * h * s, 2 * b * h * pairs * (3 * dqk + 2 * dv),
+                     f"backward (dq, dk, dv; plain and library: forward and backward), {work}",
+                     flop_rate=hw.BF16_FLOP_PER_S, inner=3, reps=5)
+        bwd["kernel_fwd_bwd_ms"] = fwd["ms"] + bwd["ms"]
+        bwd["design_flops_per_pair_head"] = 2 * (4 * dqk + 3 * dv)
+        for name, row in (("flash_train_fwd", fwd), ("flash_train_bwd", bwd)):
+            row["errors_vs_exact"] = {n: {"kernel": e[0], "sdpa": e[1]} for n, e in errs.items()}
+            if label == TRAIN_ATTN_SHAPES[0][0]:
+                rows[name] = row
+            else:
+                rows[name][label] = row
+        del q, k, v, do, o, lse, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    log(f"  flash_train: {json.dumps(rows)}")
+    return worst, rows
 
 
 # -------------------------------------------------------------------- serve ----
@@ -2841,6 +2964,9 @@ def drive_ragged_train(device: str, seed: int, rehearsal: bool) -> tuple[dict, d
         if on_card:
             torch.cuda.empty_cache()
     launches = {k: out["ragged"][k] for k in ("grouped_mm", "grouped_mm_wgrad")}
+    if on_card:
+        check(fa.kernel.launch_counts["flash_train_fwd"] == 0,
+              f"{cfg.name} f32 rounds: no flash_train launch (f32 attends through _sdpa)")
     loss_r, loss_d = out["ragged"]["loss"][0], out["dense"]["loss"][0]
     check(abs(loss_r - loss_d) <= 1e-4 * abs(loss_d),
           f"{cfg.name} round 1 loss, ragged {loss_r:.6f} vs dense {loss_d:.6f} (rtol 1e-4)")
@@ -2929,7 +3055,18 @@ def drive_opt_ragged_train(device: str, seed: int, rehearsal: bool,
           f"{f32_loss:.6f}: {abs(loss - f32_loss) / abs(f32_loss):.2e} relative "
           f"(rtol {OPT_RAGGED_LOSS_RTOL:g})")
     launches = {k: report[k] for k in ("grouped_mm", "grouped_mm_wgrad")}
+    attn = {k: fa.kernel.launch_counts[k]
+            for k in ("flash_train_fwd", "flash_train_dq", "flash_train_dkdv")}
+    report["flash_train_launches"] = attn
+    launches["flash_train_fwd"], launches["flash_train_bwd"] = (attn["flash_train_fwd"],
+                                                                attn["flash_train_dq"])
     if on_card:
+        passes = cfg.num_layers * v * TRAIN_ROUNDS
+        check(attn == {"flash_train_fwd": 2 * passes, "flash_train_dq": passes,
+                       "flash_train_dkdv": passes},
+              f"{cfg.name} opt_ragged rounds: the training attention launched {attn} "
+              f"(forward and remat's recompute: 2 x {cfg.num_layers} layers x {v} vehicles x "
+              f"{TRAIN_ROUNDS} rounds; each backward kernel half that)")
         products = 3 * cfg.num_layers * v * TRAIN_ROUNDS
         check(tally.counts.get("grouped_mm_wgrad/bfloat16", 0) == products
               == launches["grouped_mm_wgrad"]
@@ -2953,8 +3090,8 @@ def drive_ragged(device: str, seed: int, rehearsal: bool) -> tuple[dict, dict]:
     train_launches, train_report = drive_ragged_train(device, seed, rehearsal)
     opt_launches, opt_report = drive_opt_ragged_train(device, seed, rehearsal,
                                                       train_report["ragged"]["loss"][0])
-    launches = {k: serve_launches[k] + train_launches[k] + opt_launches[k]
-                for k in serve_launches}
+    launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0) + opt_launches[k]
+                for k in opt_launches}
     log(f"[ragged] phase took {time.perf_counter() - t0:.1f} s; launches {launches}")
     return launches, {"serve": serve_report, "train": train_report, "opt_ragged": opt_report}
 
@@ -3993,6 +4130,11 @@ def main() -> int:
         with full_f32_matmul():
             timings.update(time_flash_attention(device))
         timings["flash_attention"].update(fa_errors)
+        log("[kernels] flash_train (the train step's attention) at cells 6's and 2's "
+            "per-layer shapes (ms, CUDA events, median)")
+        train_worst, train_rows = check_and_time_train_attention(device)
+        worst.update(train_worst)
+        timings.update(train_rows)
         log("[kernels] grouped_mm / grouped_mm_wgrad at the MoE prefill shapes (ms, CUDA "
             "events, median)")
         grouped_worst, grouped_timings = check_grouped_kernels(device)

@@ -44,6 +44,8 @@
 //   a single bf16 P (FlashAttention's choice) errs by 2^-9 of p, which at a
 //   2,048-key row is above the 2e-5 + 1e-2 |o| held element-wise at the
 //   serving shape. Q K^T takes one product: bf16 x bf16 is exact in f32.
+//   These bf16 pieces live in flash_common.cuh, shared with the training
+//   kernels (flash_train.cu).
 // * f32: 3xTF32 on `mma.sync.m16n8k8`. Each operand a splits into
 //   big = tf32(a) and small = tf32(a - big) (`cvt.rna.tf32.f32`), and each
 //   product is small*big + big*small + big*big: about 21 bits of each
@@ -88,7 +90,11 @@
 
 #include <type_traits>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::cp_async16;
 
 constexpr int kBQ = 64;            // query rows of one head per block (4 warps x 16)
 constexpr int kBK = 64;            // keys per tile
@@ -129,88 +135,21 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool in) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(in ? 16 : 0));
-}
-
 // ---------------------------------------------------------------- bf16 ----
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as a bf16 pair (lo in the low half) and what rounding left over
-__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // s[j] += Q[16 rows] . K[keys 8j .. 8j+7]^T over hd
 template <int HD>
 __device__ __forceinline__ void qk_bf16(const __nv_bfloat16* qs, const __nv_bfloat16* ks,
                                         float (&s)[kNT][4], int lane) {
   constexpr int P = Layout<__nv_bfloat16, HD>::kQK;
-  const int mi = lane >> 3, rr = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, qs + (rr + (mi & 1) * 8) * P + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-    for (int jp = 0; jp < kNT / 2; ++jp) {
-      uint32_t b[4];
-      ldsm_x4(b, ks + (jp * 16 + rr + (mi >> 1) * 8) * P + kk * 16 + (mi & 1) * 8);
-      mma_bf16(s[2 * jp], a, b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
+  flash::mma_abt<HD, kNT, P, P>(qs, ks, s, lane);
 }
 
 // o[n] += P[16 rows, 64 keys] . V[64 keys, cols 8n .. 8n+7], P = hi + lo
 template <int HD>
 __device__ __forceinline__ void pv_bf16(const float (&p)[kNT][4], const __nv_bfloat16* vs,
                                         float (&o)[HD / 8][4], int lane) {
-  constexpr int P = Layout<__nv_bfloat16, HD>::kV;
-  const int mi = lane >> 3, rr = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    uint32_t hi[4], lo[4];
-    split_bf16x2(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
-    split_bf16x2(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
-    split_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, vs + (kk * 16 + rr + (mi & 1) * 8) * P + np * 16 + (mi >> 1) * 8);
-      mma_bf16(o[2 * np], lo, b[0], b[1]);
-      mma_bf16(o[2 * np], hi, b[0], b[1]);
-      mma_bf16(o[2 * np + 1], lo, b[2], b[3]);
-      mma_bf16(o[2 * np + 1], hi, b[2], b[3]);
-    }
-  }
+  flash::mma_acc_b<kBK, HD, Layout<__nv_bfloat16, HD>::kV, true>(p, vs, o, lane);
 }
 
 // ----------------------------------------------------------- f32: 3xTF32 ----

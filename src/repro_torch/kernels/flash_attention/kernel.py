@@ -1,7 +1,10 @@
 """Flash attention written by hand for Hopper (sm_90a): forward-only blocked
 online-softmax attention with GQA, causal and sliding-window masking, on the
 tensor cores (bf16 ``mma.sync``; f32 by 3xTF32) (``csrc/flash_attention.cu``,
-design note there).
+design note there); and the causal training attention, forward with the rows'
+log-sum-exp and backward, bf16 operands with f32 sums
+(``csrc/flash_train.cu``, design note there), as the autograd function
+``flash_train_attention``.
 
 Counterpart of the Pallas kernel of ``repro.kernels.flash_attention.kernel``.
 Compiled by ``nvcc`` at first use (``kernels.build``) and bound through
@@ -16,6 +19,15 @@ that breaks this raises and is never copied in silence. It allocates the output
 with ``torch.empty``, launches on PyTorch's current stream, does not
 synchronise, raises if the launch was refused, and adds one to
 ``launch_counts["flash_attention"]`` per launch.
+
+``flash_train_attention`` takes bf16 CUDA q [B, S, H, dqk], k [B, S, KV, dqk],
+v [B, S, KV, dv] at a width pair of ``TRAIN_WIDTHS``, rows on 16-byte
+boundaries as above, and raises on anything else. Its forward is one
+``flash_train_fwd`` launch (o, and the f32 log-sum-exp it saves), its backward
+one ``flash_train_dq`` (dQ and D = rowsum(dO o)) then one ``flash_train_dkdv``
+launch; each adds one to its key of ``launch_counts``. Its gradients are the
+same bits from run to run (no atomics). ``train_takes`` says which inputs it
+takes: the route of ``ops.make_train_attn_impl``.
 """
 from __future__ import annotations
 
@@ -29,12 +41,16 @@ from .. import build as build_lib
 Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"flash_attention": CSRC / "flash_attention.cu"}
+SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
+           "flash_train": CSRC / "flash_train.cu"}
 
-HEAD_DIMS = (16, 32, 64, 128)   # the template instantiations of the kernel
+HEAD_DIMS = (16, 32, 64, 128)   # the template instantiations of the serving kernel
+# (q/k width, v width) of the training kernels' instantiations
+TRAIN_WIDTHS = ((64, 64), (128, 128), (192, 128))
 
 # launches per kernel since the last reset_launch_counts()
-launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
+launch_counts: dict[str, int] = {"flash_attention": 0, "flash_train_fwd": 0,
+                                 "flash_train_dq": 0, "flash_train_dkdv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -50,7 +66,7 @@ def build() -> None:
     wrapper at first launch."""
     if _LIBS:
         return
-    (lib,) = build_lib.load_libraries([SOURCES["flash_attention"]])
+    lib, train = build_lib.load_libraries([SOURCES["flash_attention"], SOURCES["flash_train"]])
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_launch.argtypes = (
         [ptr] * 4 + [i32] * 5 + [i64] * 9
@@ -62,7 +78,13 @@ def build() -> None:
     lib.flash_attention_heads_per_block.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    train.flash_train_launch.argtypes = (
+        [i32] + [ptr] * 10 + [i32] * 4 + [i64] * 9 + [ctypes.c_float, i32, i32, i32, i32, ptr])
+    train.flash_train_launch.restype = i32
+    train.flash_train_error_string.argtypes = [i32]
+    train.flash_train_error_string.restype = ctypes.c_char_p
     _LIBS["flash_attention"] = lib
+    _LIBS["flash_train"] = train
 
 
 def block_resources(hd: int, dtype: torch.dtype, group: int) -> dict:
@@ -76,16 +98,19 @@ def block_resources(hd: int, dtype: torch.dtype, group: int) -> dict:
             "smem_bytes": lib.flash_attention_smem_bytes(hd, _DTYPE_CODE[dtype], group)}
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
-    name = "flash_attention"
-    for what, t in (("q", q), ("k", k), ("v", v)):
+def _check_rows(name: str, tensors, dtypes: tuple) -> None:
+    """Device, dtype, rank and row alignment of each (what, tensor) pair."""
+    q = tensors[0][1]
+    for what, t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device} "
                              "(CPU tensors go through kernels.flash_attention.ops / ref)")
         if t.device != q.device:
             raise ValueError(f"{name}: {what} is on {t.device}, q on {q.device}")
-        if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"{name}: {what} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {what} must be "
+                            f"{' or '.join(str(d).split('.')[-1] for d in dtypes)}, "
+                            f"got {t.dtype}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: {what} is {t.dtype}, q {q.dtype}: q, k and v "
                             "share one dtype")
@@ -100,6 +125,11 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
             raise ValueError(f"{name}: the rows of {what} must start on 16-byte "
                              f"boundaries (data pointer {t.data_ptr() % 16} bytes past "
                              f"one, strides {t.stride()} of {esize}-byte elements)")
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
+    name = "flash_attention"
+    _check_rows(name, (("q", q), ("k", k), ("v", v)), tuple(_DTYPE_CODE))
     b, _, h, hd = q.shape
     if k.shape != v.shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
@@ -151,3 +181,125 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                            f"({text.decode() if text else '?'})")
     launch_counts["flash_attention"] += 1
     return out
+
+
+# ------------------------------------------------------------- training ----
+
+def train_takes(q: Tensor, k: Tensor, v: Tensor) -> bool:
+    """Whether ``flash_train_attention`` takes these inputs, by what they show:
+    plain CUDA tensors (no DTensor or other subclass), all bf16, 4-D, q and k
+    of one width and (that width, v's) one of ``TRAIN_WIDTHS``."""
+    return (all(type(t) is Tensor and t.is_cuda and t.dtype == torch.bfloat16 and t.dim() == 4
+                for t in (q, k, v))
+            and k.shape[-1] == q.shape[-1] and (q.shape[-1], v.shape[-1]) in TRAIN_WIDTHS)
+
+
+def _check_train(q: Tensor, k: Tensor, v: Tensor, window: int | None) -> None:
+    name = "flash_train_attention"
+    _check_rows(name, (("q", q), ("k", k), ("v", v)), (torch.bfloat16,))
+    b, s, h, dqk = q.shape
+    if k.shape[:2] != (b, s) or v.shape[:3] != k.shape[:3] or k.shape[3] != dqk:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+                         "k must be [B, S, KV, dqk] and v [B, S, KV, dv] for q [B, S, H, dqk]")
+    kv = k.shape[2]
+    if kv == 0 or h % kv:
+        raise ValueError(f"{name}: {h} q-heads are not a multiple of {kv} kv-heads")
+    if (dqk, v.shape[3]) not in TRAIN_WIDTHS:
+        raise ValueError(f"{name}: widths (q/k {dqk}, v {v.shape[3]}) are not one of "
+                         f"{TRAIN_WIDTHS}")
+    if b * h >= 2 ** 31 or -(-s // 64) > 65_535:
+        raise ValueError(f"{name}: batch x heads {b * h} or length {s} exceed the grid")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window {window} keeps no key (a row keeps itself at 1)")
+
+
+def _launch_train(pass_: int, q: Tensor, k: Tensor, v: Tensor, o, dout, out, dk, dv,
+                  lse: Tensor, dsum, window: int | None, scale: float) -> None:
+    b, s, h, dqk = q.shape
+    # a window past S + 1 keeps every causal key
+    win = 0 if window is None else min(int(window), s + 1)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    build()
+    lib = _LIBS["flash_train"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.flash_train_launch(
+            pass_, q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(o), ptr(dout), ptr(out),
+            ptr(dk), ptr(dv), lse.data_ptr(), ptr(dsum), b, s, h,
+            k.shape[2], q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), v.stride(0), v.stride(1), v.stride(2), scale, int(window is not None),
+            win, dqk, v.shape[3], stream)
+    if code != 0:
+        text = lib.flash_train_error_string(code)
+        raise RuntimeError(f"flash_train_attention: launch failed with CUDA error {code} "
+                           f"({text.decode() if text else '?'})")
+    launch_counts[("flash_train_fwd", "flash_train_dq", "flash_train_dkdv")[pass_]] += 1
+
+
+def flash_train_forward(q: Tensor, k: Tensor, v: Tensor, *, window: int | None = None,
+                        scale: float | None = None) -> tuple[Tensor, Tensor]:
+    """The causal forward: ``(o [B, S, H, dv] bf16, lse [B, H, S] f32)``,
+    lse the natural log-sum-exp of each row's kept scaled scores."""
+    _check_train(q, k, v, window)
+    b, s, h, dqk = q.shape
+    scale = dqk ** -0.5 if scale is None else float(scale)
+    o = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if o.numel():
+        _launch_train(0, q, k, v, None, None, o, None, None, lse, None, window, scale)
+    return o, lse
+
+
+def flash_train_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, dout: Tensor,
+                         *, window: int | None = None,
+                         scale: float | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """``(dq, dk, dv)`` in bf16, shaped as q, k, v (contiguous), from the
+    forward's ``o`` and ``lse`` and the output's gradient ``dout``: one
+    ``flash_train_dq`` launch (which also writes D) and one
+    ``flash_train_dkdv``."""
+    _check_train(q, k, v, window)
+    b, s, h, dqk = q.shape
+    want = (b, s, h, v.shape[3])
+    for what, t in (("o", o), ("dout", dout)):
+        if (t.shape != want or t.dtype != torch.bfloat16 or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_train_attention: {what} must be contiguous bf16 {want} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_train_attention: lse must be contiguous f32 {(b, h, s)}")
+    scale = dqk ** -0.5 if scale is None else float(scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    if dq.numel():
+        dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        _launch_train(1, q, k, v, o, dout, dq, None, None, lse, dsum, window, scale)
+        _launch_train(2, q, k, v, None, dout, None, dk, dv, lse, dsum, window, scale)
+    return dq, dk, dv
+
+
+class _FlashTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale):
+        o, lse = flash_train_forward(q, k, v, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.scale = window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        # autograd's gradient of o may come as any layout: the kernels read it
+        # contiguous
+        dq, dk, dv = flash_train_backward(q, k, v, o, lse, dout.contiguous(),
+                                          window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_train_attention(q: Tensor, k: Tensor, v: Tensor, *, window: int | None = None,
+                          scale: float | None = None) -> Tensor:
+    """Causal (+ ``window``) attention with its gradient on the card: q [B, S,
+    H, dqk], k [B, S, KV, dqk], v [B, S, KV, dv], bf16, (dqk, dv) in
+    ``TRAIN_WIDTHS``; returns o [B, S, H, dv] bf16. Raises on anything else."""
+    return _FlashTrain.apply(q, k, v, window, scale)

@@ -82,6 +82,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import aggregation, kl_solver, state_vector
 from ..core import vehicle_axis as va
+from ..kernels.flash_attention.ops import make_train_attn_impl
 from ..kernels.gossip_mix import kernel as mix_kernel
 from ..kernels.gossip_mix.ops import mix_params_cuda, mix_params_cuda_
 from ..models import transformer
@@ -272,6 +273,13 @@ def build_dds_train_step(cfg: ArchConfig, *,
     else through the functional ``mix_params_cuda`` and a copy back.
     ``compute_dtype`` runs the loss in that dtype on the f32 master weights
     (the cast is inside the loss, so the gradients reach the f32 leaves).
+    ``attn_impl`` None attends through
+    ``kernels.flash_attention.ops.make_train_attn_impl`` at the config's
+    ``sliding_window``: the hand-written training attention, forward and
+    backward, for CUDA bf16 q / k / v at an instantiated width pair (the bf16
+    ``compute_dtype`` on the card), else the plain ``_sdpa`` with the causal
+    mask (CPU or meta tensors, DTensors, f32, other widths); an explicit
+    ``attn_impl`` is used as given.
     ``timer`` brackets the round's phases (``p1_solve``, ``mix``,
     ``local_train``, ``state_update``), as the federation engine's rounds,
     and each local step's ``forward``, ``backward`` (under ``remat`` with
@@ -289,6 +297,8 @@ def build_dds_train_step(cfg: ArchConfig, *,
     """
     optimizer = adamw(lr)
     in_specs, out_specs, pspec_v, opt_specs = _train_specs(cfg, mesh)
+    if attn_impl is None:
+        attn_impl = make_train_attn_impl(window=cfg.sliding_window)
 
     def loss_fn(leaves: dict, toks: Tensor, pre: Tensor | None) -> Tensor:
         if compute_dtype is not None:

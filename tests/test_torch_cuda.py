@@ -992,6 +992,158 @@ def test_a_shape_the_kernel_refuses_raises_through_the_serving_path(card):
         serve.generate(params, tokens, cfg, gen=1, attn_impl=fa.make_attn_impl())
 
 
+# ---------------------------------------------- training attention ----
+# The training kernels (kernels/flash_attention/csrc/flash_train.cu) through
+# their autograd function, against autograd of the model's plain ``_sdpa`` on
+# the same bf16 inputs and against the exact f32 result (the plain twins on
+# the bf16 inputs widened). Element-wise tolerance: 2^-8 of |exact| (about one
+# bf16 rounding of the output, which both sides make) plus 2^-7 of the
+# tensor's largest |exact| (P and dS enter the tensor cores as one bf16
+# rounding each, 2^-9 of each of the S terms of a row's sum); and the kernel's
+# worst error at most 2.5x ``_sdpa``'s own on the same inputs (the one
+# rounding ``_sdpa`` does not make, dS to bf16, measured 1.4-1.9x).
+
+# (B, S, H, KV, dqk, dv, window): the per-layer heads of cells 2 and 4
+# (granite, GQA 2), cell 6 (Moonlight, one kv head per q head), the zoo's
+# 128 / 128, S off the tile, windows, and cell 6's own S = 8,192 at B = 1
+TRAIN_ATTN = [(1, 1024, 16, 8, 64, 64, None), (1, 2048, 16, 8, 64, 64, None),
+              (4, 1024, 16, 8, 64, 64, None), (1, 1024, 16, 16, 192, 128, None),
+              (1, 2048, 16, 16, 192, 128, None), (1, 2048, 16, 8, 128, 128, None),
+              (2, 1000, 4, 2, 64, 64, 100), (1, 1100, 4, 4, 192, 128, 333),
+              (1, 8192, 16, 16, 192, 128, None)]
+
+
+def _train_qkv(card, b, s, h, kv, dqk, dv, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+    return mk(b, s, h, dqk), mk(b, s, kv, dqk), mk(b, s, kv, dv), mk(b, s, h, dv)
+
+
+def _sdpa_and_grads(q, k, v, do, win, scale):
+    from repro_torch.models import attention, layers
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    s = q.shape[1]
+    out = attention._sdpa(*leaves, layers.causal_mask(s, s, 0, win, device=q.device), scale)
+    return (out.detach(),) + torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dqk,dv,win", TRAIN_ATTN)
+def test_train_attention_kernels_match_autograd_of_sdpa(card, b, s, h, kv, dqk, dv, win):
+    q, k, v, do = _train_qkv(card, b, s, h, kv, dqk, dv, seed=s + dqk)
+    scale = dqk ** -0.5
+    before = dict(fa.kernel.launch_counts)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = fa.flash_train_attention(*leaves, window=win)
+    got = (o.detach(),) + torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert {n: fa.kernel.launch_counts[n] - before[n] for n in before} == {
+        "flash_attention": 0, "flash_train_fwd": 1, "flash_train_dq": 1, "flash_train_dkdv": 1}
+    f = lambda x: x.float()
+    eo, lse_exact = fa.flash_train_forward_ref(f(q), f(k), f(v), window=win, scale=scale)
+    exact = (eo,) + fa.flash_train_backward_ref(f(q), f(k), f(v), eo, lse_exact, f(do), window=win,
+                                                scale=scale)
+    plain = _sdpa_and_grads(q, k, v, do, win, scale)
+    for name, g, ex, pl, x in zip(("o", "dq", "dk", "dv"), got, exact, plain, (o, q, k, v)):
+        want_shape = (b, s, h, dv) if name == "o" else x.shape
+        assert g.shape == want_shape and g.dtype == torch.bfloat16, name
+        bound = 2 ** -8 * ex.abs() + 2 ** -7 * float(ex.abs().max())
+        assert bool(((g.float() - ex).abs() <= bound).all()), name
+        assert _err(g, ex) <= 2.5 * _err(pl, ex) + 1e-6, (name, _err(g, ex), _err(pl, ex))
+    _, lse = fa.kernel.flash_train_forward(q, k, v, window=win)
+    assert _err(lse, lse_exact) <= 1e-5 * max(1.0, float(lse_exact.abs().max()))
+
+
+def test_train_attention_backward_is_the_same_bits_from_run_to_run(card):
+    q, k, v, do = _train_qkv(card, 1, 2048, 16, 8, 64, 64, seed=7)
+    o, lse = fa.kernel.flash_train_forward(q, k, v)
+    first = fa.kernel.flash_train_backward(q, k, v, o, lse, do)
+    for _ in range(3):
+        again = fa.kernel.flash_train_backward(q, k, v, o, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_train_attention_wrapper_raises_on_what_the_kernels_do_not_take(card):
+    q, k, v, _ = _train_qkv(card, 1, 128, 4, 2, 64, 64)
+    launches = dict(fa.kernel.launch_counts)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_train_attention(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_train_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="16-byte"):            # rows 2 bytes off
+        wide = torch.zeros((1, 128, 4, 65), dtype=torch.bfloat16, device=card)
+        fa.flash_train_attention(wide[..., 1:], k, v)
+    with pytest.raises(ValueError, match="widths"):
+        fa.flash_train_attention(q, k, v[..., :32])
+    with pytest.raises(ValueError, match="widths"):
+        fa.flash_train_attention(*_train_qkv(card, 1, 64, 2, 2, 32, 32)[:3])
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_train_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="must be"):
+        fa.flash_train_attention(q, k[:, :64], v[:, :64])
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_train_attention(q, k, v, window=0)
+    assert fa.kernel.launch_counts == launches
+    assert not fa.kernel.train_takes(q.float(), k.float(), v.float())
+    assert not fa.kernel.train_takes(q, k, v[..., :32])
+    assert fa.kernel.train_takes(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,dv", [(torch.float32, 64), (torch.bfloat16, 32)])
+def test_train_adapter_sends_f32_and_other_widths_to_sdpa_on_the_card(card, dtype, dv):
+    from repro_torch.models import attention, layers
+    q, k, v, do = (x.to(dtype) for x in _train_qkv(card, 1, 100, 4, 2, 64, dv, seed=3))
+    launches = dict(fa.kernel.launch_counts)
+    got = fa.make_train_attn_impl()(q, k, v, None, 0.125)
+    want = attention._sdpa(q, k, v, layers.causal_mask(100, 100, 0, None, device=card), 0.125)
+    assert torch.equal(got, want)
+    assert fa.kernel.launch_counts == launches
+
+
+def _mla_192(cfg):
+    """A reduced Moonlight at the full model's attention widths (q/k 192 =
+    128 + 64 rotary, v 128)."""
+    import dataclasses
+    return dataclasses.replace(cfg, head_dim=192, qk_rope_dim=64, v_head_dim=128)
+
+
+@pytest.mark.parametrize("arch,compute_dtype,per_pass", [
+    ("granite-moe-1b-a400m", torch.bfloat16, 1), ("moonlight-16b-a3b", torch.bfloat16, 1),
+    ("granite-moe-1b-a400m", None, 0)])
+def test_a_train_round_launches_the_training_attention(card, arch, compute_dtype, per_pass):
+    """One round of V = 2 vehicles through ``build_dds_train_step``'s default
+    attention: with bf16 compute, 2 L V forward launches (forward and remat's
+    recompute) and L V of each backward kernel; in f32 none. The loss within
+    the cells' 0.01 of a round through ``_sdpa``."""
+    from repro_torch.launch import steps, train
+    from repro_torch.models import attention, layers
+    cfg = get_config(arch).reduced()
+    if cfg.is_mla:
+        cfg = _mla_192(cfg)
+
+    def sdpa(q, k, v, mask, scale):
+        s = q.shape[1]
+        return attention._sdpa(q, k, v, layers.causal_mask(s, s, 0, None, device=q.device),
+                                scale)
+
+    def round_loss(attn_impl):
+        gen = torch.Generator(device=card).manual_seed(0)
+        params, opt, sm = steps.init_train_state(cfg, 2, gen)
+        tokens = torch.randint(0, cfg.true_vocab_size, (2, 2, 256), generator=gen, device=card)
+        ts = steps.build_dds_train_step(cfg, lr=1e-3, p1_steps=20, attn_impl=attn_impl,
+                                        compute_dtype=compute_dtype)
+        metrics = ts.fn(params, opt, sm, tokens, train.ring_contact(2, card),
+                        torch.full((2,), 0.5, device=card))[3]
+        return float(metrics["loss"])
+
+    fa.kernel.reset_launch_counts()
+    got = round_loss(None)
+    torch.cuda.synchronize()
+    n = cfg.num_layers * 2 * per_pass
+    assert fa.kernel.launch_counts == {"flash_attention": 0, "flash_train_fwd": 2 * n,
+                                       "flash_train_dq": n, "flash_train_dkdv": n}
+    assert abs(got - round_loss(sdpa)) <= 1e-2
+
+
 # --------------------------------------------------- the seed axis (run_seeds)
 
 def _seed_case(seeds, k, d, seed, neighbour_only):
@@ -1256,7 +1408,7 @@ def test_reduced_train_round_on_the_card_matches_the_cpu(card, arch):
     """One ``build_dds_train_step`` round of a reduced config, 4 vehicles on a
     ring, on the card against the CPU: one grouped ``gossip_mix_matmul``
     launch, mixing the stack in place (every parameter leaf keeps its
-    address), no flash launch (training attends through plain SDPA); loss,
+    address), no flash launch (an f32 round attends through plain SDPA); loss,
     kl, state matrix, parameters and moments to 1e-4."""
     from repro_torch import convert
     from repro_torch.launch import steps, train
@@ -1282,7 +1434,7 @@ def test_reduced_train_round_on_the_card_matches_the_cpu(card, arch):
     torch.cuda.synchronize()
     assert kernel.launch_counts["gossip_mix_matmul"] == 1
     assert {k: x.data_ptr() for k, x in steps.flatten(got[0]).items()} == ptrs  # in place
-    assert fa.kernel.launch_counts["flash_attention"] == 0
+    assert all(n == 0 for n in fa.kernel.launch_counts.values())
     for name in ("loss", "kl"):
         assert abs(float(got[3][name]) - float(want[3][name])) <= 1e-4
     assert _err(got[2].cpu(), want[2]) <= 1e-4

@@ -97,13 +97,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_head_dims_and_the_kernel_table():
     assert kernel.HEAD_DIMS == (16, 32, 64, 128)
-    assert set(kernel.SOURCES) == {"flash_attention"}
-    assert kernel.SOURCES["flash_attention"].is_file()
+    assert set(kernel.SOURCES) == {"flash_attention", "flash_train"}
+    assert all(source.is_file() for source in kernel.SOURCES.values())
     from repro_torch import kernels
     assert kernel in kernels.KERNEL_MODULES
-    # a source per TPU kernel, eg_solve.cu for the P1 loop over eg_step and
+    # a source per TPU kernel, eg_solve.cu for the P1 loop over eg_step,
     # grouped_mm.cu for the ragged MoE's products (jax.lax.ragged_dot's port)
-    assert sum(len(m.SOURCES) for m in kernels.KERNEL_MODULES) == 8
+    # and flash_train.cu for the train step's attention with its backward
+    assert sum(len(m.SOURCES) for m in kernels.KERNEL_MODULES) == 9
 
 
 def test_module_imports_without_nvcc_or_a_gpu():
