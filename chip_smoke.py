@@ -62,15 +62,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the launch counters, the traces and the state matrix, the
                agreement of the two formats and of the kernel path with the
                plain-torch mix.
-5. P1        — ``kernels.kl_simplex.solve_p1_all_fused`` on the dense run's final
+5. P1        — ``core.kl_solver.solve_p1_all`` on the dense run's final
                state matrix, target and next contact matrix (one ``eg_solve``
                launch, no ``eg_step``), and on a seeded K = 300 case past the
-               one-launch limit (one ``eg_step`` launch per step): each one's
-               per-row objective against the eager loop of
-               ``core.kl_solver.solve_p1_all`` (``_solve_p1_eager``), alpha on
-               the simplex and 0 off the contacts; wall time and device events
-               of the one-launch solve, of the per-step loop at the same K, of
-               that loop replayed from a CUDA graph and of the eager loop.
+               one-launch limit (its loop: one ``eg_step`` launch per step):
+               each one's per-row objective against the plain loop
+               (``kernels.kl_simplex.ref.eg_iterate`` over ``eg_step_ref``),
+               alpha on the simplex and 0 off the contacts; wall time and
+               device events of the one-launch solve, of the loop over
+               ``eg_step`` at the same K, of that loop replayed from a CUDA
+               graph and of the plain loop.
 6. baselines — ``run_simulation`` of ``dfl``, ``d_sgd``, ``d_fedavg`` and ``sp`` at the
                same full width, 2 epochs, both contact formats, through the
                gossip-mix kernels (one grouped launch per round);
@@ -1219,30 +1220,33 @@ def check_kl_kernels(device, k: int, p1_steps: int) -> dict[str, float]:
         torch.cuda.synchronize()
         check(bool((got[1] == 0).all()) and bool(torch.isfinite(got).all()),
               f"eg_step K={kk}: a row with an empty mask is all 0")
-    # the whole solve in one launch, up to the library's limit; row 1 of the
-    # contacts is empty (0 by the kernel's rule, as eg_solve_ref gives)
+    # the whole solve in one launch on dense contacts (no id table), up to the
+    # library's limit; row 1 of the contacts is empty (0 by the kernel's rule,
+    # as eg_solve_rows_ref gives)
     limit = kl_simplex.kernel.eg_solve_max_k()
     for kk in (8, k, limit):
         for steps in (1, p1_steps):
             s, g, c = _p1_case(kk, kk, kk + steps, device)
             before = kl_simplex.kernel.launch_counts["eg_solve"]
-            got = kl_simplex.eg_solve(s, g, c, num_steps=steps, step_size=2.0)
+            got = kl_simplex.eg_solve_rows(s, None, g, c, num_steps=steps, step_size=2.0)
             torch.cuda.synchronize()
             launches = kl_simplex.kernel.launch_counts["eg_solve"] - before
-            err = _max_err(got, kl_simplex.eg_solve_ref(s, g, c, num_steps=steps, step_size=2.0))
+            err = _max_err(got, kl_simplex.eg_solve_rows_ref(s, None, g, c, num_steps=steps,
+                                                             step_size=2.0))
             check(launches == 1 and got.shape == (kk, kk) and err <= ATOL[f32]
                   and bool((got[c == 0] == 0).all()) and bool((got[1] == 0).all()),
                   f"eg_solve V=K={kk}{' (the limit)' if kk == limit else ''}, {steps} steps: "
                   f"one launch, max err {err:.2e}, 0 off the contacts and on the empty row")
             worst["eg_solve"] = max(worst["eg_solve"], err)
     s, g, c = _p1_case(8, 8, 0, device)
-    for bad in (lambda: kl_simplex.eg_solve(s.to(bf16), g, c, num_steps=2),   # dtype
-                lambda: kl_simplex.eg_solve(s, g[:7].contiguous(), c, num_steps=2),
-                lambda: kl_simplex.eg_solve(s, g, c[:, :7].contiguous(), num_steps=2),
-                lambda: kl_simplex.eg_solve(s, g.cpu(), c, num_steps=2),
-                lambda: kl_simplex.eg_solve(s, g, c, num_steps=-1),
-                lambda: kl_simplex.eg_solve(*_p1_case(limit + 1, limit + 1, 0, device),
-                                            num_steps=2)):       # past the limit
+    big_s, big_g, big_c = _p1_case(limit + 1, limit + 1, 0, device)
+    solve = kl_simplex.eg_solve_rows
+    for bad in (lambda: solve(s.to(bf16), None, g, c, num_steps=2),   # dtype
+                lambda: solve(s, None, g[:7].contiguous(), c, num_steps=2),
+                lambda: solve(s, None, g, torch.ones(8, 9, device=device), num_steps=2),
+                lambda: solve(s, None, g.cpu(), c, num_steps=2),
+                lambda: solve(s, None, g, c, num_steps=-1),
+                lambda: solve(big_s, None, big_g, big_c, num_steps=2)):   # past the limit
         try:
             bad()
         except (ValueError, TypeError):
@@ -1320,8 +1324,10 @@ def time_kl_kernels(device, k: int, p1_steps: int) -> dict[str, dict]:
     # the solve: S, g and the mask read once, alpha written once; two
     # [V, V] x [V, K] products of FMAs per step
     s, g, c = _p1_case(k, k, k, device)
-    solve = _timed(lambda: kl_simplex.eg_solve(s, g, c, num_steps=p1_steps, step_size=2.0),
-                   lambda: kl_simplex.eg_solve_ref(s, g, c, num_steps=p1_steps, step_size=2.0),
+    solve = _timed(lambda: kl_simplex.eg_solve_rows(s, None, g, c, num_steps=p1_steps,
+                                                    step_size=2.0),
+                   lambda: kl_simplex.eg_solve_rows_ref(s, None, g, c, num_steps=p1_steps,
+                                                        step_size=2.0),
                    None, 4 * (k * k + k + 2 * k * k), p1_steps * 2 * 2 * k * k * k,
                    f"one P1 solve in one launch: {p1_steps} EG steps, V=K={k}, f32",
                    inner=2, reps=5, warm=2)
@@ -3635,18 +3641,24 @@ def _wall_s(fn) -> float:
     return _seconds(fn)[1]
 
 
+def _plain_p1(cfg: SimulationConfig, states, target, contact_matrix):
+    """The P1 loop with the plain EG step on any device: ``ref.eg_iterate``
+    over ``eg_step_ref``."""
+    return kl_simplex.ref.eg_iterate(states, target, contact_matrix, cfg.p1_steps,
+                                     cfg.p1_step_size, kl_simplex.eg_step_ref)
+
+
 def _check_p1(cfg: SimulationConfig, states, target, contact_matrix, want: str):
-    """``solve_p1_all_fused`` held to the eager solver by the per-row P1
+    """``core.kl_solver.solve_p1_all`` held to the plain loop by the per-row P1
     objective (atol 1e-5, the criterion of tests/test_kernels.py), alpha on
     the simplex and 0 off the contacts; on the card, exactly one ``eg_solve``
     launch (``want="eg_solve"``) or one ``eg_step`` launch per step
-    (``want="eg_step"``) and none of the other. Returns (alpha, the eager
-    solver's alpha, the two kernels' launches)."""
+    (``want="eg_step"``) and none of the other. Returns (alpha, the plain
+    loop's alpha, the two kernels' launches)."""
     kw = dict(num_steps=cfg.p1_steps, step_size=cfg.p1_step_size)
-    eager_alpha = kl_solver._solve_p1_eager(states, target, contact_matrix, cfg.p1_steps,
-                                            cfg.p1_step_size)
+    eager_alpha = _plain_p1(cfg, states, target, contact_matrix)
     kernels_lib.reset_launch_counts()
-    alpha = kl_simplex.solve_p1_all_fused(states, target, contact_matrix, **kw)
+    alpha = kl_solver.solve_p1_all(states, target, contact_matrix, **kw)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     launches = {n: kl_simplex.kernel.launch_counts[n] for n in ("eg_solve", "eg_step")}
@@ -3658,7 +3670,7 @@ def _check_p1(cfg: SimulationConfig, states, target, contact_matrix, want: str):
     err = _max_err(kl_solver.kl_objective(alpha, states, target),
                    kl_solver.kl_objective(eager_alpha, states, target))
     check(alpha.shape == contact_matrix.shape and err <= 1e-5,
-          f"fused P1 per-row objective vs the eager solver: max diff {err:.2e} "
+          f"P1 per-row objective vs the plain loop: max diff {err:.2e} "
           f"(K={k}, {cfg.p1_steps} steps, step {cfg.p1_step_size})")
     check(bool((alpha[contact_matrix == 0] == 0).all()), f"K={k}: alpha is 0 off the contacts")
     rows = alpha.sum(dim=1)
@@ -3683,14 +3695,15 @@ def _graph_of(fn):
 
 def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix,
                    k_past_limit: int, seed: int) -> dict[str, int]:
-    """``solve_p1_all_fused`` at full width on a real state matrix (one
-    ``eg_solve`` launch), then on a seeded K = ``k_past_limit`` problem past
-    the one-launch limit (one ``eg_step`` launch per step), both held to the
-    eager solver. Prints, as facts, the wall time and device events of the
-    one-launch solve, of the per-step loop at the same K, of that loop
-    replayed from a CUDA graph, and of the eager solve. Returns the launches
-    of the full-width solve's kernel and of the per-step case's, and the
-    facts (None off the card)."""
+    """``core.kl_solver.solve_p1_all`` at full width on a real state matrix
+    (one ``eg_solve`` launch), then on a seeded K = ``k_past_limit`` problem
+    past the one-launch limit (its loop: one ``eg_step`` launch per step),
+    both held to the plain loop. Prints, as facts, the wall time and device
+    events of the one-launch solve (``one_launch``), of the loop over the
+    ``eg_step`` kernel at the same K (``per_step``), of that loop replayed
+    from a CUDA graph, and of the plain loop (``eager``). Returns the
+    launches of the full-width solve's kernel and of the per-step case's,
+    and the facts (None off the card)."""
     alpha, eager_alpha, first = _check_p1(cfg, states, target, contact_matrix, "eg_solve")
     big = _p1_case(k_past_limit, k_past_limit, seed, states.device, empty_row=False)
     if states.is_cuda:
@@ -3705,14 +3718,16 @@ def check_fused_p1(cfg: SimulationConfig, states, target, contact_matrix,
     g = target.to(torch.float32).contiguous()
     m = contact_matrix.to(torch.float32).contiguous()
     kw = dict(num_steps=cfg.p1_steps, step_size=cfg.p1_step_size)
+
+    def per_step():
+        return kl_simplex.ref.eg_iterate(s, g, m, cfg.p1_steps, cfg.p1_step_size,
+                                         kl_simplex.eg_step)
+
     runs = {
-        "one_launch": lambda: kl_simplex.solve_p1_all_fused(states, target, contact_matrix, **kw),
-        "per_step": lambda: kl_simplex.ops._solve_per_step(s, g, m, cfg.p1_steps,
-                                                          cfg.p1_step_size),
-        "per_step_cuda_graph_replay": _graph_of(
-            lambda: kl_simplex.ops._solve_per_step(s, g, m, cfg.p1_steps, cfg.p1_step_size)),
-        "eager": lambda: kl_solver._solve_p1_eager(states, target, contact_matrix,
-                                                   cfg.p1_steps, cfg.p1_step_size),
+        "one_launch": lambda: kl_solver.solve_p1_all(s, g, m, **kw),
+        "per_step": per_step,
+        "per_step_cuda_graph_replay": _graph_of(per_step),
+        "eager": lambda: _plain_p1(cfg, s, g, m),
     }
     facts = {name: {"wall_s": _wall_s(fn), "device_events": _device_events(fn)}
              for name, fn in runs.items()}
@@ -4178,7 +4193,7 @@ def main() -> int:
     log(f"[main path] {json.dumps({'per_epoch': reports})}")
 
     # -- 5. the P1 entry point at full width (the dense run's last state) ---
-    log("[P1] solve_p1_all_fused vs the eager loop of core.kl_solver.solve_p1_all")
+    log("[P1] core.kl_solver.solve_p1_all vs the plain loop of kernels.kl_simplex.ref")
     with engine.full_f32_matmul():
         p1_launches, p1_facts = check_fused_p1(full, ctx.final_state.state_matrix, ctx.target,
                                                next_contacts, P1_K_PAST_LIMIT, args.seed)

@@ -14,10 +14,10 @@ of the grad product), ``update`` (the wait, then warp 0's EG update of the
 row) and ``last_barrier``. Beside them: the uninstrumented kernel's time per
 solve (CUDA events, all rows) and per step, and the SM clock it implies.
 
-Two forms, one line each: the dense form (``eg_solve``: a seeded ``[K, K]``
-problem with a row of alpha per K, for each ``--k``) and the id-table form
-that ``core.kl_solver.solve_p1_all`` runs on neighbour lists
-(``eg_solve_rows``: ``--stream-k`` vehicles, the ids and mask of epoch 0 of a
+Two layouts of the one wrapper ``eg_solve_rows``, one line each: dense
+contacts (no id table: a seeded ``[K, K]`` problem with a row of alpha per K,
+for each ``--k``) and the neighbour lists ``core.kl_solver.solve_p1_all``
+passes as ids (``--stream-k`` vehicles, the ids and mask of epoch 0 of a
 real contact stream at the paper's settings over 50 epochs, D = its D_max);
 the dense lines include ``--stream-k``.
 """
@@ -76,10 +76,10 @@ def instrumented_source(out_dir: Path) -> Path:
     src = src.replace("template <int ITEMS, bool kRows>\ncudaError_t launch(",
                       "long long* g_prof = nullptr;\n\ntemplate <int ITEMS, bool kRows>\n"
                       "cudaError_t launch(", 1)
-    src = src.replace('extern "C" int eg_solve_launch(',
+    src = src.replace('extern "C" int eg_solve_rows_launch(',
                       'extern "C" void eg_solve_set_prof(long long* p) { g_prof = p; }\n\n'
-                      'extern "C" int eg_solve_launch(', 1)
-    if src.count("MARK(") != 6 or "g_prof);" not in src:
+                      'extern "C" int eg_solve_rows_launch(', 1)
+    if src.count("MARK(") != 6 or "g_prof);" not in src or "eg_solve_set_prof" not in src:
         raise SystemExit("could not place the phase marks in eg_solve.cu")
     path = out_dir / "eg_solve.cu"
     path.write_text(src)
@@ -147,8 +147,6 @@ def main() -> int:
     source = instrumented_source(build_lib.build_dir() / "eg_solve_phases")
     lib, = build_lib.load_libraries([source])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.eg_solve_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, ptr]
-    lib.eg_solve_launch.restype = i32
     lib.eg_solve_rows_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
                                          ctypes.c_float, ptr]
     lib.eg_solve_rows_launch.restype = i32
@@ -160,12 +158,12 @@ def main() -> int:
     def dense(k, s, g, c):
         one = c[:1].contiguous()
         out = torch.empty(1, k, device="cuda")
-        code = lib.eg_solve_launch(s.data_ptr(), g.data_ptr(), one.data_ptr(), out.data_ptr(),
-                                   1, k, k, args.steps, 2.0, stream)
+        code = lib.eg_solve_rows_launch(s.data_ptr(), None, g.data_ptr(), one.data_ptr(),
+                                        out.data_ptr(), 1, 1, k, k, k, args.steps, 2.0, stream)
         if code != 0:
             raise SystemExit(f"FAILED: the instrumented launch returned {code}")
         torch.cuda.synchronize()
-        ms = time_ms(lambda: kernel.eg_solve(s, g, c, num_steps=args.steps))
+        ms = time_ms(lambda: kernel.eg_solve_rows(s, None, g, c, num_steps=args.steps))
         return phase_line("dense", k, k, args.steps, prof, ms)
 
     for k in sorted(set(args.k) | {args.stream_k}):

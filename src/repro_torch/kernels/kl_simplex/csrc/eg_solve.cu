@@ -10,31 +10,26 @@
 //       grad  = (log u - log max(g_r, 1e-12) + 1) @ S_r^T  [D]
 //       alpha = the EG update of (alpha, grad, m_r) (eg_update.cuh)
 //
-// The same iteration as the per-step loop over eg_step.cu and as the eager
-// loop of core/kl_solver.py, with the two products in full f32 on the CUDA
-// cores (no TF32). A row whose mask is all zero gives 0, by the TPU kernel's
-// rule.
+// The same iteration as the loop ref.eg_iterate of
+// src/repro_torch/kernels/kl_simplex/ref.py (over eg_step.cu on the card),
+// with the two products in full f32 on the CUDA cores (no TF32). A row whose
+// mask is all zero gives 0, by the TPU kernel's rule.
 //
-// Two forms over one kernel body:
-// * dense (eg_solve_launch): one shared S [D, K] and one target for all R
-//   rows, the form of solve_p1_all_fused on a [K, K] contact matrix;
-// * id table (eg_solve_rows_launch): states [S, N, K] (S seeds of N rows,
-//   folded into one [S * N, K] array), ids [S, R, D] int32 (or none: the
-//   identity, row j of its seed's N), targets [S, K] and masks [S, R, D].
-//   Block b = s * R + r stages rows s * N + ids[s, r, j] of the states and
-//   reads target row s, so a seed axis costs no copy (no repeat of the
-//   targets, no offset ids). This is the layout core/kl_solver.py solves
-//   on: neighbour lists (ids = SparseContacts.idx, whose padding slots carry
-//   the row's own id with mask 0: staged, and given alpha 0, as the eager
-//   gather does) and dense contacts with a seed axis (identity ids).
+// One entry, on an id table (eg_solve_rows_launch): states [S, N, K] (S seeds
+// of N rows, folded into one [S * N, K] array), ids [S, R, D] int32 (or none:
+// the identity, row j of its seed's N), targets [S, K] and masks [S, R, D].
+// Block b = s * R + r stages rows s * N + ids[s, r, j] of the states and
+// reads target row s, so a seed axis costs no copy (no repeat of the
+// targets, no offset ids). core/kl_solver.py solves every layout on it:
+// neighbour lists (ids = SparseContacts.idx, whose padding slots carry the
+// row's own id with mask 0: staged, and given alpha 0, as the loop's gather
+// does) and dense contacts (no ids), with a seed axis or without.
 //
-// Replaces the eager loop of src/repro_torch/core/kl_solver.py
-// (_eg_solve over the [R, D, K] gather of _solve_p1_neighbours: about 25
-// launches a step) and the loop of
-// src/repro/kernels/kl_simplex/ops.py::solve_p1_all_fused over the Pallas
-// TPU kernel `_eg_step_kernel` / `eg_step` in
-// src/repro/kernels/kl_simplex/kernel.py: one launch where those loops
-// make one or more per step (and the products between them).
+// Replaces the reference's fused P1 loop (src/repro/kernels/kl_simplex/ops.py)
+// over the Pallas TPU kernel `_eg_step_kernel` / `eg_step` in
+// src/repro/kernels/kl_simplex/kernel.py, and on the card the loop of
+// ref.eg_iterate (about nine device events a step: eg_step, the two products
+// and the elementwise ops between them): one launch for the whole solve.
 //
 // What bounds it on this card: neither bytes nor operations but the chain of
 // dependent steps. At the paper's D = K = 100 a step is 2 x 10^4 FMAs per row
@@ -46,7 +41,7 @@
 // (four dependent warp reductions, a log, an exp and three divisions). On an
 // H100 at 700 W that chain takes 5,100 cycles at K = 100 (u 1,300, log u
 // 350, grad 1,150, update 2,300) and 3,300 at K = 8, most of it latency
-// (scripts/torch_profile_eg_solve.py prints the split, for both forms). On
+// (scripts/torch_profile_eg_solve.py prints the split, with and without ids). On
 // neighbour lists (D = D_max, a tenth of K) the products shrink with D and
 // the update does not: 3,750 cycles on the [100, 11] ids of a K = 100
 // contact stream (u 440, log u 340, grad 750, update 2,200), not D / K of
@@ -76,17 +71,19 @@
 // update with branches) took 0.82 ms per 200-step solve at K = 100; this one
 // 0.52 ms (chip_smoke.py). The id table adds a read of the row's id to each
 // staged chunk (from L1 after the first) and leaves the step loop as it was;
-// the dense form does not read it (a template flag), so its code is the one
-// that was timed. On those ids a solve takes 0.37 ms against 55 ms of the
-// eager loop (chip_smoke.py).
+// with no table and one seed the launcher takes the dense instantiation (a
+// template flag), which reads neither ids nor seed offsets: at K = 100 it
+// takes 0.496 ms a solve where the table form takes 0.503 (CUDA events, one
+// call). On the ids of a K = 100 contact stream a solve takes 0.37 ms
+// against 55 ms of the plain loop (chip_smoke.py).
 //
 // Why it does not serve every shape: a block's S has to fit its shared
 // memory (D x K x 4 bytes plus rows of length K and D: up to D = K = 234 in
 // the H100's 227 KB; at K = 1,024 up to D = 46), and a row's lanes keep
 // ceil(max(D, K) / 32) <= 32 values in registers (D, K <= 1024). The
 // library reports the limit (eg_solve_fits / eg_solve_max_k); past it
-// core/kl_solver.py keeps the eager loop and `solve_p1_all_fused` the
-// per-step loop: cuBLAS f32 products plus one eg_step launch per step. At
+// core/kl_solver.py runs the loop of ref.eg_iterate: cuBLAS f32 products
+// plus one eg_step launch per step. At
 // the scale sweep's dense K = 1024, S is 4 MB: streamed from L2 by each of
 // 1,024 blocks for both products it would move 8 GB a step, where the
 // library's two products read it about twice.
@@ -165,9 +162,9 @@ __device__ __forceinline__ void fma4(float w, const float4& x, float4& acc) {
   acc.w = fmaf(w, x.w, acc.w);
 }
 
-// kRows: the id-table form (states of `rows_n` rows per seed, `ids` per block
-// or the identity where null, a target per seed of `rows_r` blocks); else
-// the dense form, which reads neither.
+// kRows: states of `rows_n` rows per seed, `ids` per block (the identity
+// where null), a target per seed of `rows_r` blocks; else one seed's states,
+// rows 0..d-1, and its target (the dense form, which reads neither)
 template <int ITEMS, bool kRows>
 __global__ void __launch_bounds__(kBlockThreads)
     eg_solve_kernel(const float* __restrict__ states, const int* __restrict__ ids,
@@ -428,26 +425,12 @@ extern "C" int eg_solve_max_k(int* n_out) {
   return cudaSuccess;
 }
 
-// One launch of num_steps >= 0 EG steps, the dense form: states [d, k],
-// target [k], mask [r, d] -> out [r, d], all f32 and contiguous, r >= 1.
-// Returns the launch's cudaError_t (0 = ok); cudaErrorInvalidValue for a
-// shape that does not fit (eg_solve_fits) or a grid past its limit.
-extern "C" int eg_solve_launch(const float* states, const float* target,
-                               const float* mask, float* out, int r, int d, int k,
-                               int num_steps, float step, void* stream) {
-  int limit = 0;
-  const cudaError_t err = smem_limit(&limit);
-  if (err != cudaSuccess) return err;
-  if (r < 1 || num_steps < 0 || !fits(d, k, limit)) return cudaErrorInvalidValue;
-  return launch_items<false>(states, nullptr, target, mask, out, r, r, d, d, k, num_steps,
-                             step, static_cast<cudaStream_t>(stream));
-}
-
-// One launch of num_steps >= 0 EG steps, the id-table form: states
+// One launch of num_steps >= 0 EG steps: states
 // [seeds, n, k], ids [seeds, r, d] int32 in [0, n) or null (the identity:
 // d <= n), target [seeds, k], mask [seeds, r, d] -> out [seeds, r, d], all
 // f32 but ids and contiguous, seeds, r >= 1. Block s * r + v stages rows
-// s * n + ids[s, v, :] of the states. Returns the launch's cudaError_t
+// s * n + ids[s, v, :] of the states; with no ids and one seed, the dense
+// instantiation stages rows 0..d-1. Returns the launch's cudaError_t
 // (0 = ok); cudaErrorInvalidValue for a shape that does not fit
 // (eg_solve_fits) or a grid past its limit. The ids are not checked here.
 extern "C" int eg_solve_rows_launch(const float* states, const int* ids, const float* target,
@@ -460,8 +443,12 @@ extern "C" int eg_solve_rows_launch(const float* states, const int* ids, const f
   if (seeds < 1 || r < 1 || n < 1 || num_steps < 0 || !fits(d, k, limit) ||
       blocks > 0x7fffffffLL || (ids == nullptr && d > n))
     return cudaErrorInvalidValue;
-  return launch_items<true>(states, ids, target, mask, out, static_cast<int>(blocks), r, n,
-                            d, k, num_steps, step, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ids == nullptr && seeds == 1)
+    return launch_items<false>(states, nullptr, target, mask, out, r, r, n, d, k, num_steps,
+                               step, st);
+  return launch_items<true>(states, ids, target, mask, out, static_cast<int>(blocks), r, n, d,
+                            k, num_steps, step, st);
 }
 
 extern "C" const char* eg_solve_error_string(int code) {

@@ -8,13 +8,12 @@
   block from V and K;
 * ``eg_step(alpha, grad, mask, step_size=)`` — one masked
   exponentiated-gradient step of the P1 solver per row (``csrc/eg_step.cu``);
-* ``eg_solve(states, target, mask, num_steps=, step_size=)`` — every EG step
-  of a P1 solve in one launch (``csrc/eg_solve.cu``), for a state matrix
-  that fits one block's shared memory (``eg_solve_fits``, ``eg_solve_max_k``);
-* ``eg_solve_rows(states, ids, target, mask, num_steps=, step_size=)`` — the
-  same kernel on an id table: each row of alpha stages its own rows of the
-  states (neighbour lists, a seed axis), the form ``core.kl_solver`` solves
-  on.
+* ``eg_solve_rows(states, ids, target, mask, num_steps=, step_size=)`` —
+  every EG step of a P1 solve in one launch (``csrc/eg_solve.cu``) on an id
+  table: each row of alpha stages its own rows of the states (neighbour
+  lists; no table: the first D rows, dense contacts; a seed axis), where they
+  fit one block's shared memory (``eg_solve_fits``, ``eg_solve_max_k``). It
+  is the one-launch route of ``core.kl_solver.solve_p1_all``.
 
 Counterparts of the Pallas kernels of ``repro.kernels.kl_simplex.kernel``.
 The sources carry their design notes. They are compiled by ``nvcc`` at first
@@ -50,6 +49,9 @@ SOURCES = {
     "entropy_rows": CSRC / "entropy_rows.cu",
 }
 
+# each library's launch function
+_ENTRIES = {**{name: f"{name}_launch" for name in SOURCES}, "eg_solve": "eg_solve_rows_launch"}
+
 # launches per kernel since the last reset_launch_counts()
 launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -72,11 +74,8 @@ def build() -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs["eg_step"].eg_step_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
                                                ctypes.c_float, i32, ptr]
-    libs["eg_solve"].eg_solve_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                                 i32, ctypes.c_float, ptr]
     libs["eg_solve"].eg_solve_rows_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                                       i32, i32, i32, ctypes.c_float, ptr]
-    libs["eg_solve"].eg_solve_rows_launch.restype = i32
     libs["eg_solve"].eg_solve_fits.argtypes = [i32, i32, ctypes.POINTER(i32)]
     libs["eg_solve"].eg_solve_fits.restype = i32
     libs["eg_solve"].eg_solve_max_k.argtypes = [ctypes.POINTER(i32)]
@@ -87,7 +86,7 @@ def build() -> None:
     libs["entropy_rows"].entropy_rows_launch.argtypes = [ptr, ptr, i32, i32, i32,
                                                          ptr]
     for name, lib in libs.items():
-        getattr(lib, f"{name}_launch").restype = i32
+        getattr(lib, _ENTRIES[name]).restype = i32
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
@@ -115,13 +114,12 @@ def _raise_on(code: int, name: str) -> None:
                            f"({text.decode() if text else '?'})")
 
 
-def _launch(name: str, out: Tensor, *args, entry: str | None = None) -> Tensor:
-    """Launch ``name``'s kernel through the library's ``entry`` (default
-    ``<name>_launch``) on the current stream of ``out``'s device."""
+def _launch(name: str, out: Tensor, *args) -> Tensor:
+    """Launch ``name``'s kernel on the current stream of ``out``'s device."""
     build()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(_LIBS[name], entry or f"{name}_launch")(*args, stream)
+        code = getattr(_LIBS[name], _ENTRIES[name])(*args, stream)
     _raise_on(code, name)
     launch_counts[name] += 1
     return out
@@ -203,8 +201,8 @@ def _device_query(fn_name: str, *args, device=None) -> int:
 
 
 def eg_solve_fits(d: int, k: int, device=None) -> bool:
-    """Whether ``eg_solve`` / ``eg_solve_rows`` take ``[d, k]`` states per row
-    of alpha on ``device``: they fit one block's shared memory there (builds
+    """Whether ``eg_solve_rows`` takes ``[d, k]`` states per row of alpha on
+    ``device``: they fit one block's shared memory there (builds
     the kernels on first use). The answer is kept per (d, k, device), so that
     a route by shape costs the host a dictionary look-up."""
     index = None if device is None else torch.device(device).index
@@ -217,72 +215,30 @@ def _fits(d: int, k: int, index: int) -> bool:
 
 
 def eg_solve_max_k(device=None) -> int:
-    """The largest K for which ``eg_solve`` takes a ``[K, K]`` state matrix on
-    ``device`` (builds the kernels on first use)."""
+    """The largest K for which ``eg_solve_rows`` takes a ``[K, K]`` state
+    matrix on ``device`` (builds the kernels on first use)."""
     return _device_query("eg_solve_max_k", device=device)
 
 
 def eg_solve_smem_bytes(d: int, k: int) -> int:
-    """Shared memory one block of ``eg_solve`` takes for a ``[d, k]`` state
+    """Shared memory one block of ``eg_solve_rows`` takes for a ``[d, k]`` state
     matrix (builds the kernels on first use)."""
     build()
     return int(_LIBS["eg_solve"].eg_solve_smem_bytes(d, k))
 
 
-def eg_solve(states: Tensor, target: Tensor, mask: Tensor, *, num_steps: int,
-             step_size: float = 2.0) -> Tensor:
-    """Every exponentiated-gradient step of a P1 solve in one launch: states
-    ``[D, K]``, target ``[K]``, mask ``[R, D]`` (0/1 contacts), all f32 and
-    contiguous on one device -> alpha ``[R, D]`` f32 after ``num_steps``
-    steps from ``mask / max(sum mask, 1)``, rows on the simplex, exactly 0
-    off the mask (a row with an empty mask is all 0). Raises on a shape that
-    does not fit one block (``eg_solve_fits``): ``ops.solve_p1_all_fused``
-    takes the per-step loop there."""
-    name = "eg_solve"
-    _check_rows(states, "states", name)
-    _check_rows(mask, "mask", name)
-    for what, t in (("target", target), ("mask", mask)):
-        if t.device != states.device:
-            raise ValueError(f"{name}: {what} is on {t.device}, states on {states.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
-    if states.dtype != torch.float32:
-        raise TypeError(f"{name}: states must be float32, got {states.dtype}")
-    d, k = states.shape
-    if target.shape != (k,) or not target.is_contiguous():
-        raise ValueError(f"{name}: target must be a contiguous [K] = [{k}] tensor, got "
-                         f"shape {tuple(target.shape)}")
-    if mask.shape[1] != d:
-        raise ValueError(f"{name}: mask {tuple(mask.shape)} does not match states "
-                         f"{tuple(states.shape)}: one column per row of states")
-    if int(num_steps) != num_steps or num_steps < 0:
-        raise ValueError(f"{name}: num_steps must be an integer >= 0, got {num_steps}")
-    step = float(step_size)
-    if not math.isfinite(step):
-        raise ValueError(f"{name}: step_size must be finite, got {step_size}")
-    if not eg_solve_fits(d, k, states.device):
-        raise ValueError(
-            f"{name}: states [{d}, {k}] do not fit one block "
-            f"({eg_solve_smem_bytes(d, k)} B of shared memory; the largest square state "
-            f"matrix is [{eg_solve_max_k(states.device)}]^2): solve_p1_all_fused takes "
-            "the per-step loop there")
-    r = mask.shape[0]
-    out = torch.empty((r, d), dtype=torch.float32, device=states.device)
-    if r == 0:
-        return out
-    return _launch(name, out, states.data_ptr(), target.data_ptr(), mask.data_ptr(),
-                   out.data_ptr(), r, d, k, int(num_steps), step)
-
-
 def eg_solve_rows(states: Tensor, ids: Tensor | None, target: Tensor, mask: Tensor, *,
                   num_steps: int, step_size: float = 2.0) -> Tensor:
-    """``eg_solve`` on an id table, in one launch: row r of alpha solves P1
-    over its own ``D`` candidate rows of the states, ``states[ids[r]]``.
+    """Every exponentiated-gradient step of a P1 solve in one launch: row r of
+    alpha solves P1 over its own ``D`` candidate rows of the states,
+    ``states[ids[r]]``.
 
     ``states`` ``[N, K]``, ``ids`` ``[R, D]`` int32 in ``[0, N)`` (or None: the
     identity, every row over ``states[:D]``), ``target`` ``[K]``, ``mask``
     ``[R, D]`` (0/1 contacts), f32 but the ids, contiguous, on one device ->
-    alpha ``[R, D]`` f32, as ``eg_solve`` gives it. With a leading seed axis
+    alpha ``[R, D]`` f32 after ``num_steps`` steps from ``mask / max(sum
+    mask, 1)``, rows on the simplex, exactly 0 off the mask (a row with an
+    empty mask is all 0). With a leading seed axis
     (``states`` ``[S, N, K]``, ``ids`` / ``mask`` ``[S, R, D]``, ``target``
     ``[S, K]``) row r of seed s reads ``states[s, ids[s, r]]`` and
     ``target[s]`` -> ``[S, R, D]``. Padding slots (the row's own id with
@@ -332,10 +288,10 @@ def eg_solve_rows(states: Tensor, ids: Tensor | None, target: Tensor, mask: Tens
         raise ValueError(
             f"{name}: [{d}, {k}] states per row do not fit one block "
             f"({eg_solve_smem_bytes(d, k)} B of shared memory): core.kl_solver takes the "
-            "eager loop there")
+            "loop of ref.eg_iterate there")
     out = torch.empty(mask.shape, dtype=torch.float32, device=states.device)
     if s * r == 0:
         return out
     return _launch(name, out, states.data_ptr(), None if ids is None else ids.data_ptr(),
                    target.data_ptr(), mask.data_ptr(), out.data_ptr(), s, r, n, d, k,
-                   int(num_steps), step, entry="eg_solve_rows_launch")
+                   int(num_steps), step)

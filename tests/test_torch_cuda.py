@@ -471,17 +471,16 @@ def test_fused_p1_solver_on_the_card_matches_the_cpu(card):
     c = torch.as_tensor(np.minimum((r.random((k, k)) < 0.1) + (r.random((k, k)) < 0.1).T
                                    + np.eye(k), 1).astype(np.float32))
     kl_simplex.kernel.reset_launch_counts()
-    on_card = kl_simplex.solve_p1_all_fused(s.to(card), g.to(card), c.to(card),
-                                            num_steps=200, step_size=2.0)
+    on_card = kl_solver.solve_p1_all(s.to(card), g.to(card), c.to(card),
+                                     num_steps=200, step_size=2.0)
     torch.cuda.synchronize()
     assert kl_simplex.kernel.launch_counts["eg_solve"] == 1
     assert kl_simplex.kernel.launch_counts["eg_step"] == 0
-    on_cpu = kl_simplex.solve_p1_all_fused(s, g, c, num_steps=200, step_size=2.0)
+    on_cpu = kl_solver.solve_p1_all(s, g, c, num_steps=200, step_size=2.0)
     assert _err(on_card.cpu(), on_cpu) <= 1e-5
     assert bool((on_card.cpu()[c == 0] == 0).all())
     obj = kl_solver.kl_objective(on_card.cpu(), s, g)
-    eager = kl_solver.kl_objective(kl_solver.solve_p1_all(s, g, c, num_steps=200), s, g)
-    assert _err(obj, eager) <= 1e-5
+    assert _err(obj, kl_solver.kl_objective(on_cpu, s, g)) <= 1e-5
 
 
 def _p1_case(v, k, seed, card, empty_row=True):
@@ -501,17 +500,18 @@ def _p1_case(v, k, seed, card, empty_row=True):
 @pytest.mark.parametrize("num_steps", [1, 200])
 @pytest.mark.parametrize("k", [8, 100, "limit"])
 def test_eg_solve_kernel_matches_plain_version(card, k, num_steps):
-    """The whole solve in one launch against ``eg_solve_ref`` at V = K = 8,
-    100 and the library's limit, one and 200 steps: f32 atol 1e-5, exactly 0
-    off the contacts and on the row with none."""
+    """The whole solve in one launch on dense contacts (no id table) against
+    its plain version at V = K = 8, 100 and the library's limit, one and 200
+    steps: f32 atol 1e-5, exactly 0 off the contacts and on the row with
+    none."""
     k = kl_simplex.kernel.eg_solve_max_k() if k == "limit" else k
     s, g, c = _p1_case(k, k, k + num_steps, card)
     before = dict(kl_simplex.kernel.launch_counts)
-    got = kl_simplex.eg_solve(s, g, c, num_steps=num_steps, step_size=2.0)
+    got = kl_simplex.eg_solve_rows(s, None, g, c, num_steps=num_steps, step_size=2.0)
     torch.cuda.synchronize()
     assert kl_simplex.kernel.launch_counts["eg_solve"] == before["eg_solve"] + 1
     assert kl_simplex.kernel.launch_counts["eg_step"] == before["eg_step"]
-    want = kl_simplex.eg_solve_ref(s, g, c, num_steps=num_steps, step_size=2.0)
+    want = kl_simplex.eg_solve_rows_ref(s, None, g, c, num_steps=num_steps, step_size=2.0)
     assert got.shape == (k, k) and got.dtype == torch.float32
     assert _err(got, want) <= 1e-5
     assert bool((got[c == 0] == 0).all()) and bool((got[1] == 0).all())
@@ -527,55 +527,59 @@ def test_eg_solve_kernel_on_rectangular_and_unaligned_states(card):
         s = torch.as_tensor(r.dirichlet(np.ones(k), size=d).astype(np.float32)).to(card)
         g = torch.as_tensor(r.dirichlet(np.ones(k)).astype(np.float32)).to(card)
         m = torch.as_tensor((r.random((rows, d)) < 0.4).astype(np.float32)).to(card)
-        got = kl_simplex.eg_solve(s, g, m, num_steps=50)
-        want = kl_simplex.eg_solve_ref(s, g, m, num_steps=50)
+        got = kl_simplex.eg_solve_rows(s, None, g, m, num_steps=50)
+        want = kl_simplex.eg_solve_rows_ref(s, None, g, m, num_steps=50)
         torch.cuda.synchronize()
         assert got.shape == (rows, d)
         assert _err(got, want) <= 1e-5 and bool((got[m == 0] == 0).all())
 
 
 def test_p1_solve_past_the_limit_takes_the_per_step_loop(card):
-    """K = 300 does not fit one block: ``eg_solve`` raises, and
-    ``solve_p1_all_fused`` takes one ``eg_step`` launch per step, held to the
-    same checks."""
+    """K = 300 does not fit one block: ``eg_solve_rows`` raises, and
+    ``solve_p1_all`` takes one ``eg_step`` launch per step, held to the same
+    checks and to the plain loop on the CPU."""
     from repro_torch.core import kl_solver
     k = 300
     assert not kl_simplex.kernel.eg_solve_fits(k, k)
     assert kl_simplex.kernel.eg_solve_fits(100, 100)
     s, g, c = _p1_case(k, k, 5, card, empty_row=False)
     with pytest.raises(ValueError, match="do not fit"):
-        kl_simplex.eg_solve(s, g, c, num_steps=40)
+        kl_simplex.eg_solve_rows(s, None, g, c, num_steps=40)
     kl_simplex.kernel.reset_launch_counts()
-    alpha = kl_simplex.solve_p1_all_fused(s, g, c, num_steps=40, step_size=2.0)
+    kl_solver.reset_solve_counts()
+    alpha = kl_solver.solve_p1_all(s, g, c, num_steps=40, step_size=2.0)
     torch.cuda.synchronize()
     assert kl_simplex.kernel.launch_counts["eg_step"] == 40
     assert kl_simplex.kernel.launch_counts["eg_solve"] == 0
-    assert _err(alpha, kl_simplex.eg_solve_ref(s, g, c, num_steps=40)) <= 1e-5
+    assert kl_solver.solve_counts == {"kernel": 0, "eager": 1}
+    assert _err(alpha, kl_simplex.eg_solve_rows_ref(s, None, g, c, num_steps=40)) <= 1e-5
     assert bool((alpha[c == 0] == 0).all())
     rows = alpha.sum(1)
     assert torch.allclose(rows, torch.ones_like(rows), atol=1e-5)
-    eager = kl_solver.solve_p1_all(s, g, c, num_steps=40, step_size=2.0)
-    assert _err(kl_solver.kl_objective(alpha, s, g), kl_solver.kl_objective(eager, s, g)) <= 1e-5
+    plain = kl_solver.solve_p1_all(s.cpu(), g.cpu(), c.cpu(), num_steps=40, step_size=2.0)
+    assert _err(kl_solver.kl_objective(alpha.cpu(), s.cpu(), g.cpu()),
+                kl_solver.kl_objective(plain, s.cpu(), g.cpu())) <= 1e-5
 
 
 def test_eg_solve_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    """Dense contacts (no id table) on what the kernel does not take."""
     s, g, c = _p1_case(8, 8, 0, card)
     with pytest.raises(TypeError):
-        kl_simplex.eg_solve(s.to(torch.bfloat16), g, c, num_steps=2)
+        kl_simplex.eg_solve_rows(s.to(torch.bfloat16), None, g, c, num_steps=2)
     with pytest.raises(TypeError):
-        kl_simplex.eg_solve(s, g.double(), c, num_steps=2)
+        kl_simplex.eg_solve_rows(s, None, g.double(), c, num_steps=2)
     with pytest.raises(ValueError):           # target of the wrong length
-        kl_simplex.eg_solve(s, g[:7].contiguous(), c, num_steps=2)
-    with pytest.raises(ValueError):           # mask columns != rows of states
-        kl_simplex.eg_solve(s, g, c[:, :7].contiguous(), num_steps=2)
+        kl_simplex.eg_solve_rows(s, None, g[:7].contiguous(), c, num_steps=2)
+    with pytest.raises(ValueError):           # more mask columns than rows of states
+        kl_simplex.eg_solve_rows(s, None, g, torch.ones(8, 9, device=card), num_steps=2)
     with pytest.raises(ValueError):
-        kl_simplex.eg_solve(s, g, c.t(), num_steps=2)
+        kl_simplex.eg_solve_rows(s, None, g, c.t(), num_steps=2)
     with pytest.raises(ValueError):
-        kl_simplex.eg_solve(s, g.cpu(), c, num_steps=2)
+        kl_simplex.eg_solve_rows(s, None, g.cpu(), c, num_steps=2)
     with pytest.raises(ValueError):
-        kl_simplex.eg_solve(s, g, c, num_steps=-1)
+        kl_simplex.eg_solve_rows(s, None, g, c, num_steps=-1)
     with pytest.raises(ValueError):
-        kl_simplex.eg_solve(s, g, c, num_steps=2, step_size=float("nan"))
+        kl_simplex.eg_solve_rows(s, None, g, c, num_steps=2, step_size=float("nan"))
 
 
 # ------------------------------------ the P1 solve on the main path ----
@@ -651,18 +655,19 @@ P1_ROWS_CASES = ["k100_stream", "k100_stream_seeds8", "k1024_sparse", "v2_dense"
 
 
 def _eager_p1(states, ids, target, mask, steps):
-    """The eager loop of ``solve_p1_all`` on the same layout."""
+    """The loop route of ``solve_p1_all`` (over the ``eg_step`` kernel on the
+    card) on the same layout."""
     from repro_torch.core import kl_solver
     layout = mask if ids is None else contacts.SparseContacts(ids, mask)
-    return kl_solver._solve_p1_eager(states, target, layout, steps, 2.0)
+    return kl_solver._solve_p1_loop(states, target, layout, steps, 2.0)
 
 
 @pytest.mark.parametrize("name", P1_ROWS_CASES)
 def test_eg_solve_rows_matches_the_eager_solve_and_its_plain_version(card, name):
     """The id-table form in one launch against its plain version and against
-    the eager loop it replaces on the main path (``_solve_p1_neighbours``,
-    ``_eg_solve``), f32 atol 1e-6: exactly 0 on padding and on a row with no
-    contact (where the eager loop gives NaN), rows on the simplex."""
+    the loop route of ``solve_p1_all`` (``ref.eg_iterate`` over the
+    ``eg_step`` kernel), f32 atol 1e-6: exactly 0 on padding and on a row
+    with no contact, rows on the simplex."""
     states, ids, target, mask, steps = _p1_rows_case(name, card)
     before = dict(kl_simplex.kernel.launch_counts)
     got = kl_simplex.eg_solve_rows(states, ids, target, mask, num_steps=steps, step_size=2.0)
@@ -686,7 +691,7 @@ def test_eg_solve_rows_matches_the_eager_solve_and_its_plain_version(card, name)
 def test_solve_p1_all_on_the_card_is_one_eg_solve_launch(card, layout):
     """``solve_p1_all`` on CUDA tensors at every layout the main path hands it:
     one ``eg_solve`` launch, one kernel solve and no eager one by the
-    counters, alpha within 1e-6 of the eager loop."""
+    counters, alpha within 1e-6 of the loop route."""
     from repro_torch.core import kl_solver
     if layout in ("sparse", "sparse_seeds"):
         name = "k100_stream" if layout == "sparse" else "k100_stream_seeds8"
@@ -710,7 +715,7 @@ def test_solve_p1_all_on_the_card_is_one_eg_solve_launch(card, layout):
     assert kl_simplex.kernel.launch_counts["eg_solve"] == 1
     assert kl_simplex.kernel.launch_counts["eg_step"] == 0
     with full_f32_matmul():
-        eager = kl_solver._solve_p1_eager(states, target, arg, steps, 2.0)
+        eager = kl_solver._solve_p1_loop(states, target, arg, steps, 2.0)
     assert got.shape == eager.shape and _err(got, eager) <= 1e-6
 
 
@@ -733,8 +738,9 @@ def test_a_sparse_dds_round_is_one_eg_solve_launch_and_no_eager_solve(card):
 @pytest.mark.parametrize("layout", ["sparse_k1024_d64", "dense_k300"])
 def test_a_shape_past_one_block_still_takes_the_eager_loop(card, layout):
     """States per row that do not fit one block of ``eg_solve`` (64 neighbour
-    slots at K = 1,024; a dense K = 300) take the eager loop: no launch of
-    the kernel, one eager solve."""
+    slots at K = 1,024; a dense K = 300) take the loop: no launch of the
+    one-launch kernel, one eager solve, one ``eg_step`` launch per step and
+    row block of ``P1_BLOCK`` vehicles."""
     from repro_torch.core import kl_solver
     k, d = (1024, 64) if layout == "sparse_k1024_d64" else (300, 300)
     assert not kl_simplex.kernel.eg_solve_fits(d, k)
@@ -749,6 +755,8 @@ def test_a_shape_past_one_block_still_takes_the_eager_loop(card, layout):
     torch.cuda.synchronize()
     assert kl_solver.solve_counts == {"kernel": 0, "eager": 1}
     assert kl_simplex.kernel.launch_counts["eg_solve"] == 0
+    blocks = -(-k // kl_solver.P1_BLOCK) if layout == "sparse_k1024_d64" else 1
+    assert kl_simplex.kernel.launch_counts["eg_step"] == 20 * blocks
     rows = alpha.sum(-1)
     assert torch.allclose(rows, torch.ones_like(rows), atol=1e-5)
 

@@ -1,16 +1,23 @@
 """Port vs reference, the kl_simplex entry point: the state diagnostics
-``kl_rows`` / ``entropy_rows``, the exponentiated-gradient step and the fused
-P1 solver. The reference's Pallas kernels run in interpret mode on the CPU;
-the port's ``ops`` take their plain versions on CPU tensors. Same numpy
-inputs to both, atol 1e-5 (the reference's own kernel-test tolerance: the
-two libraries' log / exp differ in the last bit).
+``kl_rows`` / ``entropy_rows``, the exponentiated-gradient step and the P1
+solve (``core.kl_solver.solve_p1_all`` and the plain version of its
+one-launch kernel) against the reference's fused solver. The reference's
+Pallas kernels run in interpret mode on the CPU; the port's ``ops`` take
+their plain versions on CPU tensors. Same numpy inputs to both, atol 1e-5
+(the reference's own kernel-test tolerance: the two libraries' log / exp
+differ in the last bit).
 """
+import ast
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from scipy.optimize import minimize
 
+from repro.core import contacts as ref_contacts
+from repro.core import kl_solver as ref_solver
 from repro.kernels import kl_simplex as ref_kl
 from repro_torch.core import contacts, kl_solver
 from repro_torch.kernels import kl_simplex
@@ -105,24 +112,34 @@ def _p1_inputs(k, seed):
 
 @pytest.mark.parametrize("num_steps,step", [(400, 2.0), (60, 0.5)])
 def test_fused_p1_solver_matches_reference_and_core_objective(num_steps, step):
+    """``solve_p1_all`` on dense contacts against the reference's fused solver
+    (its Pallas eg_step in interpret mode), alpha and the per-row objective."""
     s, g, c = _p1_inputs(20, 9)
     want = np.asarray(ref_kl.solve_p1_all_fused(
         jnp.asarray(s), jnp.asarray(g), jnp.asarray(c), num_steps=num_steps,
         step_size=step, interpret=True))
-    got = kl_simplex.solve_p1_all_fused(T(s), T(g), T(c), num_steps=num_steps,
-                                        step_size=step)
+    got = kl_solver.solve_p1_all(T(s), T(g), T(c), num_steps=num_steps, step_size=step)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     assert (got.numpy()[c == 0] == 0).all()
-    eager = kl_solver.solve_p1_all(T(s), T(g), T(c), num_steps=num_steps, step_size=step)
+    objective = kl_solver.kl_objective(torch.tensor(want), T(s), T(g))
     np.testing.assert_allclose(kl_solver.kl_objective(got, T(s), T(g)).numpy(),
-                               kl_solver.kl_objective(eager, T(s), T(g)).numpy(), atol=1e-5)
+                               objective.numpy(), atol=1e-5)
 
 
-def test_fused_p1_solver_is_dense_only():
-    s, g, c = _p1_inputs(6, 2)
-    sparse = contacts.SparseContacts(torch.zeros(6, 3, dtype=torch.int32), torch.ones(6, 3))
-    with pytest.raises(TypeError):
-        kl_simplex.solve_p1_all_fused(T(s), T(g), sparse)
+def test_kl_simplex_imports_nothing_from_core():
+    """The layers point one way: ``core.kl_solver`` routes the P1 solve, and
+    ``kernels.kl_simplex`` (kernel, plain version, wrappers) knows no module
+    of ``repro_torch.core``."""
+    package = Path(kl_simplex.__file__).parent
+    for path in sorted(package.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                name = "." * node.level + (node.module or "")
+                assert not name.startswith("...core") and "repro_torch.core" not in name, \
+                    (path.name, name)
+            elif isinstance(node, ast.Import):
+                assert not any(a.name.startswith("repro_torch.core") for a in node.names), \
+                    path.name
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -131,8 +148,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     for call in (lambda: kl_simplex.kl_rows_kernel(T(s), T(g)),
                  lambda: kl_simplex.entropy_rows_kernel(T(s)),
                  lambda: kl_simplex.eg_step(T(a), T(gr), T(m)),
-                 lambda: kl_simplex.eg_solve(T(s), T(g), T(m[:, :3]).contiguous(),
-                                             num_steps=2),
                  lambda: kl_simplex.eg_solve_rows(T(s), None, T(g), T(m[:, :3]).contiguous(),
                                                   num_steps=2)):
         with pytest.raises(ValueError, match="CUDA"):
@@ -158,15 +173,16 @@ def _p1_case(v, k, seed, empty_row):
                          [(20, 20, 200, 2.0, True), (20, 20, 200, 2.0, False),
                           (8, 8, 1, 2.0, True), (12, 30, 60, 0.5, True)])
 def test_eg_solve_ref_matches_reference_fused_solver(v, k, num_steps, step, empty_row):
-    """``eg_solve_ref`` (the plain version of the one-launch solve, and the
-    CPU route of ``solve_p1_all_fused``) against the reference's fused solver
+    """``eg_solve_rows_ref`` with no id table (the plain version of the
+    one-launch solve on dense contacts) against the reference's fused solver
     with its Pallas eg_step in interpret mode: a row with no contact is 0 in
-    both."""
+    both; the identity table ``arange(D)`` on every row gives the same bits."""
     s, g, c = _p1_case(v, k, v * 31 + num_steps, empty_row)
     want = np.asarray(ref_kl.solve_p1_all_fused(
         jnp.asarray(s), jnp.asarray(g), jnp.asarray(c), num_steps=num_steps,
         step_size=step, interpret=True))
-    got = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=num_steps, step_size=step)
+    got = kl_simplex.eg_solve_rows_ref(T(s), None, T(g), T(c), num_steps=num_steps,
+                                       step_size=step)
     assert got.dtype == torch.float32 and got.shape == (v, v)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     assert (got.numpy()[c == 0] == 0).all()
@@ -174,13 +190,15 @@ def test_eg_solve_ref_matches_reference_fused_solver(v, k, num_steps, step, empt
         assert (want[1] == 0).all() and (got.numpy()[1] == 0).all()
     rows = got.numpy().sum(1)[c.sum(1) > 0]
     np.testing.assert_allclose(rows, 1.0, atol=1e-5)
-    fused = kl_simplex.solve_p1_all_fused(T(s), T(g), T(c), num_steps=num_steps,
-                                          step_size=step)
-    np.testing.assert_array_equal(fused.numpy(), got.numpy())
+    ids = torch.arange(v, dtype=torch.int32).expand(v, v).contiguous()
+    table = kl_simplex.eg_solve_rows_ref(T(s), ids, T(g), T(c), num_steps=num_steps,
+                                         step_size=step)
+    np.testing.assert_array_equal(table.numpy(), got.numpy())
 
 
 def test_eg_solve_ref_is_the_loop_over_eg_step_ref():
-    """No contact-free row: the plain solve is exactly ``num_steps`` calls of
+    """No contact-free row: the P1 loop (``ref.eg_iterate``, and
+    ``solve_p1_all`` on CPU tensors) is exactly ``num_steps`` calls of
     ``eg_step_ref`` between the two full-f32 products."""
     s, g, c = _p1_case(10, 14, 4, empty_row=False)
     alpha = T(c) / T(c).sum(1, keepdim=True)
@@ -188,9 +206,11 @@ def test_eg_solve_ref_is_the_loop_over_eg_step_ref():
         u = torch.clamp(alpha @ T(s), min=1e-12)
         grad = (torch.log(u) - torch.log(torch.clamp(T(g), min=1e-12)) + 1.0) @ T(s).T
         alpha = kl_simplex.eg_step_ref(alpha, grad, T(c), step_size=2.0)
-    got = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=25)
+    got = kl_simplex.ref.eg_iterate(T(s), T(g), T(c), 25, 2.0, kl_simplex.eg_step_ref)
     np.testing.assert_array_equal(got.numpy(), alpha.numpy())
-    zero = kl_simplex.eg_solve_ref(T(s), T(g), T(c), num_steps=0)
+    np.testing.assert_array_equal(kl_solver.solve_p1_all(T(s), T(g), T(c), num_steps=25).numpy(),
+                                  alpha.numpy())
+    zero = kl_simplex.ref.eg_iterate(T(s), T(g), T(c), 0, 2.0, kl_simplex.eg_step_ref)
     np.testing.assert_array_equal(zero.numpy(), (T(c) / T(c).sum(1, keepdim=True)).numpy())
 
 
@@ -219,46 +239,46 @@ def _neighbour_case(k, seeds, seed, pad=1, empty_row=False):
 
 @pytest.mark.parametrize("k,seeds,pad", [(9, 1, 1), (20, 1, 3), (16, 3, 1), (7, 4, 2)])
 def test_eg_solve_rows_ref_equals_the_eager_neighbour_solve(k, seeds, pad):
-    """The plain version of the id-table form against the eager
-    ``_solve_p1_neighbours`` behind ``solve_p1_all`` on the CPU: one run
-    ([K, D] ids), and S runs with their seeds folded into the rows ([S, K, D]
-    ids, each seed against its own target); padding slots get 0."""
+    """``solve_p1_all`` on neighbour lists (the loop over the gathered rows on
+    CPU tensors) against the reference's ``solve_p1_all`` on the same lists,
+    one run ([K, D] ids) and S runs with their seeds folded into the rows
+    ([S, K, D] ids, each seed against its own target, held to that seed's
+    run of the reference); and the plain version of the id-table kernel
+    against it, with and without the seed axis; padding slots get 0."""
     s, g, idx, mask = _neighbour_case(k, seeds, k * 10 + seeds, pad)
     steps = 60
-    got = kl_simplex.eg_solve_rows_ref(s, idx, g, mask, num_steps=steps, step_size=2.0)
-    assert got.shape == mask.shape and got.dtype == torch.float32
-    eager = kl_solver.solve_p1_all(s, g, contacts.SparseContacts(idx, mask),
-                                   num_steps=steps, step_size=2.0)
-    np.testing.assert_allclose(got.numpy(), eager.numpy(), atol=1e-6)
+    run = (lambda x: x[0]) if seeds == 1 else (lambda x: x)   # one run: no seed axis
+    got = kl_solver.solve_p1_all(run(s), run(g), contacts.SparseContacts(run(idx), run(mask)),
+                                 num_steps=steps, step_size=2.0).reshape(mask.shape)
+    assert got.dtype == torch.float32
     for i in range(seeds):
-        one = kl_solver._solve_p1_neighbours(s[i], g[i], contacts.SparseContacts(idx[i], mask[i]),
-                                             steps, 2.0)
-        np.testing.assert_allclose(got[i].numpy(), one.numpy(), atol=1e-6)
-        np.testing.assert_allclose(
-            kl_simplex.eg_solve_rows_ref(s[i], idx[i], g[i], mask[i], num_steps=steps,
-                                         step_size=2.0).numpy(), one.numpy(), atol=1e-6)
+        sc = ref_contacts.SparseContacts(jnp.asarray(idx[i].numpy()), jnp.asarray(mask[i].numpy()))
+        want = np.asarray(ref_solver.solve_p1_all(jnp.asarray(s[i].numpy()),
+                                                  jnp.asarray(g[i].numpy()), sc,
+                                                  num_steps=steps, step_size=2.0))
+        np.testing.assert_allclose(got[i].numpy(), want, atol=1e-5)
+    rows = kl_simplex.eg_solve_rows_ref(s, idx, g, mask, num_steps=steps, step_size=2.0)
+    np.testing.assert_allclose(rows.numpy(), got.numpy(), atol=1e-6)
+    np.testing.assert_allclose(
+        kl_simplex.eg_solve_rows_ref(s[0], idx[0], g[0], mask[0], num_steps=steps,
+                                     step_size=2.0).numpy(), got[0].numpy(), atol=1e-6)
     assert (got.numpy()[mask.numpy() == 0] == 0).all()
     np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
 
 
-def test_eg_solve_rows_ref_with_identity_ids_is_eg_solve_ref():
-    """Identity ids (None, or ``arange(D)`` on every row) give the shared-state
-    solve ``eg_solve_ref``, a row with no contact included (0 in both); with a
-    seed axis each seed gives its own run's."""
-    s, g, c = (T(x) for x in _p1_case(12, 12, 3, empty_row=True))
-    want = kl_simplex.eg_solve_ref(s, g, c, num_steps=80)
-    ids = torch.arange(12, dtype=torch.int32).expand(12, 12).contiguous()
-    for table in (None, ids):
-        got = kl_simplex.eg_solve_rows_ref(s, table, g, c, num_steps=80)
-        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
-        assert (got.numpy()[1] == 0).all()
-    s2, g2, c2 = (T(x) for x in _p1_case(12, 12, 4, empty_row=False))
-    seeded = kl_simplex.eg_solve_rows_ref(torch.stack([s, s2]), None, torch.stack([g, g2]),
-                                          torch.stack([c, c2]), num_steps=80)
-    np.testing.assert_allclose(seeded[0].numpy(), want.numpy(), atol=1e-6)
-    np.testing.assert_allclose(seeded[1].numpy(),
-                               kl_simplex.eg_solve_ref(s2, g2, c2, num_steps=80).numpy(),
-                               atol=1e-6)
+def test_solve_p1_all_with_a_seed_axis_on_dense_contacts_is_each_seeds_own_solve():
+    """Dense contacts with a seed axis (``run_seeds``): each seed's rows are,
+    bit for bit, the solve of that seed alone (its states kept shared, one
+    product per seed, as a single run takes them)."""
+    s, g, idx, mask = _neighbour_case(9, 3, 5)
+    c = torch.stack([torch.as_tensor(contacts.mixing_to_dense(contacts.SparseMixing(i, m)) > 0)
+                     for i, m in zip(idx, mask)]).to(torch.float32)
+    got = kl_solver.solve_p1_all(s, g, c, num_steps=80)
+    assert got.shape == c.shape
+    for i in range(3):
+        one = kl_solver.solve_p1_all(s[i], g[i], c[i], num_steps=80)
+        np.testing.assert_array_equal(got[i].numpy(), one.numpy())
+    assert (got.numpy()[c.numpy() == 0] == 0).all()
 
 
 def test_eg_solve_rows_ref_gives_zero_on_an_empty_row_and_on_padding():
@@ -276,7 +296,7 @@ def test_eg_solve_rows_ref_gives_zero_on_an_empty_row_and_on_padding():
 @pytest.mark.parametrize("layout", ["dense", "sparse", "dense_seeds", "sparse_seeds"])
 def test_solve_p1_all_on_the_cpu_takes_the_eager_loop(layout):
     """On CPU tensors ``solve_p1_all`` counts one eager solve and no kernel
-    solve, in every layout, and gives the eager loop's alpha bit for bit."""
+    solve, in every layout, and gives the loop's alpha bit for bit."""
     s, g, idx, mask = _neighbour_case(8, 2, 11)
     c = torch.as_tensor(np.stack([contacts.mixing_to_dense(contacts.SparseMixing(idx[i], mask[i]))
                                   for i in range(2)]) > 0).to(torch.float32)
@@ -285,7 +305,7 @@ def test_solve_p1_all_on_the_cpu_takes_the_eager_loop(layout):
     kl_solver.reset_solve_counts()
     got = kl_solver.solve_p1_all(*args, num_steps=30)
     assert kl_solver.solve_counts == {"kernel": 0, "eager": 1}
-    want = kl_solver._solve_p1_eager(*args, 30, 2.0)
+    want = kl_solver._solve_p1_loop(*args, 30, 2.0)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
@@ -308,12 +328,13 @@ def _scipy_optimum(s, g, mask):
     return res.fun
 
 
-@pytest.mark.parametrize("solver", ["solve_p1", "solve_p1_all", "solve_p1_all_fused"])
+@pytest.mark.parametrize("solver", ["solve_p1", "solve_p1_all", "solve_p1_all_neighbours"])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
 def test_solvers_reach_the_scipy_optimum(seed, solver):
     """The port's P1 solvers on the CPU (the single-row solve, the batched
-    one, the fused entry point's plain route) within 5e-5 nats of SLSQP's
-    optimum, the reference's own bound; rows 0 and 1 of a contact matrix."""
+    one on a contact matrix and on its neighbour lists) within 5e-5 nats of
+    SLSQP's optimum, the reference's own bound; rows 0 and 1 of a contact
+    matrix."""
     r = np.random.default_rng(seed)
     k = int(r.integers(4, 20))
     s = r.dirichlet(np.ones(k) * r.uniform(0.3, 4), size=k).astype(np.float32)
@@ -326,7 +347,12 @@ def test_solvers_reach_the_scipy_optimum(seed, solver):
     elif solver == "solve_p1_all":
         alphas = list(kl_solver.solve_p1_all(T(s), T(g), T(c))[:2])
     else:
-        alphas = list(kl_simplex.solve_p1_all_fused(T(s), T(g), T(c))[:2])
+        d = int(c.sum(1).max())
+        idx = np.stack([np.concatenate([np.flatnonzero(row), np.full(d, i)])[:d]
+                        for i, row in enumerate(c)]).astype(np.int32)
+        mask = (np.arange(d) < c.sum(1, keepdims=True)).astype(np.float32)
+        slots = kl_solver.solve_p1_all(T(s), T(g), contacts.SparseContacts(T(idx), T(mask)))
+        alphas = [torch.zeros(k).index_add_(0, T(idx[i]).long(), slots[i]) for i in (0, 1)]
     for i, alpha in enumerate(alphas):
         assert (alpha.numpy()[c[i] == 0] == 0).all()
         eg = float(kl_solver.kl_objective(alpha, T(s), T(g)))
