@@ -51,7 +51,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                timed beside its bound (by the design that runs), its plain loop
                and ``torch._grouped_mm`` where the card's torch takes the dtype
                (else the loop), with its working tiles against the persistent
-               grid.
+               grid. The AdamW kernel (row 8) at one vehicle step of cells 6's
+               and 2's leaves against the train step's per-leaf loop, bit for
+               bit, timed beside its bound, the loop and ``torch._fused_adamw_``;
+               the train phases, the mesh's included, check its launches
+               (V x ceil(leaves / 64) a round).
 4. main path — ``run_simulation`` of one DFL-DDS federation at the paper's
                full width (K=100 vehicles, the 21,840-parameter MNIST CNN, E=8,
                B=80, 200 P1 steps, the full-size synthetic MNIST), a few epochs,
@@ -285,6 +289,7 @@ from repro_torch.data.synthetic import Dataset, synthetic_mnist  # noqa: E402
 from repro_torch.fed import engine, topology  # noqa: E402
 from repro_torch.fed.simulator import SimulationConfig, run_simulation  # noqa: E402
 from repro_torch.figures import common as figures_common  # noqa: E402
+from repro_torch.kernels import adamw as adamw_lib  # noqa: E402
 from repro_torch.kernels import build as build_lib  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_mm as gmm  # noqa: E402
@@ -295,6 +300,7 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, multimodal, transformer  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.optim import adamw as optim_adamw  # noqa: E402
 from repro_torch.precision import full_f32_matmul  # noqa: E402
 from repro_torch.profiling import PhaseTimer  # noqa: E402
 from repro_torch.roofline import analysis as roofline, hw, scenario_cost  # noqa: E402
@@ -370,6 +376,13 @@ KERNELS = {
         "source": "src/repro_torch/kernels/grouped_mm/csrc/grouped_mm.cu",
         "replaces": "not a TPU kernel (the weight gradient of jax.lax.ragged_dot, "
                     "src/repro/models/moe.py:94-96)",
+    },
+    # the train step's AdamW: the reference leaves it to XLA
+    "adamw": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/adamw/csrc/adamw.cu",
+        "replaces": "not a TPU kernel (optim.adamw's eager ops and apply_updates, leaf by "
+                    "leaf, in launch/steps' local_train)",
     },
 }
 
@@ -452,6 +465,10 @@ RAGGED_DECODE_SHAPE = (RAGGED_ARCH, 2 * 8, 32, 1024, 512)
 # pass 24 layers of bf16 products, so rounding shifts it by a few of those
 # units at most, while a wrong grouped product moves the logits by O(1)
 OPT_RAGGED_LOSS_RTOL = 1e-2
+# the AdamW kernel (row 8) at one vehicle step's leaves of cells 6 and 2: (label,
+# architecture, layers (None: all), held routed experts (None: all))
+ADAMW_CELLS = (("moonlight_cell6", "moonlight-16b-a3b", 7, 8),
+               ("granite_cell2", "granite-moe-1b-a400m", None, None))
 
 # the cost-model phase: the reference's scale workload (BENCH_scale.json,
 # benchmarks/engine_scale.py) at K=1024, 2 timed epochs after a 1-epoch warm-up,
@@ -1703,6 +1720,97 @@ def check_and_time_train_attention(device) -> tuple[dict, dict]:
     return worst, rows
 
 
+def _adamw_cell_config(arch: str, layers: int | None, held: int | None):
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, num_layers=layers)
+    if held is not None:
+        cfg = replace(cfg, expert_range=(0, held))
+    return cfg
+
+
+def _adamw_leaves(cfg, device, seed: int) -> list[list]:
+    """One vehicle's p, g, mu, nu of ``cfg``'s leaves, as the train step's
+    AdamW meets them: contiguous f32, the moments after a few steps."""
+    shapes = [x.shape[1:] for x in steps.flatten(steps.train_state_specs(cfg, 1)[0]).values()]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda s, scale: scale * torch.randn(s, generator=gen, device=device)
+    p = [draw(s, 0.02) for s in shapes]
+    g = [draw(s, 1e-3) for s in shapes]
+    mu = [draw(s, 1e-4) for s in shapes]
+    nu = [m * m + draw(s, 1e-9).abs() for m, s in zip(mu, shapes)]
+    return [p, g, mu, nu]
+
+
+def check_and_time_adamw(device) -> tuple[dict, dict]:
+    """Row 8: the AdamW kernel at one vehicle step's leaves of cells 6 and 2
+    (ADAMW_CELLS). Each: one step through the train step's
+    ``steps.adamw_step_`` (the kernel on the card) against its per-leaf loop
+    (``steps.adamw_per_leaf_``) on a copy, p, mu and nu the same bits; then
+    timed (CUDA events; the leaves are GBs, so every launch finds them cold
+    in L2) against that loop and, as a yardstick the port never calls,
+    ``torch._fused_adamw_``. Bound: 28 bytes a parameter (p, g, mu, nu read;
+    p, mu, nu written) at the memory rate.
+    Returns (the number of differing elements, 0; rows keyed by kernel)."""
+    lr, rows, differ = 1e-3, {}, 0
+    opt = optim_adamw(lr)
+    for label, arch, layers, held in ADAMW_CELLS:
+        cfg = _adamw_cell_config(arch, layers, held)
+        p, g, mu, nu = _adamw_leaves(cfg, device, seed=len(label))
+        n = sum(x.numel() for x in p)
+        count = torch.full((), 3, dtype=torch.int32, device=device)
+        want = [[x.clone() for x in xs] for xs in (p, g, mu, nu)]
+        named = lambda xs: {str(i): x for i, x in enumerate(xs)}
+        adamw_lib.kernel.reset_launch_counts()
+        with torch.no_grad():
+            steps.adamw_per_leaf_(opt, named(want[0]), named(want[2]), named(want[3]),
+                                  named(want[1]), count)
+            steps.adamw_step_(opt, named(p), named(mu), named(nu), named(g), count)
+        torch.cuda.synchronize()
+        bad = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                  for got, w in zip((p, mu, nu), (want[0], want[2], want[3]))
+                  for x, y in zip(got, w))
+        differ += bad
+        launches = adamw_lib.kernel.launch_counts["adamw"]
+        check(bad == 0 and launches == -(-len(p) // adamw_lib.kernel.max_leaves()),
+              f"adamw at {label} ({len(p)} leaves, {n} parameters): {launches} launch(es), "
+              f"{bad} elements of p / mu / nu differ from the per-leaf loop (0: bit for bit)")
+        del want
+        torch.cuda.empty_cache()
+        library = None
+        if hasattr(torch, "_fused_adamw_"):
+            lib_steps = [torch.zeros((), device=device) for _ in p]
+            library = lambda: torch._fused_adamw_(
+                p, g, mu, nu, [], lib_steps, lr=lr, beta1=opt.hyper["b1"],
+                beta2=opt.hyper["b2"], weight_decay=opt.hyper["weight_decay"],
+                eps=opt.hyper["eps"], amsgrad=False, maximize=False)
+
+        def plain():
+            with torch.no_grad():
+                steps.adamw_per_leaf_(opt, named(p), named(mu), named(nu), named(g), count)
+
+        row = _timed(lambda: steps.adamw_step_(opt, named(p), named(mu), named(nu), named(g),
+                                               count), plain,
+                     library, 28 * n, 16 * n,
+                     f"one vehicle step of {cfg.name} ({cfg.num_layers} layers"
+                     f"{'' if held is None else f', {held} routed experts held'}): {len(p)} "
+                     f"leaves, {n} f32 parameters, in place, {launches} launch(es); plain_ms: "
+                     "the train step's per-leaf loop (optim.adamw on one-leaf dicts, copied "
+                     "back); library_ms: torch._fused_adamw_ (a yardstick, not called by the "
+                     "port)", inner=1, reps=5, warm=1)
+        row.update({"cell": label, "parameters": n, "leaves": len(p),
+                    "launches_per_step": launches,
+                    "differing_elements": bad, "share_of_bound": row["bound_ms"] / row["ms"]})
+        if not rows:
+            rows["adamw"] = row
+        else:
+            rows["adamw"][label] = row
+        del p, g, mu, nu
+        torch.cuda.empty_cache()
+    log(f"  adamw: {json.dumps(rows)}")
+    return {"adamw": float(differ)}, rows
+
+
 # -------------------------------------------------------------------- serve ----
 
 def drive_serve(device: str, seed: int, rehearsal: bool) -> tuple[int, dict]:
@@ -2085,7 +2193,16 @@ def _train_report(cfg, whole, v: int, b: int, s: int, history: list, launches: d
 
 def _train_launches() -> dict:
     return {"gossip_mix_matmul_launches": kernel.launch_counts["gossip_mix_matmul"],
-            "flash_attention_launches": fa.kernel.launch_counts["flash_attention"]}
+            "flash_attention_launches": fa.kernel.launch_counts["flash_attention"],
+            "adamw_launches": adamw_lib.kernel.launch_counts["adamw"]}
+
+
+def _check_adamw_launches(name: str, params: dict, v: int, rounds: int, got: int) -> None:
+    """The train step's AdamW on the card: ceil(leaves / 64) kernel launches a
+    vehicle step, E = 1 step a round."""
+    want = rounds * v * -(-len(steps.flatten(params)) // adamw_lib.kernel.max_leaves())
+    check(got == want, f"{name}: adamw launched {got} times = {rounds} rounds x {v} vehicles "
+          f"x ceil({len(steps.flatten(params))} leaves / {adamw_lib.kernel.max_leaves()})")
 
 
 def time_train_mix(params: dict, mixing) -> tuple[float, dict]:
@@ -2193,6 +2310,7 @@ def drive_train_model(device: str, seed: int, rehearsal: bool) -> tuple[dict, fl
               f"{cfg.name}: gossip_mix_matmul launched {launches['gossip_mix_matmul_launches']} "
               f"times in {TRAIN_ROUNDS} rounds (one per round), flash_attention "
               f"{launches['flash_attention_launches']} (training attends through plain SDPA)")
+        _check_adamw_launches(cfg.name, params, v, TRAIN_ROUNDS, launches["adamw_launches"])
         # what a mix of the stack adds to memory, moments alive as in the round
         report.update(mix_memory(params, _round_mixing(sm, target, contact).contiguous()))
         check(report["mix_in_place_extra_mb"] < 1.0,
@@ -2244,6 +2362,9 @@ def drive_train_cli_transformer(device: str, seed: int, rehearsal: bool) -> dict
     launches = _train_launches()
     report = _train_report(cfg, whole, TRAIN_V, TRAIN_B, s, history, launches, on_card,
                            argv=argv)
+    if on_card:
+        _check_adamw_launches(f"{cfg.name} (CLI)", params, TRAIN_V, TRAIN_ROUNDS,
+                              launches["adamw_launches"])
     del opt
     init = transformer.init_params(torch.Generator(device=device).manual_seed(seed), cfg,
                                    device=device)     # the CLI's init, drawn again
@@ -2508,6 +2629,8 @@ def drive_mesh_train(device: str, seed: int, rehearsal: bool,
                   f"{cfg.name} on the mesh: gossip_mix_matmul launched "
                   f"{launches['gossip_mix_matmul_launches']} time(s), flash_attention "
                   f"{launches['flash_attention_launches']}")
+            _check_adamw_launches(f"{cfg.name} on the mesh (each rank's shards)", params, v,
+                                  len(rounds), launches["adamw_launches"])
         # -- the mesh mix on the second round's own inputs (row 2m)
         mix_err, mix_timing = 0.0, {}
         placed = None
@@ -3066,7 +3189,10 @@ def drive_opt_ragged_train(device: str, seed: int, rehearsal: bool,
     report["flash_train_launches"] = attn
     launches["flash_train_fwd"], launches["flash_train_bwd"] = (attn["flash_train_fwd"],
                                                                 attn["flash_train_dq"])
+    launches["adamw"] = report["adamw_launches"] = adamw_lib.kernel.launch_counts["adamw"]
     if on_card:
+        _check_adamw_launches(f"{cfg.name} opt_ragged rounds", params, v, TRAIN_ROUNDS,
+                              launches["adamw"])
         passes = cfg.num_layers * v * TRAIN_ROUNDS
         check(attn == {"flash_train_fwd": 2 * passes, "flash_train_dq": passes,
                        "flash_train_dkdv": passes},
@@ -4155,6 +4281,10 @@ def main() -> int:
         grouped_worst, grouped_timings = check_grouped_kernels(device)
         worst.update(grouped_worst)
         timings.update(grouped_timings)
+        log("[kernels] adamw at one vehicle step of cells 6 and 2 (ms, CUDA events, median)")
+        adamw_worst, adamw_timings = check_and_time_adamw(device)
+        worst.update(adamw_worst)
+        timings.update(adamw_timings)
 
     if args.kernels_only:
         log("[kernels-only] stopping before the main path")
@@ -4241,17 +4371,19 @@ def main() -> int:
     launches["flash_attention"] += zoo_launches
 
     # -- 8c. train: DFL-DDS rounds of vehicle transformers at full width -----
-    train_launches, train_err, train_timing, _, round1 = drive_train(device, args.seed,
-                                                                     rehearsal)
+    train_launches, train_err, train_timing, train_report, round1 = drive_train(
+        device, args.seed, rehearsal)
 
     # -- 8d. mesh-train: the same round on a federation mesh of one rank -----
-    mesh_launches, mesh_err, mesh_timing, _ = drive_mesh_train(device, args.seed, rehearsal,
-                                                               round1)
+    mesh_launches, mesh_err, mesh_timing, mesh_report = drive_mesh_train(
+        device, args.seed, rehearsal, round1)
     del round1
 
     # -- 8f. ragged: granite-moe through the grouped products, served and trained
     ragged_launches, _ = drive_ragged(device, args.seed, rehearsal)
     launches.update(ragged_launches)
+    launches["adamw"] += (sum(train_report[run]["adamw_launches"] for run in ("model", "cli"))
+                          + mesh_report["adamw_launches"])
 
     # -- 8g. examples: every torch example with --smoke, as a user starts it --
     log(f"[examples] {json.dumps(drive_examples(device))}")

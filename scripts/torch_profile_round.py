@@ -20,8 +20,10 @@ warm-up round, then ``--epochs`` rounds), the train step's attention route
 printed beside P1's: the training kernels' launches (``flash_train_fwd``:
 forward and remat's recompute, 2 L V a round under bf16 compute;
 ``flash_train_dq`` / ``flash_train_dkdv``: L V each; 0 in f32, which attends
-through ``_sdpa``). ``--layers`` cuts the depth, ``--held-experts`` holds the
-first N routed experts of a deepseek_v3 config (``expert_range``).
+through ``_sdpa``) and AdamW's (``adamw``: ceil(leaves / 64) a vehicle step,
+V of them a round for the configs here). ``--layers`` cuts the depth,
+``--held-experts`` holds the first N routed experts of a deepseek_v3 config
+(``expert_range``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.core import kl_solver  # noqa: E402
+from repro_torch.kernels.adamw import kernel as adamw_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.data import datasets as data_lib  # noqa: E402
 from repro_torch.fed import engine  # noqa: E402
@@ -114,17 +117,19 @@ def main() -> int:
 
 def _routes() -> dict:
     """The route counters since the last reset: P1's ``eg_solve`` launches
-    and solves by route, the training attention's launches."""
+    and solves by route, the training attention's launches, AdamW's."""
     return {"eg_solve_launches": kl_kernel.launch_counts["eg_solve"],
             **{f"{route}_solves": n for route, n in kl_solver.solve_counts.items()},
             **{f"{name}_launches": fa_kernel.launch_counts[name]
-               for name in ("flash_train_fwd", "flash_train_dq", "flash_train_dkdv")}}
+               for name in ("flash_train_fwd", "flash_train_dq", "flash_train_dkdv")},
+            "adamw_launches": adamw_kernel.launch_counts["adamw"]}
 
 
 def _reset_routes() -> None:
     kl_kernel.reset_launch_counts()
     kl_solver.reset_solve_counts()
     fa_kernel.reset_launch_counts()
+    adamw_kernel.reset_launch_counts()
 
 
 def _profiled(run):

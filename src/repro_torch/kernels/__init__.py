@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for the port's hot paths (built at first use)."""
 from . import build as build_lib
-from . import flash_attention, gossip_mix, grouped_mm, kl_simplex  # noqa: F401
+from . import adamw, flash_attention, gossip_mix, grouped_mm, kl_simplex  # noqa: F401
 
 KERNEL_MODULES = (gossip_mix.kernel, kl_simplex.kernel, flash_attention.kernel,
-                  grouped_mm.kernel)
+                  grouped_mm.kernel, adamw.kernel)
 
 
 def build_all() -> None:

@@ -23,20 +23,23 @@ that limit the round takes the functional ``mix_params_cuda`` (the kernel's
 tile mapping), as it does a ``mix_params_fn`` passed by the caller: the output
 is copied back into the leaves and freed. Each vehicle then trains on views of
 its row of every leaf (detached, ``requires_grad_``, ``torch.autograd.grad``
-of ``lm_loss``), and the AdamW update is applied one leaf at a time, written
-in place into that row of the parameters and of the moments, each gradient
-freed as soon as it is used. So the step updates ``params`` and ``opt_state``
-in place, and returns them. In model copies for V vehicles (f32, one copy is
-7.57 GiB at qwen3-1.7b's width): 3V at the mix (parameters V, AdamW moments
-2V; 4V with a functional mix), 3V + 1 (one vehicle's gradients) plus the
-loss's activations and one leaf's temporaries during local training. At V=2
-that is 6 copies (45.4 GiB) at the mix and 7 (53.0 GiB) plus activations in
-training, where a functional mix peaks at 8 (60.6 GiB); a whole-tree
-functional AdamW update of one vehicle would hold three more copies of a
-model. The loop over vehicles is the port's counterpart of the reference's
-``vmap``, as the loop over layers is of its ``lax.scan``. The reference splits
-an ``rng`` per vehicle and uses none of it (no dropout), so the port's step
-takes none.
+of ``lm_loss``), and the AdamW update is written in place into that row of
+the parameters and of the moments (``adamw_step_``). On the card, on a mesh
+(each rank's shards) or not, that is one launch of the hand-written
+multi-tensor kernel per 64 leaves (no temporaries, the same bits as
+``optim.adamw``); on CPU and ``meta`` tensors ``adamw_per_leaf_``, one leaf
+at a time, each gradient freed as soon as it is used. So the step updates
+``params`` and ``opt_state`` in place, and returns them. In model copies for
+V vehicles (f32, one copy is 7.57 GiB at qwen3-1.7b's width): 3V at the mix
+(parameters V, AdamW moments 2V; 4V with a functional mix), 3V + 1 (one
+vehicle's gradients) plus the loss's activations (and, leaf by leaf, one
+leaf's temporaries) during local training. At V=2 that is 6 copies (45.4
+GiB) at the mix and 7 (53.0 GiB) plus activations in training, where a
+functional mix peaks at 8 (60.6 GiB); a whole-tree functional AdamW update
+of one vehicle would hold three more copies of a model. The loop over
+vehicles is the port's counterpart of the reference's ``vmap``, as the loop
+over layers is of its ``lax.scan``. The reference splits an ``rng`` per
+vehicle and uses none of it (no dropout), so the port's step takes none.
 
 **On a mesh** (``mesh=`` a ``launch.mesh`` federation mesh, dims ``vehicle``
 / ``fsdp`` / ``model``, ``pod`` first when multi-pod) the round runs once per
@@ -82,12 +85,13 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import aggregation, kl_solver, state_vector
 from ..core import vehicle_axis as va
+from ..kernels.adamw import kernel as adamw_kernel
 from ..kernels.flash_attention.ops import make_train_attn_impl
 from ..kernels.gossip_mix import kernel as mix_kernel
 from ..kernels.gossip_mix.ops import mix_params_cuda, mix_params_cuda_
 from ..models import transformer
 from ..models.layers import is_dtensor
-from ..optim import AdamState, adamw, apply_updates
+from ..optim import AdamState, Optimizer, adam_bias_corrections, adamw, apply_updates
 from ..profiling import PhaseTimer, phase
 from . import mesh as mesh_lib
 from . import sharding as shard_lib
@@ -240,6 +244,74 @@ def _model_parallel(mesh):
     return implicit_replication()
 
 
+# devices whose tensors take the train step's AdamW leaf by leaf; every
+# other device takes the kernel
+PER_LEAF_DEVICES = ("cpu", "meta")
+
+
+def adamw_per_leaf_(optimizer: Optimizer, rows: dict, mu: dict, nu: dict, grads: dict,
+                    count: Tensor) -> None:
+    """One ``optimizer`` step of a vehicle, leaf by leaf through its eager
+    ``update`` on a one-leaf dictionary, written into ``rows``, ``mu`` and
+    ``nu``; each gradient is popped from ``grads`` and freed once used. The
+    train step's AdamW on ``PER_LEAF_DEVICES`` (CPU and ``meta`` tensors,
+    DTensors on them included), and the AdamW kernel's plain version."""
+    for name in list(grads):
+        g = {name: grads.pop(name)}
+        p = {name: rows[name]}
+        updates, new = optimizer.update(
+            g, AdamState(count=count, mu={name: mu[name]}, nu={name: nu[name]}), p)
+        mu[name].copy_(new.mu[name])
+        nu[name].copy_(new.nu[name])
+        rows[name].copy_(apply_updates(p, updates)[name])
+        del g, updates, new
+
+
+def _local_leaf(name: str, p, g, m, v) -> tuple:
+    """A leaf's row, gradient and moments as this rank's plain tensors: a
+    DTensor's local shard (sharing its storage, so writes reach it), the
+    gradient first placed as its row. AdamW is elementwise, so the shards of
+    one placement need nothing from another rank."""
+    if not is_dtensor(p):
+        return p, g, m, v
+    if not all(is_dtensor(x) for x in (g, m, v)):
+        raise TypeError(f"adamw: {name}'s row is a DTensor, but not its gradient and moments")
+    where = (p.device_mesh, tuple(p.placements))
+    for what, x in (("mu", m), ("nu", v)):
+        if (x.device_mesh, tuple(x.placements)) != where:
+            raise ValueError(f"adamw: {name}'s {what} is placed {x.placements}, its row "
+                             f"{p.placements}")
+    if (g.device_mesh, tuple(g.placements)) != where:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return p.to_local(), g.to_local(), m.to_local(), v.to_local()
+
+
+def adamw_step_(optimizer: Optimizer, rows: dict, mu: dict, nu: dict, grads: dict,
+                count: Tensor) -> None:
+    """One step of ``optimizer`` (an ``optim.adamw``) of a vehicle at its
+    counter ``count`` (not incremented here), written in place into
+    ``rows``, ``mu`` and ``nu``; ``grads`` is emptied. On
+    ``PER_LEAF_DEVICES``: ``adamw_per_leaf_``. Elsewhere (the card, on a mesh
+    or not) the hand-written kernel over this rank's elements
+    (``_local_leaf``), ceil(leaves / 64) launches, with the bias corrections
+    computed on the device and the settings read from ``optimizer.hyper``:
+    the same bits. There it raises on what the kernel does not take (a
+    schedule for ``lr``, tensors not contiguous f32 on one device); nothing
+    falls back."""
+    first = next(iter(rows.values()), None)
+    if first is None or first.device.type in PER_LEAF_DEVICES:
+        adamw_per_leaf_(optimizer, rows, mu, nu, grads, count)
+        return
+    hyper = optimizer.hyper
+    if hyper is None or not isinstance(hyper["lr"], (int, float)):
+        raise ValueError(f"adamw on {first.device}: the kernel takes optim.adamw with a "
+                         f"number for lr (got {'no adamw' if hyper is None else 'a schedule'})")
+    leaves = [_local_leaf(name, rows[name], grads.pop(name), mu[name], nu[name])
+              for name in list(grads)]
+    c1, c2 = adam_bias_corrections(count + 1, hyper["b1"], hyper["b2"])
+    adamw_kernel.adamw_(*(list(x) for x in zip(*leaves)), c1, c2, **hyper)
+
+
 def build_dds_train_step(cfg: ArchConfig, *,
                          mesh=None,
                          local_steps: int = 1,
@@ -280,6 +352,11 @@ def build_dds_train_step(cfg: ArchConfig, *,
     ``compute_dtype`` on the card), else the plain ``_sdpa`` with the causal
     mask (CPU or meta tensors, DTensors, f32, other widths); an explicit
     ``attn_impl`` is used as given.
+    AdamW runs through ``adamw_step_``: on the card (on a mesh, over each
+    rank's shards) the hand-written kernel, ceil(leaves / 64) launches a
+    vehicle step, counted in ``kernels.adamw.kernel.launch_counts["adamw"]``
+    (a schedule for ``lr`` raises there); CPU and ``meta`` tensors through
+    ``adamw_per_leaf_``, bit for bit the same.
     ``timer`` brackets the round's phases (``p1_solve``, ``mix``,
     ``local_train``, ``state_update``), as the federation engine's rounds,
     and each local step's ``forward``, ``backward`` (under ``remat`` with
@@ -328,15 +405,7 @@ def build_dds_train_step(cfg: ArchConfig, *,
                     loss, list(leaves.values()), allow_unused=True, materialize_grads=True)))
             del leaves
             with phase(timer, "adamw"), torch.no_grad():
-                for name in list(grads):
-                    g = {name: grads.pop(name)}
-                    p = {name: rows[name]}
-                    updates, new = optimizer.update(
-                        g, AdamState(count=count, mu={name: mu[name]}, nu={name: nu[name]}), p)
-                    mu[name].copy_(new.mu[name])
-                    nu[name].copy_(new.nu[name])
-                    rows[name].copy_(apply_updates(p, updates)[name])
-                    del g, updates, new
+                adamw_step_(optimizer, rows, mu, nu, grads, count)
                 count += 1
             losses.append(loss.detach())
         return torch.stack(losses).mean()

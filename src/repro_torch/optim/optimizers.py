@@ -28,6 +28,9 @@ Schedule = Callable[[Tensor], Tensor]
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
+    # the settings it was built with, for a fused update to read (``adamw``:
+    # ``lr``, ``b1``, ``b2``, ``eps``, ``weight_decay``); None for the others
+    hyper: dict | None = None
 
 
 class ScaleState(NamedTuple):
@@ -112,10 +115,7 @@ def adamw(lr: float | Schedule, b1: float = 0.9, b2: float = 0.95,
               for name, g in grads.items()}
         nu = {name: b2 * state.nu[name] + (1 - b2) * torch.square(g.to(torch.float32))
               for name, g in grads.items()}
-        # the bias corrections in f32, as the reference computes them
-        c = count.to(torch.float32)
-        c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c)
-        c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
+        c1, c2 = adam_bias_corrections(count, b1, b2)
 
         def upd(name):
             m, v, p = mu[name], nu[name], params[name]
@@ -124,7 +124,17 @@ def adamw(lr: float | Schedule, b1: float = 0.9, b2: float = 0.95,
 
         return {name: upd(name) for name in grads}, AdamState(count=count, mu=mu, nu=nu)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+
+
+def adam_bias_corrections(count: Tensor, b1: float, b2: float) -> tuple[Tensor, Tensor]:
+    """Adam's bias corrections ``1 - b1^c`` and ``1 - b2^c`` at step ``count``
+    (after its increment), in f32 as the reference computes them, on
+    ``count``'s device. The bases are filled there (``torch.full``), so a
+    CUDA counter costs no copy from the host and no wait for the device."""
+    c = count.to(torch.float32)
+    base = lambda b: torch.full((), b, dtype=torch.float32, device=c.device)
+    return 1 - torch.pow(base(b1), c), 1 - torch.pow(base(b2), c)
 
 
 def apply_updates(params: dict, updates: dict) -> dict:

@@ -1152,6 +1152,45 @@ def test_a_train_round_launches_the_training_attention(card, arch, compute_dtype
     assert abs(got - round_loss(sdpa)) <= 1e-2
 
 
+@pytest.mark.parametrize("arch,compute_dtype", [
+    ("granite-moe-1b-a400m", torch.bfloat16), ("moonlight-16b-a3b", torch.bfloat16),
+    ("granite-moe-1b-a400m", None)])
+def test_a_train_round_launches_adamw_once_per_vehicle_step(card, arch, compute_dtype,
+                                                           monkeypatch):
+    """One round of V = 2 vehicles through ``build_dds_train_step``: each
+    vehicle step's AdamW is ceil(leaves / 64) launches of the kernel (f32 and
+    bf16 compute alike: the masters and their gradients are f32), and its
+    parameters and moments equal, bit for bit, the train step's per-leaf loop
+    (``steps.adamw_per_leaf_``) run on copies of the same inputs."""
+    import math
+
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    from repro_torch.launch import steps, train
+    cfg = get_config(arch).reduced()
+    real, same = steps.adamw_step_, []
+
+    def checked(optimizer, rows, mu, nu, grads, count):
+        want = [{k: x.clone() for k, x in tree.items()} for tree in (rows, mu, nu, grads)]
+        steps.adamw_per_leaf_(optimizer, *want, count.clone())
+        real(optimizer, rows, mu, nu, grads, count)
+        for got, w in zip((rows, mu, nu), want):
+            same.append(all(torch.equal(x.view(torch.int32), w[k].view(torch.int32))
+                            for k, x in got.items()))
+
+    monkeypatch.setattr(steps, "adamw_step_", checked)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params, opt, sm = steps.init_train_state(cfg, 2, gen)
+    tokens = torch.randint(0, cfg.true_vocab_size, (2, 2, 64), generator=gen, device=card)
+    ts = steps.build_dds_train_step(cfg, lr=1e-3, p1_steps=20, compute_dtype=compute_dtype)
+    adamw_kernel.reset_launch_counts()
+    ts.fn(params, opt, sm, tokens, train.ring_contact(2, card),
+          torch.full((2,), 0.5, device=card))
+    torch.cuda.synchronize()
+    leaves = len(steps.flatten(params))
+    assert adamw_kernel.launch_counts["adamw"] == 2 * math.ceil(leaves / adamw_kernel.max_leaves())
+    assert same == [True] * 6
+
+
 # --------------------------------------------------- the seed axis (run_seeds)
 
 def _seed_case(seeds, k, d, seed, neighbour_only):

@@ -102,9 +102,10 @@ def test_head_dims_and_the_kernel_table():
     from repro_torch import kernels
     assert kernel in kernels.KERNEL_MODULES
     # a source per TPU kernel, eg_solve.cu for the P1 loop over eg_step,
-    # grouped_mm.cu for the ragged MoE's products (jax.lax.ragged_dot's port)
-    # and flash_train.cu for the train step's attention with its backward
-    assert sum(len(m.SOURCES) for m in kernels.KERNEL_MODULES) == 9
+    # grouped_mm.cu for the ragged MoE's products (jax.lax.ragged_dot's port),
+    # flash_train.cu for the train step's attention with its backward and
+    # adamw.cu for the train step's AdamW
+    assert sum(len(m.SOURCES) for m in kernels.KERNEL_MODULES) == 10
 
 
 def test_module_imports_without_nvcc_or_a_gpu():

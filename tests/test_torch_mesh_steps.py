@@ -10,8 +10,13 @@ the CPU), against the single-device steps and the reference.
   parameters and moments 1e-4).
 * One rank, serving mesh (1, 1): prefill and decode equal ``mesh=None`` bit
   for bit.
+* One rank, the train step's AdamW on the kernel's route (the CPU taken off
+  ``steps.PER_LEAF_DEVICES``, the kernel stood in for by its plain ops behind
+  its own checks): the kernel gets each leaf's local shards as plain
+  contiguous tensors, and the round equals the ``mesh=None`` round bit for
+  bit.
 * Two spawned ranks, one group, several meshes on it, each against
-  ``mesh=None`` within 1e-5:
+  ``mesh=None`` within 1e-5 (each train mesh also on the kernel's route):
 
   - (2, 1, 1): each rank draws only its own two vehicles' rows
     (``convert.vehicle_rows``, ``place_train_state(local_rows=True)``),
@@ -28,6 +33,7 @@ the CPU), against the single-device steps and the reference.
     mixtral on (1, 2) (its experts' hidden dim split, a partial sum) and of
     granite-moe on (2, 1) (its tokens split).
 """
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -45,6 +51,7 @@ from repro.configs import get_config as jax_get_config
 from repro.launch import steps as jsteps
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.kernels.adamw import kernel as adamw_kernel
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.launch.sharding import place_tree
@@ -143,6 +150,34 @@ def _flat_state(out, local: bool = True) -> dict:
     return flat
 
 
+# the AdamW kernel's stand-in: the leaves of each of its calls
+STAND_IN_CALLS: list[int] = []
+
+
+def _plain_adamw_(params, grads, mu, nu, c1, c2, *, lr, b1, b2, eps, weight_decay):
+    """The AdamW kernel's stand-in on CPU tensors: its wrapper's checks
+    (plain, contiguous f32 of one shape on one device), then
+    ``optim.adamw``'s ops in their order, written in place."""
+    adamw_kernel.check_leaves(params, grads, mu, nu)
+    STAND_IN_CALLS.append(len(params))
+    for p, g, m, v in zip(params, grads, mu, nu):
+        m.copy_(b1 * m + (1 - b1) * g)
+        v.copy_(b2 * v + (1 - b2) * torch.square(g))
+        p.copy_(p + -lr * ((m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * p))
+
+
+@contextlib.contextmanager
+def _kernel_route():
+    """The train step's AdamW on the kernel's route with CPU tensors (the CPU
+    off ``steps.PER_LEAF_DEVICES``, ``_plain_adamw_`` for the kernel)."""
+    saved = steps.PER_LEAF_DEVICES, adamw_kernel.adamw_
+    steps.PER_LEAF_DEVICES, adamw_kernel.adamw_ = ("meta",), _plain_adamw_
+    try:
+        yield
+    finally:
+        steps.PER_LEAF_DEVICES, adamw_kernel.adamw_ = saved
+
+
 # ------------------------------------------------------------ two ranks -----
 
 def _held_fraction(placed) -> float:
@@ -165,18 +200,21 @@ def _rank_main(rank: int, workdir: str) -> None:
     with open(os.path.join(workdir, "case.pkl"), "rb") as f:
         case = pickle.load(f)
     got = {}
-    for name, (vehicle, fsdp, model) in TRAIN_MESHES.items():
-        mesh = mesh_lib.make_federation_mesh(vehicle=vehicle, fsdp=fsdp, model=model,
-                                             explicit=True)
-        if vehicle > 1:      # this rank's rows only: the stack is never whole here
-            own = _numpy_state(case, convert.vehicle_rows(mesh, V))
-            _, _, start, out = _round(case, mesh, own, local_rows=True)
-            flat = _flat_state(out)
-        else:
-            _, _, start, out = _round(case, mesh, _numpy_state(case))
-            flat = {k: _whole(x) for k, x in _flat_state(out, local=False).items()}
-        got[name] = {k: x.detach().clone().numpy() for k, x in flat.items()}
-        got[f"held/{name}"] = _held_fraction(start)
+    for route, context in (("", contextlib.nullcontext), ("kernel/", _kernel_route)):
+        for name, (vehicle, fsdp, model) in TRAIN_MESHES.items():
+            mesh = mesh_lib.make_federation_mesh(vehicle=vehicle, fsdp=fsdp, model=model,
+                                                 explicit=True)
+            with context():
+                if vehicle > 1:      # this rank's rows only: the stack is never whole here
+                    own = _numpy_state(case, convert.vehicle_rows(mesh, V))
+                    _, _, start, out = _round(case, mesh, own, local_rows=True)
+                    flat = _flat_state(out)
+                else:
+                    _, _, start, out = _round(case, mesh, _numpy_state(case))
+                    flat = {k: _whole(x) for k, x in _flat_state(out, local=False).items()}
+            got[route + name] = {k: x.detach().clone().numpy() for k, x in flat.items()}
+            got[f"held/{route}{name}"] = _held_fraction(start)
+    got["stand_in_calls"] = list(STAND_IN_CALLS)
     for name, arch in SERVE_CASES:
         mesh = mesh_lib._mesh(SERVE_MESHES[name], ("data", "model"))
         got[f"{name}/{arch}"] = [x.numpy() for x in _serve(arch, mesh)]
@@ -239,6 +277,22 @@ def test_one_rank_mesh_round_equals_the_meshless_round(rounds):
             assert _local(b).data_ptr() == a.data_ptr()
     assert ts.in_specs[0]["blocks"]["attn"]["wq"] == (("vehicle",), None, None, "model")
     assert ts.out_specs[3] == {"loss": (), "kl": ()}
+
+
+def test_one_rank_mesh_round_on_the_kernel_route_gives_the_meshless_bits(rounds, one_rank):
+    """On the kernel's route the mesh round hands the kernel each vehicle's
+    leaves as this rank's plain local tensors, one call a vehicle step, and
+    its writes reach the placed state: the round equals ``mesh=None`` bit
+    for bit."""
+    case, (_, _, _, want), _ = rounds
+    STAND_IN_CALLS.clear()
+    with _kernel_route():
+        _, _, _, got = _round(case, one_rank)
+    leaves = len(steps.flatten(case["params"]))
+    assert STAND_IN_CALLS == [leaves] * V
+    want, got = _flat_state(want), _flat_state(got)
+    for name, x in got.items():
+        assert torch.equal(x, want[name]), name
 
 
 def test_one_rank_mesh_round_matches_reference(rounds):
@@ -327,6 +381,28 @@ def test_two_ranks_train_a_model_sharded_round(two_ranks, rounds, mesh_name):
         for rank, r in enumerate(two_ranks):
             np.testing.assert_allclose(r[mesh_name][name], x.numpy(), rtol=0, atol=1e-5,
                                        err_msg=f"{mesh_name} rank {rank}: {name}")
+
+
+@pytest.mark.parametrize("mesh_name", list(TRAIN_MESHES))
+def test_two_ranks_train_on_the_kernel_route(two_ranks, rounds, mesh_name):
+    """The train meshes with the round's AdamW on the kernel's route (each
+    rank's shards, a gradient placed otherwise than its row first placed as
+    it): the same state as the per-leaf route on each rank, and within 1e-5
+    of ``mesh=None``; the kernel took every vehicle step of every mesh."""
+    _, (_, _, _, want), _ = rounds
+    leaves = len(steps.flatten(_case()["params"]))
+    for rank, r in enumerate(two_ranks):
+        assert r["stand_in_calls"] == [leaves] * (2 + 4 + 4), rank
+        assert r[f"held/kernel/{mesh_name}"] == r[f"held/{mesh_name}"], rank
+        for name, x in r[f"kernel/{mesh_name}"].items():
+            np.testing.assert_allclose(x, r[mesh_name][name], rtol=0, atol=1e-6,
+                                       err_msg=f"{mesh_name} rank {rank}: {name}")
+    if mesh_name == "vehicle2":
+        return
+    for name, x in _flat_state(want).items():
+        for rank, r in enumerate(two_ranks):
+            np.testing.assert_allclose(r[f"kernel/{mesh_name}"][name], x.numpy(), rtol=0,
+                                       atol=1e-5, err_msg=f"{mesh_name} rank {rank}: {name}")
 
 
 @pytest.mark.parametrize("mesh_name,arch", SERVE_CASES)

@@ -35,8 +35,10 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.configs.registry import ARCHITECTURES, PORT_ONLY
 from repro_torch.core import aggregation
+from repro_torch.kernels.adamw import kernel as adamw_kernel
 from repro_torch.launch import steps, train, variants
 from repro_torch.models import attention, transformer
+from repro_torch.optim import AdamState, apply_updates
 
 LOSS_ARCHS = ["qwen3-1.7b", "granite-moe-1b-a400m", "rwkv6-3b", "hymba-1.5b", "internvl2-26b"]
 ROUND_ARCHS = ["qwen3-1.7b", "granite-moe-1b-a400m", "musicgen-large"]
@@ -399,6 +401,42 @@ def test_round_past_the_in_place_limit_copies_the_functional_mix_back(round_case
     assert float(a[3]["loss"]) == float(b[3]["loss"]) and torch.equal(a[2], b[2])
     for k, leaf in _flat(a[0]).items():
         assert torch.equal(_flat(b[0])[k], leaf), k
+
+
+def test_round_on_the_cpu_updates_leaf_by_leaf(round_case, monkeypatch):
+    """On the CPU the round's AdamW (``steps.adamw_step_``) takes
+    ``steps.adamw_per_leaf_`` once per vehicle over all its leaves, and the
+    kernel's launch count stays 0; the round gives the same parameters,
+    moments, counters and loss, bit for bit, as one whose vehicles take
+    ``optim.adamw``'s whole-tree update."""
+    cfg, inputs, _, _ = round_case
+    calls = []
+    real = steps.adamw_per_leaf_
+
+    def spy(optimizer, rows, *args):
+        calls.append(len(rows))
+        return real(optimizer, rows, *args)
+
+    def whole_tree(optimizer, rows, mu, nu, grads, count):
+        updates, new = optimizer.update(grads, AdamState(count, mu, nu), rows)
+        for name, x in apply_updates(rows, updates).items():
+            rows[name].copy_(x)
+            mu[name].copy_(new.mu[name])
+            nu[name].copy_(new.nu[name])
+        grads.clear()
+
+    monkeypatch.setattr(steps, "adamw_per_leaf_", spy)
+    adamw_kernel.reset_launch_counts()
+    a = _port_round(cfg, inputs)
+    assert calls == [len(_flat(a[0]))] * V and adamw_kernel.launch_counts["adamw"] == 0
+    monkeypatch.setattr(steps, "adamw_step_", whole_tree)
+    b = _port_round(cfg, inputs)
+    assert calls == [len(_flat(a[0]))] * V
+    assert float(a[3]["loss"]) == float(b[3]["loss"]) and torch.equal(a[1].count, b[1].count)
+    for tree in (lambda s: s[0], lambda s: s[1].mu, lambda s: s[1].nu):
+        want = _flat(tree(b))
+        for k, x in _flat(tree(a)).items():
+            assert torch.equal(x.view(torch.int32), want[k].view(torch.int32)), k
 
 
 def test_init_train_state_and_the_steps_of_serving():
